@@ -119,20 +119,14 @@ def _check_columns(columns, dtypes) -> torch.device:
 
 
 def _blocks(n: int, rows_per_step: int, lib: ctypes.CDLL, dev) -> int:
-    per_block = lib.q6_threads_per_block() * rows_per_step
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(-(-n // per_block), sms * _BLOCKS_PER_SM))
+    return build.grid_blocks(n, lib.q6_threads_per_block() * rows_per_step,
+                             _BLOCKS_PER_SM, dev)
 
 
 def _check_bounds(date_lo: int, date_hi: int, bits: int) -> None:
     for bound in (date_lo, date_hi):
         if not -2**(bits - 1) <= bound < 2**(bits - 1):
             raise ValueError(f"date code {bound} does not fit int{bits} codes")
-
-
-def _check_launch(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def q6_scan(ship, disc, qty, price, live, date_lo: int, date_hi: int) -> torch.Tensor:
@@ -154,7 +148,7 @@ def q6_scan(ship, disc, qty, price, live, date_lo: int, date_hi: int) -> torch.T
                               price.data_ptr(), live.view(torch.uint8).data_ptr(),
                               n, date_lo, date_hi, partials.data_ptr(), blocks,
                               stream)
-    _check_launch(err, "q6_scan_f32")
+    build.check_launch(err, "q6_scan_f32")
     q6_scan.launches += 1
     return partials.to(torch.float64).sum()
 
@@ -183,7 +177,7 @@ def q6_encoded(ship, disc_cents, qty, price_cents, date_lo: int,
                                  qty.data_ptr(), price_cents.data_ptr(), n,
                                  date_lo, date_hi, partials.data_ptr(), blocks,
                                  stream)
-    _check_launch(err, "q6_encoded_i64")
+    build.check_launch(err, "q6_encoded_i64")
     q6_encoded.launches += 1
     return partials.sum()
 

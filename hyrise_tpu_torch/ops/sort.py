@@ -33,4 +33,5 @@ class Sort(AbstractOperator):
         table = self.input_table(0)
         perm = sort_permutation(table, self.sort_defs)
         # dead rows sort last, so the live rows are the first num_rows
-        return gather_table(table, perm[:table.num_rows])
+        # and a permutation repeats no row, so unique flags survive
+        return gather_table(table, perm[:table.num_rows], preserve_unique=True)

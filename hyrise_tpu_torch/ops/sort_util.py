@@ -42,14 +42,20 @@ def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
-def sort_permutation(table: Table,
-                     sort_defs: Sequence[Tuple[str, SortMode]]) -> torch.Tensor:
-    """Stable permutation ordering live rows by sort_defs, dead rows last."""
+def sort_permutation(table: Table, sort_defs: Sequence[Tuple[str, SortMode]],
+                     nulls_tie: bool = False) -> torch.Tensor:
+    """Stable permutation ordering live rows by sort_defs, dead rows last.
+    With nulls_tie the NULLs of a key compare equal, whatever values lie
+    under them; without it they order by those values, as in the JAX
+    package's Sort."""
     keys: List[torch.Tensor] = []
     # lexsort: LAST key is primary; append from least to most significant.
     for name, mode in reversed(list(sort_defs)):
         c = table.column(name)
-        keys.append(_value_key(c.data, c.dtype, mode.ascending))
+        key = _value_key(c.data, c.dtype, mode.ascending)
+        if nulls_tie and c.validity is not None:
+            key = torch.where(c.validity, key, 0)
+        keys.append(key)
         if c.validity is not None:
             # the null flag outranks the value. nulls_first: NULL -> 0 else 1.
             flag = c.validity if mode.nulls_first else ~c.validity
@@ -59,8 +65,11 @@ def sort_permutation(table: Table,
 
 
 def group_permutation(table: Table, groupby: Sequence[str]) -> torch.Tensor:
-    """Permutation clustering equal group keys (NULLs are one group)."""
-    return sort_permutation(table, [(name, SortMode.ASCENDING) for name in groupby])
+    """Permutation clustering equal group keys. NULLs are one group: they
+    must tie, or a later key would be sorted within each value hidden under
+    a NULL and split the NULL group into several runs."""
+    return sort_permutation(table, [(name, SortMode.ASCENDING) for name in groupby],
+                            nulls_tie=True)
 
 
 def group_boundaries(table: Table, groupby: Sequence[str],

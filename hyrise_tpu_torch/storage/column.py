@@ -17,7 +17,7 @@ with a live mask (storage/table.py) may still carry dead rows.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,20 +67,34 @@ class Column:
     device:     where the tensors live; taken from `data` unless `data` is
                 a thunk, in which case the caller names it.
     capacity:   row count of a thunk column, known without running it.
+    unique:     the live values are pairwise distinct (primary keys, a
+                single group-by key's output). Filters, renames and the
+                probe side of a lookup join keep the flag; anything that
+                can repeat a row drops it. It selects the lookup join
+                (ops/join.py), so a wrong True gives wrong join results:
+                only provably distinct sources set it.
+    val_range:  host-known (min, max) over the live values of an integer
+                column, set at ingest. It sizes the lookup join's
+                direct-address table without a device read; it is
+                conservative, so any row subset keeps it and any value
+                transformation drops it.
     """
 
     __slots__ = ("name", "dtype", "_data", "_validity", "dictionary",
-                 "device", "_capacity")
+                 "device", "_capacity", "unique", "val_range")
 
     def __init__(self, name: str, dtype: DataType, data, validity=None,
                  dictionary: Optional[np.ndarray] = None,
                  device: Optional[torch.device] = None,
-                 capacity: Optional[int] = None):
+                 capacity: Optional[int] = None, unique: bool = False,
+                 val_range: Optional[Tuple[int, int]] = None):
         self.name = name
         self.dtype = dtype
         self._data = data
         self._validity = validity
         self.dictionary = dictionary
+        self.unique = unique
+        self.val_range = val_range
         if callable(data):
             if device is None or capacity is None:
                 raise ValueError("a lazy column needs its device and capacity")
@@ -115,7 +129,8 @@ class Column:
                    dictionary: Optional[np.ndarray] = None, *,
                    device) -> "Column":
         """Upload host values to `device`. STRING values without a
-        dictionary are encoded here; None entries become NULLs."""
+        dictionary are encoded here; None entries become NULLs. Integer
+        columns get their `val_range` from the non-NULL values."""
         if dtype is DataType.STRING and dictionary is None:
             codes, dictionary, none_mask = encode_strings(values)
             if none_mask.any():
@@ -130,7 +145,12 @@ class Column:
         vmask = None
         if validity is not None:
             vmask = torch.tensor(np.asarray(validity, dtype=bool), device=device)
-        return Column(name, dtype, data, vmask, dictionary)
+        val_range = None
+        if dtype.is_integral:
+            present = arr if validity is None else arr[np.asarray(validity, dtype=bool)]
+            if len(present):
+                val_range = (int(present.min()), int(present.max()))
+        return Column(name, dtype, data, vmask, dictionary, val_range=val_range)
 
     # -- accessors -----------------------------------------------------------
 
@@ -159,9 +179,11 @@ class Column:
         return data
 
     def with_name(self, name: str) -> "Column":
-        # shares the (possibly still-unmaterialized) payload
+        # shares the (possibly still-unmaterialized) payload; a rename never
+        # transforms values, so the value metadata survives
         return Column(name, self.dtype, self._data, self._validity,
-                      self.dictionary, self.device, self._capacity)
+                      self.dictionary, self.device, self._capacity,
+                      self.unique, self.val_range)
 
     def code_for(self, value: str) -> Optional[int]:
         """Exact dictionary code of a string value, or None if absent."""

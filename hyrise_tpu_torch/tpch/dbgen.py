@@ -18,7 +18,8 @@ hundreds of millions of strings.
 
 The numpy generators are a copy of hyrise_tpu/tpch/dbgen.py, pinned by
 tests/test_torch_storage.py; only `_make_table` differs: it uploads to the
-device it is given, without capacity padding.
+device it is given, without capacity padding. It sets the same `unique`
+and `val_range` column metadata.
 """
 
 from __future__ import annotations
@@ -189,8 +190,16 @@ def _addresses(rng, n) -> EncodedStr:
 # table constructors
 
 
+# Single-column primary keys (TPC-H spec 1.4.2): they select the lookup join
+# (ops/join.py). partsupp's key is composite, so none of its columns counts.
+PRIMARY_KEYS = {"r_regionkey", "n_nationkey", "s_suppkey", "c_custkey",
+                "p_partkey", "o_orderkey"}
+
+
 def _make_table(name: str, specs: List[ColSpec], n: int, device) -> Table:
-    """Upload one generated table to `device`, unpadded (capacity = n)."""
+    """Upload one generated table to `device`, unpadded (capacity = n).
+    Integer columns carry their (min, max) as `val_range`, primary keys the
+    `unique` flag."""
     cols = []
     for col_name, dt, payload in specs:
         if dt is DataType.STRING:
@@ -202,7 +211,12 @@ def _make_table(name: str, specs: List[ColSpec], n: int, device) -> Table:
             data = torch.as_tensor(
                 np.ascontiguousarray(payload, dtype=dt.numpy_dtype),
                 device=device)
-            cols.append(Column(col_name, dt, data))
+            val_range = None
+            if dt.is_integral and n:
+                val_range = (int(payload.min()), int(payload.max()))
+            cols.append(Column(col_name, dt, data,
+                               unique=col_name in PRIMARY_KEYS,
+                               val_range=val_range))
     return Table(cols, n, name=name)
 
 

@@ -57,6 +57,44 @@ def test_generate_tables_matches_jax(name):
             assert pc.dictionary is None
         else:
             np.testing.assert_array_equal(pc.dictionary, jc.dictionary)
+        # the metadata that selects and sizes the lookup join
+        assert pc.unique == jc.unique
+        assert pc.val_range == jc.val_range
+
+
+def test_primary_keys_are_flagged_unique():
+    _, port_tables = _both_tpch()
+    flagged = {c.name for t in port_tables.values() for c in t.columns if c.unique}
+    assert flagged == {"r_regionkey", "n_nationkey", "s_suppkey", "c_custkey",
+                       "p_partkey", "o_orderkey"}
+    assert port_tables["lineitem"].column("l_orderkey").val_range[0] == 1
+    assert port_tables["lineitem"].column("l_quantity").val_range is None  # float
+
+
+@pytest.mark.parametrize("case", ["int32_nulls", "int64", "float64", "string", "empty"])
+def test_from_numpy_val_range_matches_jax(case):
+    dt, values, validity = ROUND_TRIP_CASES[case]
+    pc = Column.from_numpy("c", dt, values, validity, device="cpu")
+    jc = JaxColumn.from_numpy("c", JaxDataType(dt.value), values, validity)
+    assert pc.val_range == jc.val_range and not pc.unique
+    renamed = pc.with_name("d")
+    assert renamed.val_range == pc.val_range and renamed.unique == pc.unique
+
+
+def test_table_from_numpy_carries_the_metadata():
+    jt = jax_generate_tables(SF)["nation"]
+    cols, n, live = export(jt)
+    plain = table_from_numpy("nation", cols, n, live, device="cpu")
+    assert not plain.column("n_nationkey").unique
+    # ranged over the whole array, padding rows included: wider, still a bound
+    assert plain.column("n_nationkey").val_range == (0, 24)
+    carried = table_from_numpy(
+        "nation", cols, n, live, device="cpu",
+        unique=[c.name for c in jt.columns if c.unique],
+        val_ranges={c.name: c.val_range for c in jt.columns})
+    for jc in jt.columns:
+        assert carried.column(jc.name).unique == jc.unique
+        assert carried.column(jc.name).val_range == jc.val_range
 
 
 ROUND_TRIP_CASES = {
