@@ -35,8 +35,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              from the same generated arrays, and Q3, Q5, Q9, Q10, Q14 and
              Q18 equal to the same plans run over CPU copies of the same
              tables; then the Q6 bench (hyrise_tpu_torch/bench_q6.py)
-             through K1 and K2 on that lineitem. Every kernel's launch count
-             must have risen.
+             through K1 and K2 on that lineitem. The launch count of each of
+             K1-K5 must have risen;
+6. sql     — the SQL entry point (SQLPipelineBuilder: parse, LQP, optimize,
+             physical plan, execute) on the card: the 22 TPC-H texts at
+             SF 0.01 (Q20 at 0.05) against the same sqlite databases as
+             phase 5 and the SELECTs of tests/sql_corpus.sql over its four
+             small tables against sqlite (integers and strings equal, floats
+             within 1e-6 relative; a statement that needs the 1e-4 of
+             tests/test_sql_corpus.py is named), with every launch count at 0
+             again before them; then the 22 texts at SF1, each equal as a row set
+             (1e-6 relative) to the rows phase 5 got from the hand plan of the
+             same query: first run and median of 5 with the plan cache on,
+             and the stage seconds of StatementMetrics. Q1's and Q6's plans
+             must hold a FusedFilterAggregate that did not fall back, and
+             the launch count of each of K6-K9 must have risen.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}} and is printed only when every phase passed.
@@ -314,6 +327,388 @@ def check_k5(n: int, device, join_probe):
     return probe.shape[0], max_abs_diff(((probe, ref_probe), (rows, ref_rows)))
 
 
+def exact_values(rng, n: int, device):
+    """Seeded values of the four types. The float values are binary
+    fractions small enough that every partial sum is exact in float64, so any
+    summation order gives the same sum."""
+    values = {
+        "float64": rng.integers(0, 10**7, n) / 128.0,
+        "float32": (rng.integers(0, 2**14, n) / 4.0).astype(np.float32),
+        "int64": rng.integers(-10**12, 10**12, n),
+        "int32": rng.integers(-10**6, 10**6, n).astype(np.int32),
+    }
+    return {k: torch.as_tensor(v, device=device) for k, v in values.items()}
+
+
+def same_reduction(got, ref, what: str) -> float:
+    """Dtype and shape equal; a float64 result within 1e-12 relative, any
+    other equal. Returns the largest absolute difference."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} vs plain "
+                             f"{ref.dtype}{tuple(ref.shape)}")
+    if got.numel() == 0:
+        return 0.0
+    if got.dtype == torch.float64:
+        both_inf = torch.isinf(got) & (got == ref)  # an empty group's extreme
+        diff = torch.where(both_inf, 0.0, (got - ref).abs())
+        if bool((diff > 1e-12 * ref.abs().clamp(min=1.0)).any()):
+            raise AssertionError(f"{what}: differs from plain by {float(diff.max())}")
+        return float(diff.max())
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{what}: differs from its plain version")
+    return 0.0
+
+
+def k6_inputs(n: int, shape: str, device):
+    """(mask, keys, sizes, slots) for K6. 'q1': Q1's launch, two code
+    columns of 3 x 2 cells, the sums of five float32 inputs (two of them
+    read by a second slot, as AVG shares SUM's input) and COUNT(*), 98% of
+    the rows. 'q6': no key, one float32 sum, 2% of the rows. 'mixed': 64
+    cells, the four input types, sum, min, max and count, two validity
+    columns. 'split': 64 cells and 16 nullable float64 sums, more
+    accumulators than one launch holds."""
+    rng = np.random.default_rng(n * 31 + len(shape))
+    up = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    v = exact_values(rng, n, device)
+    share = {"q1": 0.98, "q6": 0.02}.get(shape, 0.7)
+    mask = up(rng.random(n) < share)
+    if shape == "q1":
+        sizes = [3, 2]
+        f = [up((rng.integers(0, 2**14, n) / 4.0).astype(np.float32)) for _ in range(5)]
+        slots = [(f[0], None, "sum"), (f[1], None, "sum"), (f[2], None, "sum"),
+                 (f[3], None, "sum"), (f[0], None, "sum"), (f[1], None, "sum"),
+                 (f[4], None, "sum"), (None, None, "count")]
+    elif shape == "q6":
+        sizes, slots = [], [(v["float32"], None, "sum")]
+    elif shape == "mixed":
+        sizes = [4, 4, 4]
+        va, vb = up(rng.random(n) < 0.6), up(rng.random(n) < 0.9)
+        slots = [(v["float64"], va, "sum"), (v["int64"], None, "sum"),
+                 (v["int32"], va, "min"), (v["float32"], None, "max"),
+                 (v["int64"], vb, "max"), (v["float64"], vb, "min"),
+                 (v["int32"], None, "sum"), (None, va, "count"), (None, None, "count")]
+    else:
+        sizes = [8, 8]
+        slots = [(up(rng.integers(0, 10**7, n) / 128.0), up(rng.random(n) < 0.8), "sum")
+                 for _ in range(16)]
+    keys = [up(rng.integers(0, size, n).astype(np.int32)) for size in sizes]
+    return mask, keys, sizes, slots
+
+
+def check_k6(n: int, device, fused_reduce) -> float:
+    """K6 against its plain version in four shapes; the same bits from two
+    launches. Returns the largest absolute difference of a float sum."""
+    worst = 0.0
+    for shape, launches in (("q1", 1), ("q6", 1), ("mixed", 1), ("split", 3)):
+        args = k6_inputs(n, shape, device)
+        before = fused_reduce.fused_cells_reduce.launches
+        counts, results = fused_reduce.fused_cells_reduce(*args)
+        if fused_reduce.fused_cells_reduce.launches - before != launches:
+            raise AssertionError(f"K6 {shape}: expected {launches} launch(es)")
+        again_counts, again = fused_reduce.fused_cells_reduce(*args)
+        ref_counts, ref = fused_reduce.fused_cells_reduce_plain(*args)
+        torch.cuda.synchronize()
+        same_reduction(counts, ref_counts, f"K6 {shape} n={n} row counts")
+        if n > 1000 and int(counts.sum()) == 0:
+            raise AssertionError(f"K6 {shape} n={n}: no row passed, the check is empty")
+        for i, ((r, c), (r2, c2), (rr, rc)) in enumerate(zip(results, again, ref)):
+            worst = max(worst, same_reduction(r, rr, f"K6 {shape} n={n} slot {i}"))
+            same_reduction(c, rc, f"K6 {shape} n={n} slot {i} valid counts")
+            if not (torch.equal(r, r2) and torch.equal(c, c2)):
+                raise AssertionError(f"K6 {shape} n={n} slot {i}: two launches differ")
+    return worst
+
+
+def k7_inputs(n: int, n_groups: int, device):
+    """n rows in n_groups sorted segments of random sizes (some empty), a
+    permutation and a validity column."""
+    rng = np.random.default_rng(n * 13 + n_groups)
+    cuts = np.sort(rng.integers(0, n + 1, n_groups - 1))
+    starts = np.concatenate([[0], cuts, [n]]).astype(np.int64)
+    up = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return (exact_values(rng, n, device), up(starts),
+            up(rng.permutation(n).astype(np.int64)), up(rng.random(n) < 0.7),
+            up(rng.random(n) * 1e5 - 2e4))
+
+
+def check_k7(n: int, device, segment_reduce) -> float:
+    """K7 against its plain version at about 4 rows a group and at 1,000
+    groups at most; the same bits from two launches."""
+    worst = 0.0
+    for n_groups in sorted({n // 4 + 1, min(n, 1000)}):
+        values, starts, rows, validity, noisy = k7_inputs(n, n_groups, device)
+        cases = [("count", None)]
+        for name in values:
+            cases += [("sum", name), ("min", name), ("max", name)]
+        for kind, name in cases:
+            v = None if name is None else values[name]
+            for r, m in ((rows, validity), (None, None)):
+                got = segment_reduce.segment_reduce_sorted(v, starts, kind, r, m)
+                ref = segment_reduce.segment_reduce_sorted_plain(v, starts, kind, r, m)
+                torch.cuda.synchronize()
+                what = f"K7 {kind} {name} n={n} groups={n_groups}"
+                worst = max(worst, same_reduction(got[0], ref[0], what))
+                same_reduction(got[1], ref[1], what + " valid counts")
+        a = segment_reduce.segment_reduce_sorted(noisy, starts, "sum", rows, validity)[0]
+        b = segment_reduce.segment_reduce_sorted(noisy, starts, "sum", rows, validity)[0]
+        ref = segment_reduce.segment_reduce_sorted_plain(noisy, starts, "sum", rows,
+                                                         validity)[0]
+        if not torch.equal(a, b):
+            raise AssertionError(f"K7 n={n} groups={n_groups}: two launches differ")
+        if bool(((a - ref).abs() > 1e-9 * ref.abs().clamp(min=1.0)).any()):
+            raise AssertionError(f"K7 noisy sum n={n} groups={n_groups} differs from plain")
+    return worst
+
+
+def k8_inputs(n: int, kind: str, device):
+    """Build keys (a quarter of n; each value about twice, as a join on a
+    foreign key finds them, and one value 64 times; a fifth invalid) and n
+    probe keys, half of them build keys: int64 keys spread over 2^40 values,
+    more than the direct-address table takes, INT64_MIN among them; or
+    float64 keys with -0.0, 0.0 and NaN among them."""
+    rng = np.random.default_rng(n + 8 + len(kind))
+    nb = n // 4 + 1
+    pool = rng.integers(-2**39, 2**39, nb // 2 + 1)
+    build_keys = rng.choice(pool, nb)
+    build_keys[rng.integers(0, nb, min(64, nb))] = pool[0]
+    probe_keys = np.where(rng.random(n) < 0.5, rng.choice(build_keys, n),
+                          rng.integers(-2**39, 2**39, n))
+    if kind == "float64":
+        build_keys, probe_keys = build_keys / 8.0, probe_keys / 8.0
+        special = np.array([-0.0, 0.0, np.nan, np.inf])
+    else:
+        special = np.array([np.iinfo(np.int64).min, np.iinfo(np.int64).max, 0, -1])
+    if n >= 1000:
+        build_keys[1:5], build_keys[-4:] = special, special
+        probe_keys[:4], probe_keys[-4:] = special, special[::-1]
+    valid = rng.random(nb) > 0.2
+    up = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return up(build_keys), up(valid), up(probe_keys)
+
+
+def k8_hot_key_inputs(n: int, device):
+    """k8_inputs' int64 keys with a third of the build rows on ONE key: the
+    skew that would serialise a build that always used its atomics."""
+    build_keys, valid, probe_keys = k8_inputs(n, "int64", device)
+    hot = torch.rand(build_keys.shape[0], device=device) < 1 / 3
+    return torch.where(hot, build_keys[0], build_keys), valid, probe_keys
+
+
+def check_k8(n: int, device, hash_lookup) -> float:
+    """K8 against its plain version on int64 and float64 keys, and with an
+    empty build side; the check is equality."""
+    worst = 0.0
+    for kind in ("int64", "float64", "hot key"):
+        args = k8_hot_key_inputs(n, device) if kind == "hot key" \
+            else k8_inputs(n, kind, device)
+        for build_keys, valid, probe_keys in (args, (args[0][:0], args[1][:0], args[2])):
+            matched, rows = hash_lookup.lookup_last_eq(build_keys, valid, probe_keys)
+            ref_matched, ref_rows = hash_lookup.lookup_last_eq_plain(build_keys, valid,
+                                                                     probe_keys)
+            torch.cuda.synchronize()
+            if not (torch.equal(matched, ref_matched) and torch.equal(rows, ref_rows)):
+                raise AssertionError(f"K8 lookup_last_eq {kind} at n={n}, "
+                                     f"{build_keys.shape[0]} build rows, differs from "
+                                     "its plain version")
+            worst = max(worst, max_abs_diff(((matched, ref_matched), (rows, ref_rows))))
+    return worst
+
+
+K9_SHARES = (0.0, 0.02, 0.5, 0.98, 1.0)
+
+
+def k9_mask(n: int, share: float, device):
+    rng = np.random.default_rng(n + int(share * 100))
+    return torch.as_tensor(rng.random(n) < share, device=device)
+
+
+def check_k9(n: int, device, compact) -> float:
+    """K9 against its plain version at five selectivities and from a view
+    that starts one byte into its buffer; the check is equality."""
+    worst = 0.0
+    for share in K9_SHARES:
+        mask = k9_mask(n + 1, share, device)
+        for m in (mask[:n], mask[1:]):
+            got, ref = compact.compact_indices(m), compact.compact_indices_plain(m)
+            torch.cuda.synchronize()
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                raise AssertionError(f"K9 compact_indices at n={n}, share {share}, "
+                                     "differs from its plain version")
+            worst = max(worst, max_abs_diff(((got, ref),)))
+    return worst
+
+
+def time_k6_to_k9(n: int, device, card: str, time_ms, mods):
+    """Median device ms of K6-K9, their plain versions and the PyTorch calls
+    that compute the same function, at the shapes of the main path; each
+    shape is first held against its plain version. Returns, per label,
+    {kernel, plain, library, bytes, bound} (ms; bound: each input read and
+    each output written once at the card's memory rate) and the largest
+    absolute difference seen."""
+    fused_reduce, segment_reduce, hash_lookup, compact, group_reduce = mods
+    out, worst = {}, 0.0
+
+    def record(label, kernel, plain, library, nbytes, note):
+        order = [("plain", plain), ("kernel", kernel)]
+        order += [("library", library)] if library is not None else []
+        order += [("kernel", kernel), ("plain", plain)]
+        t = turns(order, device, time_ms)
+        t.setdefault("library", None)
+        t["bytes"], t["bound"] = nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
+        out[label] = t
+        lib = "" if t["library"] is None else f", {note} {t['library']:.4f}"
+        log(f"kernels n={n} {label} median device ms {card}: kernel {t['kernel']:.4f}, "
+            f"plain {t['plain']:.4f}{lib}, bound {t['bound']:.4f} "
+            f"({nbytes / t['kernel'] / 1e6:.1f} GB/s)")
+
+    # K6 in Q1's shape (what replaces it: the cell column by `where` and the 8
+    # K3 launches of Aggregate._dense) and in Q6's
+    for shape in ("q1", "q6"):
+        mask, keys, sizes, slots = k6_inputs(n, shape, device)
+        n_cells = int(np.prod(sizes)) if sizes else 1
+        got, ref = (f(mask, keys, sizes, slots) for f in
+                    (fused_reduce.fused_cells_reduce, fused_reduce.fused_cells_reduce_plain))
+        for i, ((r, c), (rr, rc)) in enumerate(zip(got[1], ref[1])):
+            worst = max(worst, same_reduction(r, rr, f"K6 {shape} timed slot {i}"))
+            same_reduction(c, rc, f"K6 {shape} timed slot {i} valid counts")
+
+        def k3_launches(i, mask=mask, keys=keys, sizes=sizes, slots=slots, k=n_cells):
+            cell = torch.zeros(n, dtype=torch.int32, device=device)
+            for key, size in zip(keys, sizes):
+                cell = cell * size + key
+            cell = torch.where(mask, cell, k)
+            res = [group_reduce.segment_reduce_cells(None, cell, k, "count")]
+            for values, _, kind in slots:
+                if kind == "sum":
+                    res.append(group_reduce.segment_reduce_cells(values, cell, k, "sum"))
+            return res
+
+        lib_out = k3_launches(0)
+        same_reduction(lib_out[0], got[0], f"K6 {shape}: the K3 launches' row count")
+        same_reduction(lib_out[1], got[1][0][0], f"K6 {shape}: the K3 launches' first sum")
+        distinct = {id(v): v for v, _, _ in slots if v is not None}
+        nbytes = n * (1 + 4 * len(keys)) + sum(v.element_size() * n for v in
+                                               distinct.values()) \
+            + 8 * n_cells * (1 + len(slots))
+        record(f"K6 {shape}",
+               lambda i, a=(mask, keys, sizes, slots): fused_reduce.fused_cells_reduce(*a),
+               lambda i, a=(mask, keys, sizes, slots):
+                   fused_reduce.fused_cells_reduce_plain(*a),
+               k3_launches, nbytes, f"where + {len(lib_out)} K3 launches")
+
+    # K7: a float64 sum through the permutation, at about 4 rows a group (Q18,
+    # Q21) and at 1,000 groups; index_add_ and torch.segment_reduce take the
+    # values already gathered into group order
+    for label, n_groups in (("4 rows a group", n // 4 + 1), ("1000 groups", 1000)):
+        values, starts, rows, _, _ = k7_inputs(n, n_groups, device)
+        v = values["float64"]
+        got = segment_reduce.segment_reduce_sorted(v, starts, "sum", rows)
+        ref = segment_reduce.segment_reduce_sorted_plain(v, starts, "sum", rows)
+        worst = max(worst, same_reduction(got[0], ref[0], f"K7 timed {label}"))
+        gathered = v.index_select(0, rows)
+        lengths = starts[1:] - starts[:-1]
+        gid = torch.repeat_interleave(torch.arange(n_groups, device=device), lengths)
+        index_add = lambda i, g=gid, d=gathered, k=n_groups: (  # noqa: E731
+            torch.zeros(k, dtype=torch.float64, device=device).index_add_(0, g, d))
+        seg_reduce = lambda i, d=gathered, ln=lengths: (  # noqa: E731
+            torch.segment_reduce(d, "sum", lengths=ln))
+        same_reduction(index_add(0), ref[0], f"K7 {label}: index_add_")
+        same_reduction(seg_reduce(0), ref[0], f"K7 {label}: torch.segment_reduce")
+        nbytes = n * (8 + 8) + (n_groups + 1) * 8 + n_groups * 16
+        args = (v, starts, "sum", rows)
+        record(f"K7 {label}",
+               lambda i, a=args: segment_reduce.segment_reduce_sorted(*a),
+               lambda i, a=args: segment_reduce.segment_reduce_sorted_plain(*a),
+               index_add, nbytes, "index_add_ (gather not included)")
+        out[f"K7 {label}"]["segment_reduce"] = time_ms(seg_reduce, device)
+        log(f"kernels n={n} K7 {label} torch.segment_reduce (gather not included) "
+            f"{out[f'K7 {label}']['segment_reduce']:.4f} ms {card}")
+
+    # K8: int64 keys spread over 2^40 values, n // 4 + 1 build rows, n probes
+    args = k8_inputs(n, "int64", device)
+    got, ref = hash_lookup.lookup_last_eq(*args), hash_lookup.lookup_last_eq_plain(*args)
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError("K8 timed shape differs from its plain version")
+    nb = args[0].shape[0]
+    record(f"K8 {nb} build rows",
+           lambda i: hash_lookup.lookup_last_eq(*args),
+           lambda i: hash_lookup.lookup_last_eq_plain(*args), None,
+           nb * (8 + 1) + n * 8 + n * (1 + 8), "")
+    out["K8"] = out[f"K8 {nb} build rows"]
+    hot = k8_hot_key_inputs(n, device)
+    got, ref = hash_lookup.lookup_last_eq(*hot), hash_lookup.lookup_last_eq_plain(*hot)
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError("K8 hot-key shape differs from its plain version")
+    record(f"K8 {nb} build rows, a third on one key",
+           lambda i: hash_lookup.lookup_last_eq(*hot),
+           lambda i: hash_lookup.lookup_last_eq_plain(*hot), None,
+           nb * (8 + 1) + n * 8 + n * (1 + 8), "")
+
+    # K9 at Q6's, an even and Q1's selectivity; the library call is nonzero
+    for share in (0.02, 0.5, 0.98):
+        mask = k9_mask(n, share, device)
+        got, ref = compact.compact_indices(mask), compact.compact_indices_plain(mask)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K9 timed share {share} differs from its plain version")
+        record(f"K9 share {share}",
+               lambda i, m=mask: compact.compact_indices(m),
+               lambda i, m=mask: compact.compact_indices_plain(m),
+               lambda i, m=mask: torch.nonzero(m), n + 8 * got.shape[0],
+               "torch.nonzero")
+    return out, worst
+
+
+def corpus_tables(device):
+    """The four small tables tests/sql_corpus.sql is written against (those
+    of tests/test_sql_corpus.py)."""
+    from hyrise_tpu_torch.storage.table import Table, TableColumnDefinition as Def
+    from hyrise_tpu_torch.types import DataType as T
+    rng = np.random.default_rng(5)
+    n = 10
+    obj = lambda values: np.array(values, dtype=object)  # noqa: E731
+    s = ["red", "green", None, "blue", "red", "green", "red", None, "amber", "blue"]
+    return {
+        "mixed": Table.from_arrays(
+            "mixed", [Def("a", T.INT32), Def("b", T.FLOAT32), Def("s", T.STRING, True)],
+            [np.arange(1, n + 1, dtype=np.int32), (rng.random(n) * 100).astype(np.float32),
+             obj(s)], device=device),
+        "lookup": Table.from_arrays(
+            "lookup", [Def("k", T.INT32), Def("v", T.STRING)],
+            [np.array([1, 2, 2, 5, 11], dtype=np.int32),
+             obj(["one", "two", "deux", "five", "eleven"])], device=device),
+        "empty_t": Table.from_arrays("empty_t", [Def("x", T.INT32)],
+                                     [np.array([], dtype=np.int32)], device=device),
+        "nullnum": Table.from_arrays(
+            "nullnum", [Def("i", T.INT32, True), Def("f", T.FLOAT64, True),
+                        Def("g", T.INT32)],
+            [np.array([1, 0, 3, 0, 5, 3, 0, 8], dtype=np.int32),
+             np.array([0.5, 1.5, 0, 0, 2.5, 0, 3.5, 4.5]),
+             np.arange(1, 9, dtype=np.int32)],
+            [np.array([1, 0, 1, 0, 1, 1, 0, 1], dtype=bool),
+             np.array([1, 1, 0, 0, 1, 0, 1, 1], dtype=bool), None], device=device),
+    }
+
+
+def corpus_statements():
+    import pathlib
+    text = (pathlib.Path(__file__).resolve().parent / "tests" / "sql_corpus.sql").read_text()
+    lines = [ln for ln in text.splitlines() if not ln.strip().startswith("--")]
+    return [q.strip() for q in "\n".join(lines).split(";") if q.strip()]
+
+
+def operators_of(plan):
+    seen = {}
+
+    def walk(op):
+        if id(op) not in seen:
+            seen[id(op)] = op
+            for i in op.inputs:
+                walk(i)
+
+    walk(plan)
+    return list(seen.values())
+
+
 def check_rows(got, want, what: str, table_eq) -> None:
     """Integers and strings equal, floats within 1e-6 relative, as row sets
     (ties of an ORDER BY may fall either way)."""
@@ -352,6 +747,99 @@ def catalog_of(tables):
     return cat
 
 
+def run_sql_text(sql: str, cat, make_pipeline):
+    """(rows, statement metrics, physical plan, wall ms to rows on the host)
+    of one statement through the SQL pipeline, the plan cache on."""
+    t0 = time.perf_counter()
+    pipeline = make_pipeline(sql).with_catalog(cat).create_pipeline()
+    rows = pipeline.get_result_table().rows()
+    ms = (time.perf_counter() - t0) * 1e3
+    statement = pipeline.pipeline_statements[-1]
+    return rows, statement.metrics, getattr(statement, "last_plan", None), ms
+
+
+def sql_phase(device, card, cat, hand_rows, hand_wall, wrappers, sql_kernels, table_eq,
+              make_pipeline, fused_operator, oracle_class, tpch_sql):
+    """Phase 6 after its TPC-H part at the small scale: the corpus against
+    sqlite, then the 22 texts at SF1 against the hand plans' rows, with every
+    launch count set to 0 before the two. Returns the launch counts read
+    after them. (The corpus' EXCEPT and INTERSECT reach K8 through Difference;
+    no join of the 22 optimized TPC-H plans takes the general lookup.)"""
+    for w in wrappers.values():
+        w.launches = 0
+    # 6b. the corpus
+    tables = corpus_tables(device)
+    oracle = oracle_class(tables)
+    corpus_cat = catalog_of(tables)
+    statements = corpus_statements()
+    loose = []
+    t0 = time.perf_counter()
+    for sql in statements:
+        out = make_pipeline(sql).with_catalog(corpus_cat).dont_cache_query_plans() \
+            .create_pipeline().get_result_table()
+        if out.device != device:
+            raise AssertionError(f"corpus statement came out on {out.device}: {sql}")
+        rows, want = out.rows(), oracle.query(sql)
+        ok, _ = table_eq.tables_equal(rows, want, ordered=False, rel_tol=1e-6, abs_tol=0.0)
+        if not ok:
+            # sqlite computes a float32 column's arithmetic in float64
+            ok, msg = table_eq.tables_equal(rows, want, ordered=False, rel_tol=1e-4,
+                                            abs_tol=1e-4)
+            if not ok:
+                raise AssertionError(f"corpus vs sqlite: {sql}: {msg}")
+            loose.append(sql)
+    oracle.close()
+    log(f"sql: {len(statements)} statements of tests/sql_corpus.sql on {device} match "
+        f"sqlite in {time.perf_counter() - t0:.1f} s: ints and strings equal, floats "
+        f"within 1e-6 relative, but for {len(loose)} that need 1e-4 (float32 arithmetic "
+        f"that sqlite does in float64): {loose}")
+
+    corpus_launches = {name: w.launches for name, w in wrappers.items()}
+    # 6c. the 22 texts at SF1
+    wall, stages = {}, {}
+    for qid in sorted(tpch_sql):
+        rows, first_metrics, plan, first_ms = run_sql_text(tpch_sql[qid], cat, make_pipeline)
+        if first_metrics.cache_hit:
+            raise AssertionError(f"SQL Q{qid}: the first run hit the plan cache")
+        check_rows(rows, hand_rows[qid], f"SQL Q{qid} at SF{SF} vs its hand plan", table_eq)
+        check_finite(rows, f"SQL Q{qid} at SF{SF}")
+        times, execute = [], []
+        for _ in range(QUERY_REPS):
+            rows, metrics, plan, ms = run_sql_text(tpch_sql[qid], cat, make_pipeline)
+            if not metrics.cache_hit:
+                raise AssertionError(f"SQL Q{qid}: a repeated run missed the plan cache")
+            times.append(ms)
+            execute.append(metrics.execute_s * 1e3)
+        check_rows(rows, hand_rows[qid], f"SQL Q{qid} at SF{SF}, cached plan", table_eq)
+        wall[qid] = (first_ms, statistics.median(times))
+        stages[qid] = (first_metrics, statistics.median(execute))
+        if qid in (1, 6):
+            fused = [op for op in operators_of(plan) if isinstance(op, fused_operator)]
+            if len(fused) != 1 or fused[0].fell_back is not False:
+                raise AssertionError(f"SQL Q{qid}: no FusedFilterAggregate ran fused")
+    log(f"sql: SF{SF} wall ms (host clock, to rows on the host; first run, then median "
+        f"of {QUERY_REPS} with the plan cached; the hand plan's median beside it) {card}: "
+        + "; ".join(f"Q{q} {wall[q][0]:.3f} / {wall[q][1]:.3f} (hand {hand_wall[q][1]:.3f})"
+                    for q in sorted(wall)))
+    log(f"sql: SF{SF} all 22 texts equal to their hand plans' rows (as sets, floats within "
+        f"1e-6 relative); sum of medians {sum(m for _, m in wall.values()):.3f} ms, hand "
+        f"plans {sum(m for _, m in hand_wall.values()):.3f} ms {card}")
+    log(f"sql: SF{SF} stage ms of the first run (parse / translate / optimize / compile / "
+        f"execute; Q1's optimize includes the table statistics), then the median execute "
+        f"ms of the cached runs {card}: "
+        + "; ".join(f"Q{q} {m.parse_s * 1e3:.3f} / {m.translate_s * 1e3:.3f} / "
+                    f"{m.optimize_s * 1e3:.3f} / {m.compile_s * 1e3:.3f} / "
+                    f"{m.execute_s * 1e3:.3f}, {e:.3f}"
+                    for q, (m, e) in sorted(stages.items())))
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for name in sql_kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the SQL path")
+    log(f"sql: launches on the SQL path: the corpus {corpus_launches}, with the 22 "
+        f"texts at SF{SF} {launches}")
+    return launches
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -366,7 +854,10 @@ def main() -> None:
     device = torch.device("cuda", 0)
 
     from hyrise_tpu_torch import bench_q6
-    from hyrise_tpu_torch.kernels import build, group_reduce, join_probe, q6
+    from hyrise_tpu_torch.kernels import (build, compact, fused_reduce, group_reduce,
+                                          hash_lookup, join_probe, q6, segment_reduce)
+    from hyrise_tpu_torch.kernels.fused import FusedFilterAggregate
+    from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
     from hyrise_tpu_torch.tpch import dbgen
     from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, TPCH_SQL, run_query
     from hyrise_tpu_torch.utils import table_eq
@@ -375,8 +866,9 @@ def main() -> None:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     build.build_all()
-    for lib in (q6._library, group_reduce._library, join_probe._library):
-        lib()
+    for module in (q6, group_reduce, join_probe, fused_reduce, segment_reduce,
+                   hash_lookup, compact):
+        module._library()
     log(f"build: {', '.join(f'{s}.cu' for s in build.SOURCES)} with nvcc for sm_90a, "
         f"in parallel, in {time.perf_counter() - t0:.2f} s")
     for source in build.SOURCES:
@@ -390,6 +882,7 @@ def main() -> None:
 
     # -- 3. kernels against their plain versions -----------------------------
     k1_err = k2_err = k3_err = k4_err = k5_err = 0.0
+    k6_err = k7_err = k8_err = k9_err = 0.0
     for n in KERNEL_SIZES:
         dense, enc, exact = kernel_inputs(n, device)
         args = (dense["ship"], dense["disc"], dense["qty"], dense["price"],
@@ -414,6 +907,15 @@ def main() -> None:
             f"(rel {rel_diff(got, ref):.3e}); K2 {total} == exact {exact}; "
             f"K3 equal to plain in 13 reductions x {len(K3_CELLS)} cell counts, and bit-stable; "
             f"K4 equal; K5 equal over {pairs} pairs")
+        k6_err = max(k6_err, check_k6(n, device, fused_reduce))
+        k7_err = max(k7_err, check_k7(n, device, segment_reduce))
+        k8_err = max(k8_err, check_k8(n, device, hash_lookup))
+        k9_err = max(k9_err, check_k9(n, device, compact))
+        log(f"kernels n={n}: K6 equal to plain in 4 shapes (1, 1, 1 and 3 launches) and "
+            f"bit-stable; K7 equal to plain in 13 reductions x 2 group counts x "
+            f"with/without rows and validity, and bit-stable; K8 equal on int64 and "
+            f"float64 keys, with a hot key and on an empty build side; K9 equal at "
+            f"{len(K9_SHARES)} selectivities, aligned and not")
     # timed at the largest n, in turns: plain, kernel, kernel, plain
     n = KERNEL_SIZES[-1]
     k1_fn = lambda i: q6.q6_scan(*args[:5], 731 - i, 1096)  # noqa: E731
@@ -486,6 +988,11 @@ def main() -> None:
         f"ranges, {k5_total} pairs, cumsum included) {jm['k5']:.4f} vs plain "
         f"{jm['k5_plain']:.4f}, bound {k5_bound:.4f}")
 
+    new, new_err = time_k6_to_k9(n, device, card, bench_q6.time_ms,
+                                 (fused_reduce, segment_reduce, hash_lookup, compact,
+                                  group_reduce))
+    k6_err = max(k6_err, new_err)
+
     # -- 4. data -----------------------------------------------------------
     t0 = time.perf_counter()
     tables = dbgen.generate_tables(SF, SEED, device=device)
@@ -523,19 +1030,33 @@ def main() -> None:
             if out.device != device:
                 raise AssertionError(f"Q{qid} at SF{sf} came out on {out.device}")
             rows = out.rows()
-            check_rows(rows, oracle.query(TPCH_SQL[qid]), f"Q{qid} at SF{sf} vs sqlite",
-                       table_eq)
+            want = oracle.query(TPCH_SQL[qid])
+            check_rows(rows, want, f"Q{qid} at SF{sf} vs sqlite", table_eq)
             small_rows[qid] = len(rows)
+            # phase 6, first part: the same text through the SQL pipeline
+            out = SQLPipelineBuilder(TPCH_SQL[qid]).with_catalog(small_cat) \
+                .create_pipeline().get_result_table()
+            if out.device != device:
+                raise AssertionError(f"SQL Q{qid} at SF{sf} came out on {out.device}")
+            check_rows(out.rows(), want, f"SQL Q{qid} at SF{sf} vs sqlite", table_eq)
         oracle.close()
     log(f"main: all {len(small_rows)} queries on {device} match sqlite at SF{SMALL_SF} "
         f"(Q20 at SF{SMALL_SF_OF[20]}): ints and strings equal, floats within 1e-6 "
         f"relative; rows {small_rows}; {time.perf_counter() - t0:.1f} s")
+    log(f"sql: all {len(small_rows)} TPC-H texts through SQLPipelineBuilder on {device} "
+        f"match sqlite at the same scale factors and tolerance")
 
     # 5b. every query at SF1, the launch counts starting from 0
     wrappers = {"q6_scan": q6.q6_scan, "q6_encoded": q6.q6_encoded,
                 "segment_reduce_cells": group_reduce.segment_reduce_cells,
                 "lookup_last_eq_lut": join_probe.lookup_last_eq_lut,
-                "expand_pairs": join_probe.expand_pairs}
+                "expand_pairs": join_probe.expand_pairs,
+                "fused_cells_reduce": fused_reduce.fused_cells_reduce,
+                "segment_reduce_sorted": segment_reduce.segment_reduce_sorted,
+                "lookup_last_eq": hash_lookup.lookup_last_eq,
+                "compact_indices": compact.compact_indices}
+    sql_kernels = ("fused_cells_reduce", "segment_reduce_sorted", "lookup_last_eq",
+                   "compact_indices")
     for w in wrappers.values():
         w.launches = 0
     specs, _ = dbgen.generate_specs(SF, SEED)["lineitem"]
@@ -590,9 +1111,15 @@ def main() -> None:
 
     launches = {name: w.launches for name, w in wrappers.items()}
     for name, count in launches.items():
-        if count <= 0:
+        if count <= 0 and name not in sql_kernels:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     log(f"main: launches on the main path {launches}")
+
+    # -- 6. the SQL entry point ----------------------------------------------
+    sql_launches = sql_phase(device, card, cat, results, wall, wrappers, sql_kernels,
+                             table_eq, SQLPipelineBuilder, FusedFilterAggregate,
+                             SqliteOracle, TPCH_SQL)
+    launches.update({name: sql_launches[name] for name in sql_kernels})
 
     csrc = "hyrise_tpu_torch/kernels/csrc/"
 
@@ -601,6 +1128,10 @@ def main() -> None:
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err,
                 "ms": t, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
                 "library_ms": library}
+
+    def new_entry(name, source, replaces, err, t):
+        return entry(name, source, replaces, err, t["kernel"], t["plain"], t["bound"],
+                     t["library"])
 
     log(json.dumps({"kernels": [
         entry("q6_scan", "q6_scan.cu", "hyrise_tpu/kernels/pallas_scan.py:29",
@@ -615,6 +1146,14 @@ def main() -> None:
               k4_bound),
         entry("expand_pairs", "join_probe.cu", "hyrise_tpu/ops/join.py:140", k5_err,
               jm["k5"], jm["k5_plain"], k5_bound),
+        new_entry("fused_cells_reduce", "fused_reduce.cu",
+                  "hyrise_tpu/kernels/fused.py:101", k6_err, new["K6 q1"]),
+        new_entry("segment_reduce_sorted", "segment_reduce.cu",
+                  "hyrise_tpu/kernels/tpu_prims.py:494", k7_err, new["K7 4 rows a group"]),
+        new_entry("lookup_last_eq", "hash_lookup.cu",
+                  "hyrise_tpu/kernels/tpu_prims.py:383", k8_err, new["K8"]),
+        new_entry("compact_indices", "compact.cu",
+                  "hyrise_tpu/kernels/tpu_prims.py:144", k9_err, new["K9 share 0.5"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

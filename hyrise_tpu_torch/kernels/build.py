@@ -28,7 +28,8 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("q6_scan", "group_reduce", "join_probe")
+SOURCES = ("q6_scan", "group_reduce", "join_probe", "fused_reduce",
+           "segment_reduce", "hash_lookup", "compact")
 
 
 def _nvcc() -> str:

@@ -32,6 +32,15 @@ _OPS = {"sum": 0, "min": 1, "max": 2, "count": 3}
 _VALUE_TYPES = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3}
 
 
+def extreme(dtype: torch.dtype, for_min: bool):
+    """The identity of MIN (or MAX) in `dtype`: what a reduction over no
+    rows gives."""
+    if dtype.is_floating_point:
+        return float("inf") if for_min else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if for_min else info.min
+
+
 def _acc_dtype(values: Optional[torch.Tensor]) -> torch.dtype:
     if values is not None and values.is_floating_point():
         return torch.float64

@@ -26,7 +26,7 @@ import torch
 from hyrise_tpu_torch.kernels import build
 
 # a direct-address table beyond this many entries costs more device memory
-# than it saves; such joins take the sort-based lookup (prims.lookup_last_eq)
+# than it saves; such joins take the hash table (kernels/hash_lookup.py)
 LUT_MAX_ENTRIES = 1 << 25
 _BLOCKS_PER_SM = 8
 

@@ -11,8 +11,9 @@ src/lib/operators/aggregate.{hpp,cpp}). The input picks one of two forms:
   mask, never compacted. This is the JAX package's _fast_scalar and
   _fast_dense.
 - general: any other group-by. Cluster the live rows by the group key with
-  one stable multi-key sort, mark boundaries, prefix-sum to dense ids; each
-  aggregate is then a segmented reduction (kernels/prims.py).
+  one stable multi-key sort, mark boundaries, compact them into the groups'
+  start positions; each aggregate is then one reduction over the sorted
+  segments (the K7 kernel, kernels/segment_reduce.py).
 
 Output groups come in key order either way. The JAX package's third form
 (_fast_sorted and its key packing) works around the TPU compiler and has no
@@ -30,9 +31,10 @@ import torch
 
 from hyrise_tpu_torch.expression.ast import AggregateExpr
 from hyrise_tpu_torch.expression.evaluator import compile_expression, make_env
+from hyrise_tpu_torch.kernels.group_reduce import extreme
 from hyrise_tpu_torch.kernels.prims import (DENSE_CELL_MAX, compact_indices,
-                                            segment_max, segment_min,
-                                            segment_reduce_cells, segment_sum)
+                                            segment_reduce_cells,
+                                            segment_reduce_sorted)
 from hyrise_tpu_torch.ops.base import AbstractOperator
 from hyrise_tpu_torch.ops.materialize import ensure_prefix, gather_table
 from hyrise_tpu_torch.ops.sort_util import (group_boundaries, group_permutation,
@@ -40,14 +42,6 @@ from hyrise_tpu_torch.ops.sort_util import (group_boundaries, group_permutation,
 from hyrise_tpu_torch.storage.column import Column
 from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.types import AggregateFunction, DataType, aggregate_result_type
-
-
-def _sentinel(dtype: torch.dtype, for_min: bool):
-    """The identity of MIN (or MAX) in `dtype`."""
-    if dtype.is_floating_point:
-        return float("inf") if for_min else float("-inf")
-    info = torch.iinfo(dtype)
-    return info.max if for_min else info.min
 
 
 def _distinct_key(data: torch.Tensor, in_dt: DataType) -> torch.Tensor:
@@ -188,7 +182,7 @@ class Aggregate(AbstractOperator):
                 is_min = fn is AggregateFunction.MIN
                 red = at_groups(segment_reduce_cells(
                     data, cell_a, cells, "min" if is_min else "max",
-                    sentinel=_sentinel(data.dtype, is_min)))
+                    sentinel=extreme(data.dtype, is_min)))
                 out_cols.append(Column(out_name, in_dt, red, nonempty, dictionary))
             elif fn is AggregateFunction.COUNT_DISTINCT:
                 # global only (_dense_sizes): sort the valid values, count runs
@@ -210,72 +204,71 @@ class Aggregate(AbstractOperator):
         flags = group_boundaries(table, self.groupby, perm)
         # dead rows sort last: keep the first n of every permuted array
         rows = perm[:n]
-        gid = torch.cumsum(flags[:n].to(torch.int64), 0) - 1
-        n_groups = int(gid[-1]) + 1 if n else 0
+        # group g is positions [starts[g], starts[g + 1]) of `rows`; reading
+        # the number of groups is the host sync
+        first = compact_indices(flags[:n])
+        n_groups = first.shape[0]
+        starts = torch.cat([first, torch.full((1,), n, dtype=torch.int64,
+                                              device=first.device)])
         # group-by key columns: representative = first row of each group
-        rep = gather_table(table, rows.index_select(0, compact_indices(flags[:n])))
+        rep = gather_table(table, rows.index_select(0, first))
         out_cols: List[Column] = [rep.column(name) for name in self.groupby]
         for out_name, fn, data, validity, in_dt, dictionary in self._compiled(table):
             out_cols.append(self._compute_aggregate(
-                out_name, fn, data, validity, in_dt, dictionary, rows, gid,
-                n_groups))
+                out_name, fn, data, validity, in_dt, dictionary, rows, starts,
+                flags[:n]))
         return Table(out_cols, n_groups, name=table.name)
 
     @staticmethod
     def _compute_aggregate(out_name: str, fn: AggregateFunction, data, validity,
                            in_dt, dictionary, rows: torch.Tensor,
-                           gid: torch.Tensor, n_groups: int) -> Column:
-        """One aggregate over the live rows `rows` (in group order), whose
-        group ids are `gid`."""
+                           starts: torch.Tensor, flags: torch.Tensor) -> Column:
+        """One aggregate over the live rows `rows` (in group order): one
+        segmented reduction (the K7 kernel) that gathers through `rows` and
+        skips NULL inputs itself. `flags` marks each group's first row."""
         if data is None:  # COUNT(*)
-            counts = torch.bincount(gid, minlength=n_groups)
-            return Column(out_name, DataType.INT64, counts)
-
-        d = data.index_select(0, rows)
-        v = (torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
-             if validity is None else validity.index_select(0, rows))
-
+            return Column(out_name, DataType.INT64, starts[1:] - starts[:-1])
+        data = data.contiguous()
+        validity = None if validity is None else validity.contiguous()
         out_dt = aggregate_result_type(fn, in_dt)
-        counts = segment_sum(v.to(torch.int64), gid, n_groups)
-        nonempty = counts > 0
 
         if fn is AggregateFunction.COUNT:
+            counts, _ = segment_reduce_sorted(None, starts, "count", rows, validity)
             return Column(out_name, DataType.INT64, counts)
 
         if fn is AggregateFunction.COUNT_DISTINCT:
             # re-cluster by (group, validity, value); count the value runs
-            # among the valid rows of each group
+            # among the valid rows of each group. The group sizes do not
+            # change, so `starts` still delimits the groups.
+            gid = torch.cumsum(flags.to(torch.int64), 0) - 1
+            d = data.index_select(0, rows)
+            v = (torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+                 if validity is None else validity.index_select(0, rows))
             key = _distinct_key(d, in_dt)
             perm2 = lexsort([key, (~v).to(torch.int32), gid])
             g2, k2, v2 = (t.index_select(0, perm2) for t in (gid, key, v))
             new_val = v2.clone()
             new_val[1:] &= ((g2[1:] != g2[:-1]) | (k2[1:] != k2[:-1]) | ~v2[:-1])
-            return Column(out_name, DataType.INT64,
-                          segment_sum(new_val.to(torch.int64), g2, n_groups))
+            distinct, _ = segment_reduce_sorted(new_val.to(torch.int32), starts, "sum")
+            return Column(out_name, DataType.INT64, distinct)
 
         if fn in (AggregateFunction.SUM, AggregateFunction.AVG):
-            acc_dtype = torch.float64 if out_dt is DataType.FLOAT64 else torch.int64
-            acc = torch.where(v, d.to(acc_dtype), torch.zeros((), dtype=acc_dtype,
-                                                             device=d.device))
-            sums = segment_sum(acc, gid, n_groups)
+            # float64 sums of float inputs, exact int64 sums of integers
+            sums, counts = segment_reduce_sorted(data, starts, "sum", rows, validity)
+            nonempty = counts > 0
             if fn is AggregateFunction.SUM:
                 return Column(out_name, out_dt, sums.to(out_dt.torch_dtype), nonempty)
             avg = sums.to(torch.float64) / counts.clamp(min=1).to(torch.float64)
             return Column(out_name, DataType.FLOAT64, avg, nonempty)
 
         if fn in (AggregateFunction.MIN, AggregateFunction.MAX):
-            # reduce in int64 / float64 (exact for every input type; string
-            # codes are order-preserving) and cast back to the result type
-            key = d.to(torch.float64 if in_dt.is_floating else torch.int64)
-            is_min = fn is AggregateFunction.MIN
-            identity = _sentinel(key.dtype, is_min)
-            masked = torch.where(v, key, torch.full((), identity, dtype=key.dtype,
-                                                    device=key.device))
-            reduce = segment_min if is_min else segment_max
-            red = reduce(masked, gid, n_groups, identity)
+            # exact in the input's type; string codes are order-preserving
+            red, counts = segment_reduce_sorted(
+                data, starts, "min" if fn is AggregateFunction.MIN else "max",
+                rows, validity)
             if in_dt is DataType.STRING:
                 return Column(out_name, DataType.STRING, red.to(torch.int32),
-                              nonempty, dictionary)
-            return Column(out_name, out_dt, red.to(out_dt.torch_dtype), nonempty)
+                              counts > 0, dictionary)
+            return Column(out_name, out_dt, red.to(out_dt.torch_dtype), counts > 0)
 
         raise NotImplementedError(fn)

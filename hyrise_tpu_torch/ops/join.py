@@ -11,7 +11,8 @@ One engine, two paths:
   report (SEMI/ANTI need existence only; INNER/LEFT need a build key column
   flagged `unique`). One probe gives (matched, build row) per probe row: the
   direct-address table of the K4 kernel when the key range is known and
-  small enough, else a sort and binary searches (prims.lookup_last_eq). The
+  small enough, else the hash table of the K8 kernel (prims.lookup_last_eq:
+  keys of any range, float keys). The
   output is the probe table itself under a live MASK, with the build
   columns gathered lazily beside it, so a chain of joins never moves the
   probe side.
@@ -135,7 +136,7 @@ class Join(AbstractOperator):
         self.mode = mode
         self.left_col, self.right_col = column_pair
         self.cond = cond
-        # which path ran: "lut" (K4), "lookup" (sorted lookup) or "ranges"
+        # which path ran: "lut" (K4), "lookup" (K8) or "ranges"
         self.path: Optional[str] = None
 
     def _on_execute(self, context) -> Table:

@@ -1,8 +1,10 @@
-"""Small operators: Limit, Alias, UnionAll.
+"""Small operators: Limit, Alias, UnionAll, UnionPositions, Difference,
+AddRowIds.
 
 Port of hyrise_tpu/ops/misc.py (reference:
-src/lib/operators/{limit,alias_operator,union_all}.cpp). UnionPositions and
-Difference are not ported yet.
+src/lib/operators/{limit,alias_operator,union_all,union_positions,
+difference}.cpp; AddRowIds is hyrise_tpu/ops/rw_ops.py's, which the SQL
+translator also emits for SELECTs when it decorrelates a subquery).
 """
 
 from __future__ import annotations
@@ -12,8 +14,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from hyrise_tpu_torch.ops.base import AbstractOperator
-from hyrise_tpu_torch.ops.materialize import ensure_prefix
+from hyrise_tpu_torch.kernels.prims import lookup_last_eq
+from hyrise_tpu_torch.ops.base import AbstractOperator, execute_plan
+from hyrise_tpu_torch.ops.materialize import ensure_prefix, filter_table
 from hyrise_tpu_torch.storage.column import Column, merge_dictionaries
 from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.types import DataType, common_numeric_type
@@ -109,3 +112,77 @@ class UnionAll(AbstractOperator):
             cols.append(Column(ca.name, ca.dtype, data, validity,
                                merged if merged is not None else ca.dictionary))
         return Table(cols, nl + nr, name=lt.name)
+
+
+class UnionPositions(AbstractOperator):
+    """Reference: union_positions.cpp. Set union (duplicates removed) of two
+    inputs of one schema: the concatenation, grouped by every column."""
+
+    name = "UnionPositions"
+
+    def _on_execute(self, context) -> Table:
+        from hyrise_tpu_torch.ops.aggregate import Aggregate
+        from hyrise_tpu_torch.ops.get_table import TableWrapper
+        t = execute_plan(UnionAll(self.inputs[0], self.inputs[1]), context)
+        return execute_plan(Aggregate(TableWrapper(t), t.column_names, []), context)
+
+
+class Difference(AbstractOperator):
+    """Reference: difference.cpp. The left rows that equal no right row in
+    every column (duplicates of the left are kept). Each row is hashed into
+    one 64-bit key and the left keys are looked up among the right's."""
+
+    name = "Difference"
+
+    def _on_execute(self, context) -> Table:
+        lt, rt = self.input_table(0), self.input_table(1)
+        if len(lt.columns) != len(rt.columns):
+            raise ValueError("Difference inputs differ in column count")
+        # align dictionaries and dtypes pairwise so equal values hash equal
+        l_cols, r_cols = [], []
+        for ca, cb in zip(lt.columns, rt.columns):
+            ca, cb, _ = _align_columns(ca, cb)
+            l_cols.append(ca)
+            r_cols.append(cb)
+        lk = _row_hash(Table(l_cols, lt.num_rows))
+        rk = _row_hash(Table(r_cols, rt.num_rows))
+        matched, _ = lookup_last_eq(rk, rt.live_mask(), lk)
+        return filter_table(lt, ~matched)
+
+
+class AddRowIds(AbstractOperator):
+    """Appends `row_id`, each row's position in the input: the handle by
+    which a decorrelated subquery's result is joined back to its outer row."""
+
+    name = "AddRowIds"
+
+    def _on_execute(self, context) -> Table:
+        t = self.input_table(0)
+        ids = Column("row_id", DataType.INT32,
+                     torch.arange(t.capacity, dtype=torch.int32, device=t.device),
+                     unique=True, val_range=(0, max(t.capacity - 1, 0)))
+        return Table(list(t.columns) + [ids], t.num_rows, name=t.name, live=t.live)
+
+
+_NULL_HASH = 0x9E3779B97F4A7C15 - (1 << 64)  # as a signed 64-bit value
+_FNV_PRIME = 1099511628211
+
+
+def _row_hash(t: Table) -> torch.Tensor:
+    """One int64 hash per row over all columns (FNV-style mixing; int64
+    products wrap like unsigned 64-bit ones). Equal values hash equal: a
+    float contributes its float64 bit pattern with -0.0 folded into 0.0 and
+    every NaN into one; a NULL contributes a constant whatever lies under it."""
+    h = torch.zeros(t.capacity, dtype=torch.int64, device=t.device)
+    for c in t.columns:
+        v = c.data
+        if v.is_floating_point():
+            f = v.to(torch.float64) + 0.0
+            f = torch.where(torch.isnan(f), float("nan"), f)
+            v = f.view(torch.int64)
+        else:
+            v = v.to(torch.int64)
+        if c.validity is not None:
+            v = torch.where(c.validity, v, _NULL_HASH)
+        h = h * _FNV_PRIME + v + 1
+    return h

@@ -1,0 +1,173 @@
+"""LQP -> physical operator translation.
+
+Port of hyrise_tpu/plan/translator.py. Nodes whose operators the port does
+not have yet raise NotImplementedError naming the slice that brings them:
+Validate/Insert/Delete/Update/CreateTable (ops/rw_ops.py and
+concurrency/transaction.py) and index scans (storage/index.py). Reference: src/lib/logical_query_plan/lqp_translator.cpp:68-246 —
+node-type dispatch; join nodes pick JoinHash for hashable equi predicates and
+SortMerge/NestedLoop otherwise; predicates become TableScan chains.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from hyrise_tpu_torch.ops.aggregate import Aggregate
+from hyrise_tpu_torch.ops.base import AbstractOperator
+from hyrise_tpu_torch.ops.get_table import GetTable, TableWrapper
+from hyrise_tpu_torch.ops.join import Join, JoinSortMerge, Product
+from hyrise_tpu_torch.ops.misc import (AddRowIds, Alias, Difference, Limit, UnionAll,
+                                       UnionPositions)
+from hyrise_tpu_torch.ops.projection import Projection
+from hyrise_tpu_torch.ops.sort import Sort
+from hyrise_tpu_torch.ops.table_scan import TableScan
+from hyrise_tpu_torch.plan import lqp as L
+from hyrise_tpu_torch.storage.table import Table, TableColumnDefinition
+from hyrise_tpu_torch.types import DataType, JoinMode, PredicateCondition
+
+
+class _Maintenance(AbstractOperator):
+    """CreateView/DropView/DropTable/ShowTables/ShowColumns executor
+    (reference: operators/maintenance/*)."""
+
+    def __init__(self, node, catalog):
+        super().__init__()
+        self.node = node
+        self.catalog = catalog
+
+    @property
+    def name(self):
+        return type(self.node).__name__
+
+    def _on_execute(self, context):
+        cat = self.catalog
+        dev = cat.device
+        n = self.node
+        if isinstance(n, L.CreateViewNode):
+            cat.add_view(n.view_name, n.lqp)
+        elif isinstance(n, L.DropViewNode):
+            cat.drop_view(n.view_name)
+        elif isinstance(n, L.DropTableNode):
+            cat.drop_table(n.table_name)
+        elif isinstance(n, L.ShowTablesNode):
+            return Table.from_arrays(
+                "tables", [TableColumnDefinition("table_name", DataType.STRING)],
+                [np.array(cat.table_names(), dtype=object)], device=dev)
+        elif isinstance(n, L.ShowColumnsNode):
+            t = cat.get_table(n.table_name)
+            return Table.from_arrays(
+                "columns",
+                [TableColumnDefinition("column_name", DataType.STRING),
+                 TableColumnDefinition("column_type", DataType.STRING),
+                 TableColumnDefinition("is_nullable", DataType.INT32)],
+                [np.array([c.name for c in t.columns], dtype=object),
+                 np.array([c.dtype.value for c in t.columns], dtype=object),
+                 np.array([int(c.validity is not None) for c in t.columns],
+                          dtype=np.int32)], device=dev)
+        # DDL succeeded: empty result
+        return Table.from_arrays(
+            "ok", [TableColumnDefinition("ok", DataType.INT32)],
+            [np.array([], dtype=np.int32)], device=dev)
+
+
+# nodes of the DML/MVCC slice (ops/rw_ops.py, concurrency/transaction.py)
+_DML_NODES = (L.ValidateNode, L.InsertNode, L.DeleteNode, L.UpdateNode,
+              L.CreateTableNode)
+
+
+class _Distinct(Aggregate):
+    """DISTINCT: group by every input column, no aggregates."""
+
+    def _on_execute(self, context):
+        self.groupby = self.input_table(0).column_names
+        return super()._on_execute(context)
+
+
+def translate_lqp(node: L.LQPNode, catalog=None,
+                  _memo: Optional[Dict[int, AbstractOperator]] = None
+                  ) -> AbstractOperator:
+    memo = _memo if _memo is not None else {}
+    if id(node) in memo:
+        return memo[id(node)]
+
+    def T(n):
+        return translate_lqp(n, catalog, memo)
+
+    if isinstance(node, L.StoredTableNode):
+        op: AbstractOperator = GetTable(node.table_name, catalog)
+        if node.pruned_columns is not None:
+            op = Projection(op, list(node.pruned_columns))
+    elif isinstance(node, L.StaticTableNode):
+        op = TableWrapper(node.table)
+    elif isinstance(node, L.PredicateNode):
+        if getattr(node, "use_index", None) is not None or \
+                getattr(node, "use_index_composite", None) is not None:
+            raise NotImplementedError(
+                "index scans arrive with the index slice (storage/index.py, "
+                "ops/index_scan.py)")
+        op = TableScan(T(node.children[0]), node.predicate)
+    elif isinstance(node, L.ProjectionNode):
+        op = Projection(T(node.children[0]), node.outputs)
+    elif isinstance(node, L.AggregateNode):
+        # Fusion pass (reference: JitAwareLQPTranslator,
+        # jit_operator/jit_aware_lqp_translator.cpp): lower a maximal
+        # Predicate* -> Aggregate chain into ONE filter + reduce operator
+        # (kernel K6). FusedFilterAggregate builds TableScan + Aggregate
+        # itself when the shape does not fit (non-dictionary group-by,
+        # COUNT DISTINCT).
+        from hyrise_tpu_torch.expression.ast import Logical
+        from hyrise_tpu_torch.kernels.fused import FusedFilterAggregate
+
+        preds = []
+        c = node.children[0]
+        while isinstance(c, L.PredicateNode):
+            preds.append(c.predicate)
+            c = c.children[0]
+        if preds:
+            combined = preds[-1]
+            for p in reversed(preds[:-1]):
+                combined = Logical("and", combined, p)
+            op = FusedFilterAggregate(T(c), combined, node.groupby,
+                                      node.aggregates)
+        else:
+            op = Aggregate(T(node.children[0]), node.groupby, node.aggregates)
+    elif isinstance(node, L.DistinctNode):
+        op = _Distinct(T(node.children[0]), [], [])
+    elif isinstance(node, L.JoinNode):
+        left, right = T(node.children[0]), T(node.children[1])
+        if node.mode is JoinMode.CROSS:
+            op = Product(left, right)
+        elif node.cond is PredicateCondition.EQUALS:
+            # reference picks JoinHash for hashable equi joins
+            op = Join(left, right, node.mode, (node.left_col, node.right_col))
+        else:
+            op = JoinSortMerge(left, right, node.mode,
+                               (node.left_col, node.right_col), node.cond)
+    elif isinstance(node, L.SortNode):
+        op = Sort(T(node.children[0]), node.sort_defs)
+    elif isinstance(node, L.LimitNode):
+        op = Limit(T(node.children[0]), node.n)
+    elif isinstance(node, L.UnionNode):
+        cls = UnionAll if node.kind == "all" else UnionPositions
+        op = cls(T(node.children[0]), T(node.children[1]))
+    elif isinstance(node, L.DifferenceNode):
+        op = Difference(T(node.children[0]), T(node.children[1]))
+    elif isinstance(node, L.AliasNode):
+        op = Alias(T(node.children[0]), node.names, node.sources)
+    elif isinstance(node, L.AddRowIdsNode):
+        op = AddRowIds(T(node.children[0]))
+    elif isinstance(node, _DML_NODES):
+        raise NotImplementedError(
+            f"{type(node).__name__} arrives with the DML/MVCC slice "
+            "(ops/rw_ops.py, concurrency/transaction.py)")
+    elif isinstance(node, (L.CreateViewNode, L.DropViewNode,
+                           L.DropTableNode, L.ShowTablesNode,
+                           L.ShowColumnsNode)):
+        op = _Maintenance(node, catalog)
+    else:
+        raise NotImplementedError(f"cannot translate {type(node).__name__}")
+
+    memo[id(node)] = op
+    return op

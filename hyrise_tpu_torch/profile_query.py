@@ -24,8 +24,10 @@ import time
 
 import torch
 
-from hyrise_tpu_torch.kernels.prims import (expand_pairs, lookup_last_eq_lut,
-                                            segment_reduce_cells)
+from hyrise_tpu_torch.kernels.prims import (compact_indices, expand_pairs,
+                                            lookup_last_eq, lookup_last_eq_lut,
+                                            segment_reduce_cells,
+                                            segment_reduce_sorted)
 from hyrise_tpu_torch.ops.base import AbstractOperator, execute_plan
 from hyrise_tpu_torch.storage.catalog import Catalog
 from hyrise_tpu_torch.tpch import dbgen
@@ -34,7 +36,9 @@ from hyrise_tpu_torch.tpch.queries import TPCH_PLANS
 SF = 1.0
 SEED = 19940607
 _WRAPPERS = {"segment_reduce_cells": segment_reduce_cells,
-             "lookup_last_eq_lut": lookup_last_eq_lut, "expand_pairs": expand_pairs}
+             "lookup_last_eq_lut": lookup_last_eq_lut, "expand_pairs": expand_pairs,
+             "segment_reduce_sorted": segment_reduce_sorted,
+             "lookup_last_eq": lookup_last_eq, "compact_indices": compact_indices}
 
 
 def _operators(root: AbstractOperator):

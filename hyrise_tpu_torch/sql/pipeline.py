@@ -1,0 +1,374 @@
+"""SQL pipeline: parse -> translate -> optimize -> physical plan -> execute.
+
+Port of hyrise_tpu/sql/pipeline.py for read-only statements. Not carried
+over: whole-plan compiled execution and its capacity seeds (the port runs
+eagerly), distributed execution (a later slice), transactions and MVCC
+(with_mvcc(True) raises until the DML/MVCC slice). There is no default
+catalog: create_pipeline() without with_catalog() raises. Reference: src/lib/sql/ —
+- SQLPipelineBuilder (sql_pipeline_builder.*): fluent config (disable MVCC,
+  custom optimizer, plan cache).
+- SQLPipeline / SQLPipelineStatement (sql_pipeline_statement.cpp:49-283):
+  per-statement stages with metrics (parse/translate/optimize/compile/
+  execute micros), query-plan cache keyed by SQL text, prepared statements
+  with parameter substitution, auto-commit for DML.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import weakref
+from collections import OrderedDict
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from hyrise_tpu_torch.expression import ast
+from hyrise_tpu_torch.ops.base import execute_plan
+from hyrise_tpu_torch.plan import lqp as L
+from hyrise_tpu_torch.plan.optimizer import Optimizer
+from hyrise_tpu_torch.plan.translator import translate_lqp
+from hyrise_tpu_torch.sql import parser as P
+from hyrise_tpu_torch.sql.translator import (ScalarSubquery, SQLToLQPTranslator,
+                                       SQLTranslationError)
+from hyrise_tpu_torch.storage.catalog import Catalog
+from hyrise_tpu_torch.storage.table import Table, TableColumnDefinition
+from hyrise_tpu_torch.types import DataType
+
+
+@dataclasses.dataclass
+class StatementMetrics:
+    """Reference: SQLPipelineStatementMetrics (sql_pipeline.hpp:17-25)."""
+
+    parse_s: float = 0.0
+    translate_s: float = 0.0
+    optimize_s: float = 0.0
+    compile_s: float = 0.0
+    execute_s: float = 0.0  # taken after the device has finished
+    cache_hit: bool = False
+
+
+class SQLQueryCache:
+    """Reference: sql/sql_query_cache.hpp with pluggable eviction policies —
+    lru_cache.hpp, lru_k_cache.hpp, gds_cache.hpp, gdfs_cache.hpp,
+    random_cache.hpp. Policies:
+
+    - 'lru': least recently used.
+    - 'lru_k': evict by oldest K-th most recent access (K=2); entries with
+      fewer than K accesses are evicted first (classic LRU-K).
+    - 'gds': greedy-dual size — priority = clock + cost/size; on eviction
+      the clock advances to the evicted priority (cost/size per entry are
+      optional put() args, both 1.0 by default).
+    - 'gdfs': greedy-dual frequency-size — priority = clock +
+      frequency * cost / size.
+    - 'random'.
+    """
+
+    K = 2  # LRU-K history depth
+
+    def __init__(self, capacity: int = 256, policy: str = "lru"):
+        assert policy in ("lru", "lru_k", "gds", "gdfs", "random")
+        self.capacity = capacity
+        self.policy = policy
+        self._d: OrderedDict = OrderedDict()
+        self._freq: Dict = {}
+        self._hist: Dict = {}        # lru_k: last K access tick times
+        self._cost_size: Dict = {}   # gds/gdfs: (cost, size)
+        self._prio: Dict = {}        # gds/gdfs: cached priority
+        self._clock = 0.0
+        self._tick = 0
+
+    def _touch(self, key):
+        self._tick += 1
+        if self.policy == "lru":
+            self._d.move_to_end(key)
+        elif self.policy == "lru_k":
+            h = self._hist.setdefault(key, [])
+            h.append(self._tick)
+            del h[:-self.K]
+        elif self.policy in ("gds", "gdfs"):
+            self._freq[key] = self._freq.get(key, 0) + 1
+            cost, size = self._cost_size.get(key, (1.0, 1.0))
+            f = self._freq[key] if self.policy == "gdfs" else 1.0
+            self._prio[key] = self._clock + f * cost / size
+
+    def get(self, key):
+        if key not in self._d:
+            return None
+        self._touch(key)
+        return self._d[key]
+
+    def put(self, key, value, cost: float = 1.0, size: float = 1.0):
+        self._d[key] = value
+        if self.policy in ("gds", "gdfs"):
+            self._cost_size[key] = (cost, size)
+        self._touch(key)
+        while len(self._d) > self.capacity:
+            self._evict()
+
+    def _evict(self):
+        if self.policy == "lru":
+            k, _ = self._d.popitem(last=False)
+        elif self.policy == "random":
+            import random
+            k = random.choice(list(self._d))
+            del self._d[k]
+        elif self.policy == "lru_k":
+            # oldest K-th-most-recent access; short histories evict first
+            def kth(key):
+                h = self._hist.get(key, [])
+                return (0, h[-1] if h else 0) if len(h) < self.K \
+                    else (1, h[0])
+            k = min(self._d, key=kth)
+            del self._d[k]
+        else:  # gds / gdfs: evict minimum priority, advance the clock to it
+            k = min(self._d, key=lambda x: self._prio.get(x, 0.0))
+            self._clock = self._prio.get(k, self._clock)
+            del self._d[k]
+        self._freq.pop(k, None)
+        self._hist.pop(k, None)
+        self._cost_size.pop(k, None)
+        self._prio.pop(k, None)
+
+    def clear(self):
+        for d in (self._d, self._freq, self._hist, self._cost_size,
+                  self._prio):
+            d.clear()
+
+
+_plan_cache = SQLQueryCache()
+_prepared: Dict[str, object] = {}
+
+
+def _ok_table(device) -> Table:
+    return Table.from_arrays(
+        "ok", [TableColumnDefinition("ok", DataType.INT32)],
+        [np.array([], dtype=np.int32)], device=device)
+
+
+class SQLPipelineStatement:
+    def __init__(self, stmt, sql_text: str, catalog: Catalog,
+                 optimizer: Optional[Optimizer], use_cache: bool,
+                 params: Optional[List[object]] = None, position: int = 0):
+        self.stmt = stmt
+        self.sql_text = sql_text
+        self.position = position  # of the statement within sql_text
+        self.catalog = catalog
+        self.optimizer = optimizer or Optimizer()
+        self.use_cache = use_cache
+        self.params = params
+        self.metrics = StatementMetrics()
+
+    # -- stages --------------------------------------------------------------
+
+    def get_lqp(self) -> L.LQPNode:
+        t0 = time.perf_counter()
+        tr = SQLToLQPTranslator(self.catalog, params=self.params)
+        lqp = tr.translate(self.stmt)
+        self.metrics.translate_s = time.perf_counter() - t0
+        return lqp
+
+    def get_optimized_lqp(self) -> L.LQPNode:
+        lqp = self.get_lqp()
+        t0 = time.perf_counter()
+        if not self.optimizer.stats:
+            self.optimizer.stats = self.catalog.all_statistics()
+        out = self.optimizer.optimize(lqp, self.catalog)
+        self.metrics.optimize_s = time.perf_counter() - t0
+        return out
+
+    def _resolve_scalar_subqueries(self, lqp: L.LQPNode) -> None:
+        """Execute ScalarSubquery placeholders, substitute literals
+        (the reference's uncorrelated PQPSelectExpression evaluation)."""
+
+        def fix_expr(e: ast.Expr) -> ast.Expr:
+            if isinstance(e, ScalarSubquery):
+                sub_plan = translate_lqp(
+                    self.optimizer.optimize(e.lqp, self.catalog), self.catalog)
+                t = execute_plan(sub_plan)
+                if t.num_rows == 0:
+                    # SQL: an empty scalar subquery evaluates to NULL
+                    return ast.lit(None)
+                v = t._decode_col(t.columns[0])[0]
+                if v is not None and not isinstance(v, str):
+                    v = float(v) if hasattr(v, "__float__") and \
+                        not isinstance(v, (int,)) else v
+                return ast.lit(v if not hasattr(v, "item") else v.item())
+            for attr in ("left", "right", "value", "lower", "upper"):
+                if hasattr(e, attr) and isinstance(getattr(e, attr), ast.Expr):
+                    setattr(e, attr, fix_expr(getattr(e, attr)))
+            return e
+
+        def visit(n: L.LQPNode) -> L.LQPNode:
+            if isinstance(n, L.PredicateNode):
+                n.predicate = fix_expr(n.predicate)
+            if isinstance(n, L.ProjectionNode):
+                n.outputs = [o if isinstance(o, str) else (o[0], fix_expr(o[1]))
+                             for o in n.outputs]
+            return n
+
+        L.map_lqp(lqp, visit)
+
+    def get_physical_plan(self):
+        # The key carries the statement's position (sql_text is the whole
+        # pipeline's text: without it every statement of one text would
+        # share the first one's plan) and the catalog's id; the entry holds
+        # a weak reference to the catalog itself: cached operators read that
+        # catalog, and an id can be reused once its catalog is gone.
+        cache_key = (self.sql_text, self.position, id(self.catalog))
+        cacheable = self.use_cache and self.params is None
+        if cacheable:
+            cached = _plan_cache.get(cache_key)
+            if cached is not None and cached[0]() is self.catalog:
+                self.metrics.cache_hit = True
+                # plans cache their outputs -> clear before reuse (the
+                # reference deep-copies cached PQPs instead)
+                _clear_plan_outputs(cached[1])
+                return cached[1]
+        lqp = self.get_optimized_lqp()
+        self._resolve_scalar_subqueries(lqp)
+        t0 = time.perf_counter()
+        plan = translate_lqp(lqp, self.catalog)
+        self.metrics.compile_s = time.perf_counter() - t0
+        if cacheable:
+            _plan_cache.put(cache_key, (weakref.ref(self.catalog), plan))
+        return plan
+
+    def execute(self) -> Table:
+        if isinstance(self.stmt, P.ExplainStmt):
+            inner = SQLPipelineStatement(
+                self.stmt.stmt, self.sql_text, self.catalog, self.optimizer,
+                use_cache=False, params=self.params)
+            lqp = inner.get_optimized_lqp()
+            lines = np.array(lqp.describe().split("\n"), dtype=object)
+            return Table.from_arrays(
+                "explain", [TableColumnDefinition("plan", DataType.STRING)],
+                [lines], device=self.catalog.device)
+        # prepared statements
+        if isinstance(self.stmt, P.PrepareStmt):
+            _prepared[self.stmt.name] = self.stmt.stmt
+            return _ok_table(self.catalog.device)
+        if isinstance(self.stmt, P.ExecuteStmt):
+            inner = _prepared.get(self.stmt.name)
+            if inner is None:
+                raise SQLTranslationError(
+                    f"no prepared statement {self.stmt.name!r}")
+            vals = []
+            for p in self.stmt.params:
+                if isinstance(p, P.ELiteral):
+                    vals.append(p.value)
+                elif isinstance(p, P.EUnary) and p.op == "-" and \
+                        isinstance(p.value, P.ELiteral):
+                    vals.append(-p.value.value)
+                else:
+                    raise SQLTranslationError("EXECUTE params must be literals")
+            sub = SQLPipelineStatement(
+                inner, self.sql_text + repr(vals), self.catalog,
+                self.optimizer, use_cache=False, params=vals)
+            out = sub.execute()
+            self.metrics = sub.metrics
+            return out
+
+        plan = self.get_physical_plan()
+        self.last_plan = plan  # retained for profiling / visualization
+        t0 = time.perf_counter()
+        result = execute_plan(plan)
+        if result.device.type == "cuda":
+            torch.cuda.synchronize(result.device)
+        self.metrics.execute_s = time.perf_counter() - t0
+        return result
+
+
+def _clear_plan_outputs(plan) -> None:
+    seen = set()
+
+    def walk(op):
+        if id(op) in seen:
+            return
+        seen.add(id(op))
+        op.clear_output()
+        for i in op.inputs:
+            walk(i)
+
+    walk(plan)
+
+
+class SQLPipeline:
+    """Multi-statement pipeline (reference: sql_pipeline.cpp)."""
+
+    def __init__(self, sql: str, catalog: Catalog,
+                 optimizer: Optional[Optimizer], use_cache: bool,
+                 params: Optional[List[object]] = None):
+        t0 = time.perf_counter()
+        self.statements = P.parse_sql(sql)
+        self.parse_s = time.perf_counter() - t0
+        self._sql = sql
+        self._args = (catalog, optimizer, use_cache, params)
+        self.pipeline_statements: List[SQLPipelineStatement] = []
+
+    def get_result_table(self) -> Table:
+        catalog, optimizer, use_cache, params = self._args
+        result: Optional[Table] = None
+        for position, stmt in enumerate(self.statements):
+            ps = SQLPipelineStatement(stmt, self._sql, catalog, optimizer,
+                                      use_cache, params=params, position=position)
+            ps.metrics.parse_s = self.parse_s / max(len(self.statements), 1)
+            self.pipeline_statements.append(ps)
+            result = ps.execute()
+        if result is None:
+            raise ValueError("empty SQL pipeline")
+        return result
+
+
+class SQLPipelineBuilder:
+    """Reference: sql/sql_pipeline_builder.hpp fluent API."""
+
+    def __init__(self, sql: str):
+        self.sql = sql
+        self._catalog: Optional[Catalog] = None
+        self._optimizer: Optional[Optimizer] = None
+        self._use_cache = True
+        self._params: Optional[List[object]] = None
+
+    def with_catalog(self, catalog: Catalog) -> "SQLPipelineBuilder":
+        self._catalog = catalog
+        return self
+
+    def with_mvcc(self, enabled: bool = True) -> "SQLPipelineBuilder":
+        if enabled:
+            raise NotImplementedError(
+                "MVCC arrives with the DML/MVCC slice (ops/rw_ops.py, "
+                "concurrency/transaction.py)")
+        return self
+
+    def disable_mvcc(self) -> "SQLPipelineBuilder":
+        return self
+
+    def with_optimizer(self, optimizer: Optimizer) -> "SQLPipelineBuilder":
+        self._optimizer = optimizer
+        return self
+
+    def dont_cache_query_plans(self) -> "SQLPipelineBuilder":
+        self._use_cache = False
+        return self
+
+    def with_params(self, params: Optional[List[object]]
+                    ) -> "SQLPipelineBuilder":
+        """Typed values for `?` placeholders, substituted as literal AST
+        nodes at translation time (NO textual splicing — a string value
+        containing quotes or `?` is just a string literal)."""
+        self._params = params
+        return self
+
+    def create_pipeline(self) -> SQLPipeline:
+        if self._catalog is None:
+            raise ValueError("the pipeline needs a catalog: call "
+                             "with_catalog() before create_pipeline()")
+        return SQLPipeline(self.sql, self._catalog, self._optimizer,
+                           self._use_cache, params=self._params)
+
+
+def run_sql(sql: str, catalog: Catalog) -> Table:
+    return SQLPipelineBuilder(sql).with_catalog(catalog) \
+        .create_pipeline().get_result_table()

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+import torch
+
 from hyrise_tpu_torch.storage.table import Table
 
 
@@ -62,6 +64,30 @@ class Catalog:
 
     def view_names(self) -> List[str]:
         return sorted(self._views)
+
+    @property
+    def device(self) -> torch.device:
+        """The device the tables live on (the CPU for an empty catalog):
+        where the SQL path puts the small tables it makes itself."""
+        for t in self._tables.values():
+            return t.device
+        return torch.device("cpu")
+
+    def table_statistics(self, name: str):
+        """TableStatistics of a table, generated on first use and cached on
+        the table until its row count changes (the optimizer's predicate
+        reordering and join ordering read them)."""
+        t = self.get_table(name)
+        stats = getattr(t, "_stats_cache", None)
+        if stats is None or getattr(t, "_stats_rows", -1) != t.num_rows:
+            from hyrise_tpu_torch.plan.statistics import generate_table_statistics
+            stats = generate_table_statistics(t)
+            t._stats_cache = stats
+            t._stats_rows = t.num_rows
+        return stats
+
+    def all_statistics(self):
+        return {name: self.table_statistics(name) for name in self._tables}
 
     def reset(self) -> None:
         self._tables.clear()

@@ -1,0 +1,304 @@
+"""The port's SQL pipeline (hyrise_tpu_torch.sql.pipeline) on the CPU: the
+plan cache and its five eviction policies (held against the JAX package's
+cache on the same access sequence), PREPARE/EXECUTE, `?` parameters, EXPLAIN,
+views, SHOW, set operations, statement metrics, and the errors raised by what
+this slice leaves to later ones (DML, MVCC) and by a missing catalog."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from hyrise_tpu.sql.pipeline import SQLQueryCache as JaxQueryCache
+from hyrise_tpu_torch.kernels.fused import FusedFilterAggregate
+from hyrise_tpu_torch.ops.aggregate import Aggregate
+from hyrise_tpu_torch.ops.misc import AddRowIds, Difference, UnionPositions
+from hyrise_tpu_torch.plan import lqp as L
+from hyrise_tpu_torch.plan.translator import translate_lqp
+from hyrise_tpu_torch.sql import pipeline
+from hyrise_tpu_torch.sql.pipeline import (SQLPipelineBuilder, SQLQueryCache,
+                                           StatementMetrics, run_sql)
+from hyrise_tpu_torch.sql.translator import SQLTranslationError
+from hyrise_tpu_torch.storage.catalog import Catalog
+from hyrise_tpu_torch.storage.table import Table, TableColumnDefinition
+from hyrise_tpu_torch.types import DataType
+
+torch.set_num_threads(1)
+
+
+def _catalog() -> Catalog:
+    rng = np.random.default_rng(11)
+    n = 40
+    t = Table.from_arrays(
+        "t", [TableColumnDefinition("a", DataType.INT32),
+              TableColumnDefinition("b", DataType.FLOAT64),
+              TableColumnDefinition("s", DataType.STRING)],
+        [np.arange(n, dtype=np.int32), rng.random(n) * 10,
+         np.array(["x", "y", "z"], dtype=object)[np.arange(n) % 3]], device="cpu")
+    u = Table.from_arrays(
+        "u", [TableColumnDefinition("k", DataType.INT32),
+              TableColumnDefinition("w", DataType.STRING)],
+        [np.array([1, 2, 3, 50], dtype=np.int32),
+         np.array(["one", "two", "three", "fifty"], dtype=object)], device="cpu")
+    cat = Catalog()
+    cat.add_table("t", t)
+    cat.add_table("u", u)
+    return cat
+
+
+def _rows(sql, cat, **kw):
+    return run_sql(sql, cat).rows()
+
+
+def _ops(plan, seen=None):
+    seen = {} if seen is None else seen
+    if id(plan) not in seen:
+        seen[id(plan)] = plan
+        for i in plan.inputs:
+            _ops(i, seen)
+    return list(seen.values())
+
+
+# -- the plan cache --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("policy", ["lru", "lru_k", "gds", "gdfs", "random"])
+def test_query_cache_policy_matches_jax(policy):
+    """The same puts and gets leave the same keys in both packages' caches
+    ('random' evicts with the seeded module generator)."""
+    rng = np.random.default_rng(3)
+    got, want = SQLQueryCache(4, policy), JaxQueryCache(4, policy)
+    for step in range(200):
+        key = f"q{int(rng.integers(0, 9))}"
+        cost, size = float(rng.integers(1, 5)), float(rng.integers(1, 3))
+        for cache in (got, want):
+            random.seed(step)
+            if cache.get(key) is None:
+                cache.put(key, key.upper(), cost=cost, size=size)
+        assert sorted(got._d) == sorted(want._d), step
+        assert len(got._d) <= 4
+    assert got.get(next(iter(got._d))) is not None
+    got.clear()
+    assert not got._d and got.get("q1") is None
+
+
+def test_query_cache_rejects_unknown_policy():
+    with pytest.raises(AssertionError):
+        SQLQueryCache(4, "fifo")
+
+
+def test_lru_evicts_the_least_recently_used():
+    c = SQLQueryCache(2, "lru")
+    c.put("a", 1)
+    c.put("b", 2)
+    assert c.get("a") == 1
+    c.put("c", 3)
+    assert c.get("b") is None and c.get("a") == 1 and c.get("c") == 3
+
+
+def test_plan_cache_hit_reuses_the_plan_and_gives_the_same_rows():
+    cat = _catalog()
+    pipeline._plan_cache.clear()
+    sql = "SELECT s, SUM(b), COUNT(*) FROM t WHERE a < 30 GROUP BY s ORDER BY s"
+    first = SQLPipelineBuilder(sql).with_catalog(cat).create_pipeline()
+    rows = first.get_result_table().rows()
+    m1 = first.pipeline_statements[0].metrics
+    assert isinstance(m1, StatementMetrics) and not m1.cache_hit
+    assert m1.parse_s > 0 and m1.translate_s > 0 and m1.optimize_s > 0 \
+        and m1.compile_s > 0 and m1.execute_s > 0
+    second = SQLPipelineBuilder(sql).with_catalog(cat).create_pipeline()
+    assert second.get_result_table().rows() == rows
+    m2 = second.pipeline_statements[0].metrics
+    assert m2.cache_hit and m2.translate_s == 0.0 and m2.compile_s == 0.0
+    assert second.pipeline_statements[0].last_plan is \
+        first.pipeline_statements[0].last_plan
+    # another catalog never gets this catalog's plan
+    other = _catalog()
+    third = SQLPipelineBuilder(sql).with_catalog(other).create_pipeline()
+    assert third.get_result_table().rows() == rows
+    assert not third.pipeline_statements[0].metrics.cache_hit
+    # and the cache can be bypassed
+    fourth = SQLPipelineBuilder(sql).with_catalog(cat).dont_cache_query_plans() \
+        .create_pipeline()
+    fourth.get_result_table()
+    assert not fourth.pipeline_statements[0].metrics.cache_hit
+
+
+def test_filter_aggregate_chain_becomes_the_fused_operator():
+    cat = _catalog()
+    p = SQLPipelineBuilder("SELECT s, SUM(b) FROM t WHERE a >= 10 AND b < 9 GROUP BY s") \
+        .with_catalog(cat).dont_cache_query_plans().create_pipeline()
+    got = p.get_result_table().rows()
+    fused = [o for o in _ops(p.pipeline_statements[0].last_plan)
+             if isinstance(o, FusedFilterAggregate)]
+    assert len(fused) == 1 and fused[0].fell_back is False
+    t = cat.get_table("t")
+    a, b = t.column("a").data.numpy(), t.column("b").data.numpy()
+    s = t.column("s").decode(t.num_rows)
+    want = [(k, b[(a >= 10) & (b < 9) & (s == k)].sum()) for k in ("x", "y", "z")]
+    assert [r[0] for r in got] == [w[0] for w in want]
+    np.testing.assert_allclose([r[1] for r in got], [w[1] for w in want], rtol=1e-12)
+    # without a predicate it stays a plain Aggregate
+    p = SQLPipelineBuilder("SELECT s, SUM(b) FROM t GROUP BY s").with_catalog(cat) \
+        .dont_cache_query_plans().create_pipeline()
+    p.get_result_table()
+    ops = _ops(p.pipeline_statements[0].last_plan)
+    assert any(type(o) is Aggregate for o in ops)
+    assert not any(isinstance(o, FusedFilterAggregate) for o in ops)
+
+
+# -- statements ------------------------------------------------------------------
+
+
+def test_prepare_and_execute():
+    cat = _catalog()
+    assert _rows("PREPARE p1 FROM 'SELECT a FROM t WHERE a > ? AND s = ?'", cat) == []
+    assert _rows("EXECUTE p1 (36, 'x')", cat) == [(39,)]
+    assert _rows("EXECUTE p1 (-1, 'z')", cat)[:2] == [(2,), (5,)]
+    with pytest.raises(SQLTranslationError):
+        _rows("EXECUTE no_such_statement (1)", cat)
+
+
+def test_with_params_substitutes_typed_literals():
+    cat = _catalog()
+    p = SQLPipelineBuilder("SELECT w FROM u WHERE k = ? OR w = ?").with_catalog(cat) \
+        .with_params([2, "it's ? quoted"]).create_pipeline()
+    assert p.get_result_table().rows() == [("two",)]
+    assert not p.pipeline_statements[0].metrics.cache_hit  # never cached
+
+
+def test_explain_returns_the_optimized_plan_text():
+    cat = _catalog()
+    lines = [r[0] for r in _rows("EXPLAIN SELECT a FROM t WHERE a > 5", cat)]
+    assert any("[Predicate]" in ln for ln in lines)
+    assert any("[StoredTable] t" in ln for ln in lines)
+
+
+def test_views_show_and_drop():
+    cat = _catalog()
+    _rows("CREATE VIEW big AS SELECT a, s FROM t WHERE a >= 38", cat)
+    assert cat.has_view("big")
+    assert _rows("SELECT a FROM big WHERE s = 'z'", cat) == [(38,)]
+    assert _rows("SHOW TABLES", cat) == [("t",), ("u",)]
+    assert _rows("SHOW COLUMNS u", cat) == [("k", "int32", 0), ("w", "string", 0)]
+    _rows("DROP VIEW big", cat)
+    assert not cat.has_view("big")
+    _rows("DROP TABLE u", cat)
+    assert cat.table_names() == ["t"]
+
+
+def test_several_statements_return_the_last_result():
+    cat = _catalog()
+    assert _rows("CREATE VIEW v AS SELECT a FROM t WHERE a < 2; SELECT a FROM v", cat) \
+        == [(0,), (1,)]
+
+
+def test_select_without_from_and_scalar_subquery():
+    cat = _catalog()
+    assert _rows("SELECT 1 + 2", cat) == [(3,)]
+    assert _rows("SELECT a FROM t WHERE a = (SELECT MAX(k) FROM u WHERE k < 10)", cat) \
+        == [(3,)]
+    # an empty scalar subquery is NULL: nothing compares equal to it
+    assert _rows("SELECT a FROM t WHERE a = (SELECT k FROM u WHERE k > 99)", cat) == []
+
+
+def test_set_operations_use_the_ported_operators():
+    cat = _catalog()
+    sql = "SELECT a FROM t WHERE a < 4 UNION SELECT k FROM u"
+    p = SQLPipelineBuilder(sql).with_catalog(cat).dont_cache_query_plans() \
+        .create_pipeline()
+    assert sorted(p.get_result_table().rows()) == [(0,), (1,), (2,), (3,), (50,)]
+    assert any(isinstance(o, UnionPositions)
+               for o in _ops(p.pipeline_statements[0].last_plan))
+    sql = "SELECT a FROM t WHERE a < 4 EXCEPT SELECT k FROM u"
+    p = SQLPipelineBuilder(sql).with_catalog(cat).dont_cache_query_plans() \
+        .create_pipeline()
+    assert sorted(p.get_result_table().rows()) == [(0,)]
+    assert any(isinstance(o, Difference) for o in _ops(p.pipeline_statements[0].last_plan))
+    assert sorted(_rows("SELECT a FROM t WHERE a < 4 INTERSECT SELECT k FROM u", cat)) \
+        == [(1,), (2,), (3,)]
+    assert len(_rows("SELECT a FROM t WHERE a < 4 UNION ALL SELECT k FROM u", cat)) == 8
+
+
+def test_difference_compares_whole_rows_with_nulls_and_floats():
+    """Float columns (-0.0 equals 0.0), strings over different dictionaries
+    and NULLs (two NULLs are one value to a set operation)."""
+    def table(name, f, s, valid):
+        return Table.from_arrays(
+            name, [TableColumnDefinition("f", DataType.FLOAT64, True),
+                   TableColumnDefinition("s", DataType.STRING)],
+            [np.array(f), np.array(s, dtype=object)], [np.array(valid), None],
+            device="cpu")
+    cat = Catalog()
+    cat.add_table("l", table("l", [0.0, 1.5, 2.5, 9.0, 9.0], ["a", "b", "c", "d", "d"],
+                             [True, True, True, False, True]))
+    cat.add_table("r", table("r", [-0.0, 1.5, 7.0, 3.0], ["a", "zz", "c", "d"],
+                             [True, True, True, False]))
+    got = sorted(_rows("SELECT f, s FROM l EXCEPT SELECT f, s FROM r", cat),
+                 key=lambda r: r[1])
+    assert got == [(1.5, "b"), (2.5, "c"), (9.0, "d")]
+
+
+def test_correlated_subquery_adds_row_ids():
+    cat = _catalog()
+    sql = "SELECT a FROM t WHERE b > (SELECT AVG(b) FROM t t2 WHERE t2.a < t.a)"
+    p = SQLPipelineBuilder(sql).with_catalog(cat).dont_cache_query_plans() \
+        .create_pipeline()
+    got = sorted(r[0] for r in p.get_result_table().rows())
+    assert any(isinstance(o, AddRowIds) for o in _ops(p.pipeline_statements[0].last_plan))
+    b = cat.get_table("t").column("b").data.numpy()
+    assert got == [i for i in range(1, 40) if b[i] > b[:i].mean()]
+
+
+# -- what later slices bring -----------------------------------------------------
+
+
+@pytest.mark.parametrize("sql,word", [
+    ("INSERT INTO u VALUES (7, 'seven')", "INSERT"),
+    ("UPDATE u SET k = 1 WHERE k = 2", "UPDATE"),
+    ("DELETE FROM u WHERE k = 2", "DELETE"),
+    ("CREATE TABLE n (x int)", "CREATE TABLE"),
+])
+def test_dml_raises_naming_its_slice(sql, word):
+    cat = _catalog()
+    with pytest.raises(SQLTranslationError, match=f"{word} is not supported yet.*DML/MVCC"):
+        run_sql(sql, cat)
+    assert cat.table_names() == ["t", "u"]
+    assert cat.get_table("u").num_rows == 4
+
+
+@pytest.mark.parametrize("node", [
+    L.ValidateNode(L.StoredTableNode("t")),
+    L.InsertNode("t", L.StoredTableNode("t")),
+    L.DeleteNode("t", L.StoredTableNode("t")),
+    L.CreateTableNode("n", []),
+], ids=lambda n: type(n).__name__)
+def test_dml_nodes_raise_in_the_physical_translator(node):
+    with pytest.raises(NotImplementedError, match="DML/MVCC"):
+        translate_lqp(node, _catalog())
+
+
+def test_index_marked_predicate_raises_in_the_physical_translator():
+    from hyrise_tpu_torch.expression import ast
+    node = L.PredicateNode(ast.col("a") > ast.lit(1), L.StoredTableNode("t"))
+    node.use_index = ("a", None, 1, None)
+    with pytest.raises(NotImplementedError, match="index"):
+        translate_lqp(node, _catalog())
+
+
+def test_mvcc_raises_until_the_transaction_slice():
+    with pytest.raises(NotImplementedError, match="DML/MVCC"):
+        SQLPipelineBuilder("SELECT 1").with_mvcc(True)
+    b = SQLPipelineBuilder("SELECT a FROM t WHERE a = 1").with_mvcc(False).disable_mvcc()
+    assert b.with_catalog(_catalog()).create_pipeline().get_result_table().rows() == [(1,)]
+
+
+def test_missing_catalog_raises():
+    with pytest.raises(ValueError, match="with_catalog"):
+        SQLPipelineBuilder("SELECT 1").create_pipeline()
+
+
+def test_catalog_device_is_where_its_tables_live():
+    assert Catalog().device == torch.device("cpu")
+    assert _catalog().device == torch.device("cpu")
