@@ -20,11 +20,34 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              6, 25 and 64 cells (6 and 25 are Q1's and Q5's on the main
              path), integers equal and float sums within 1e-12 relative,
              and the same bits from two launches; K4
-             (lookup_last_eq_lut) and K5 (expand_pairs) equal. Then the
-             median device ms of each kernel, of its plain version and, for
-             K3, of the one PyTorch call that computes the same sums
-             (index_add_), at the largest n and the shapes of the main path,
-             each timed shape first held against its plain version;
+             (lookup_last_eq_lut) and K5 (expand_pairs) equal; K6
+             (fused_cells_reduce) in four shapes and K8 (lookup_last_eq) on
+             int64 and float64 keys, with a hot key and an empty build side.
+             K7 (segment_reduce_sorted, which works on tiles of 2,048
+             positions of the group order): sum, min and max of the four
+             types and the count, with and without the permutation and the
+             validity column, at about 4 rows a group, at 1,000 groups, as
+             one group, with a third of the rows in one group, with every
+             boundary on a tile boundary, with runs of empty groups at both
+             ends and on a tile boundary, and with starts[0] > 0; integers
+             equal, float64 sums within 1e-12 relative (exact binary
+             fractions, so any order of summation gives the same sum), and
+             the same bits from two launches of every case (no atomics touch
+             a result: a sum's order is fixed by the group offsets alone).
+             K9 (compact_indices, one pass in one launch whose tiles hand
+             their counts on through status words): equal at five
+             selectivities, from an aligned mask and from a view one byte
+             into it, and at 65,543 and 6,006,330 rows 200 launches in a
+             row, each held against the plain version. Then the median
+             device ms of each kernel, of its plain version and of the
+             PyTorch call that computes the same function where there is one
+             (index_add_ for K3; for K7 index_add_ and torch.segment_reduce,
+             without and with the index_select that gathers the values;
+             torch.nonzero for K9), at the largest n and the shapes of the
+             main path (K9 also on a 1,000-row mask, as a view of its
+             worst-case buffer and as a copy), each timed shape first held
+             against its plain version; and for K7 and K9 the kernels' own
+             device time from one torch.profiler run per shape;
 4. data    — all 8 TPC-H tables at SF1 generated and uploaded to the card;
 5. main    — all 22 TPC-H queries through the operator DAG on the card at
              SF 0.01 (Q20 at 0.05, where it returns rows) against a sqlite
@@ -51,7 +74,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              must hold a FusedFilterAggregate that did not fall back, and
              the launch count of each of K6-K9 must have risen.
 
-The line before the last is {"kernels": [...]}; the last line is
+Phases 5 and 6 also print the mean rows per launch of K7 and K9 (the wrappers
+count the rows they are given), so their launch counts can be read against
+sizes. After phase 6 comes the script's run time, the build included. The
+line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}} and is printed only when every phase passed.
 """
 
@@ -419,44 +445,88 @@ def check_k6(n: int, device, fused_reduce) -> float:
     return worst
 
 
-def k7_inputs(n: int, n_groups: int, device):
-    """n rows in n_groups sorted segments of random sizes (some empty), a
-    permutation and a validity column."""
-    rng = np.random.default_rng(n * 13 + n_groups)
-    cuts = np.sort(rng.integers(0, n + 1, n_groups - 1))
-    starts = np.concatenate([[0], cuts, [n]]).astype(np.int64)
+K7_SHAPES = ("4 rows a group", "1000 groups", "one group", "skewed", "tile boundaries",
+             "empty runs", "offset start")
+K7_TIMED = ("4 rows a group", "1000 groups", "skewed")
+
+
+def k7_columns(n: int, device):
+    """n rows for K7: values of the four types, a permutation, a validity
+    column and arbitrary doubles."""
+    rng = np.random.default_rng(n * 13 + 7)
     up = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    return (exact_values(rng, n, device), up(starts),
-            up(rng.permutation(n).astype(np.int64)), up(rng.random(n) < 0.7),
-            up(rng.random(n) * 1e5 - 2e4))
+    return (exact_values(rng, n, device), up(rng.permutation(n).astype(np.int64)),
+            up(rng.random(n) < 0.7), up(rng.random(n) * 1e5 - 2e4))
+
+
+def k7_starts(n: int, shape: str, tile: int, device):
+    """Offsets of sorted segments over n positions (some groups empty).
+    '4 rows a group' and '1000 groups' cut at uniform random places; 'one
+    group' holds every row; 'skewed' is n // 4 groups of which one holds a
+    third of the rows; 'tile boundaries' puts every boundary on a multiple
+    of the kernel's tile; 'empty runs' adds runs of 70 empty groups at the
+    first position, on the tile boundary nearest the middle and at the last
+    position; 'offset start' begins at n // 3 and ends at n - n // 5."""
+    rng = np.random.default_rng(n * 13 + K7_SHAPES.index(shape))
+
+    def cut(lo, hi, n_groups):
+        cuts = np.sort(rng.integers(lo, hi + 1, max(n_groups - 1, 0)))
+        return np.concatenate([[lo], cuts, [hi]])
+
+    if shape == "4 rows a group":
+        starts = cut(0, n, n // 4 + 1)
+    elif shape == "1000 groups":
+        starts = cut(0, n, min(n, 1000))
+    elif shape == "one group":
+        starts = np.array([0, n])
+    elif shape == "skewed":
+        big = n // 3
+        rest = cut(0, n - big, max(n // 4 - 1, 1))
+        at = len(rest) // 2
+        starts = np.concatenate([rest[:at + 1], rest[at:] + big])
+    elif shape == "tile boundaries":
+        starts = np.arange(0, n + 1, tile) if n >= tile else np.array([0, n])
+    elif shape == "empty runs":
+        starts = cut(0, n, n // 4 + 1)
+        middle = (n // 2) // tile * tile
+        starts = np.sort(np.concatenate([starts, np.repeat([0, middle, n], 70)]))
+    else:
+        starts = cut(n // 3, n - n // 5, n // 8 + 1)
+    return torch.as_tensor(starts.astype(np.int64), device=device)
 
 
 def check_k7(n: int, device, segment_reduce) -> float:
-    """K7 against its plain version at about 4 rows a group and at 1,000
-    groups at most; the same bits from two launches."""
+    """K7 against its plain version in the K7_SHAPES: sum, min and max of the
+    four types and the count, with and without the permutation and the
+    validity column; the same bits from two launches."""
     worst = 0.0
-    for n_groups in sorted({n // 4 + 1, min(n, 1000)}):
-        values, starts, rows, validity, noisy = k7_inputs(n, n_groups, device)
-        cases = [("count", None)]
-        for name in values:
-            cases += [("sum", name), ("min", name), ("max", name)]
+    tile = segment_reduce.tile_positions()
+    values, rows, validity, noisy = k7_columns(n, device)
+    cases = [("count", None)]
+    for name in values:
+        cases += [("sum", name), ("min", name), ("max", name)]
+    for shape in K7_SHAPES:
+        starts = k7_starts(n, shape, tile, device)
         for kind, name in cases:
             v = None if name is None else values[name]
-            for r, m in ((rows, validity), (None, None)):
+            for r, m in ((rows, validity), (None, None), (rows, None), (None, validity)):
                 got = segment_reduce.segment_reduce_sorted(v, starts, kind, r, m)
+                again = segment_reduce.segment_reduce_sorted(v, starts, kind, r, m)
                 ref = segment_reduce.segment_reduce_sorted_plain(v, starts, kind, r, m)
                 torch.cuda.synchronize()
-                what = f"K7 {kind} {name} n={n} groups={n_groups}"
+                what = f"K7 {kind} {name} n={n} {shape}"
                 worst = max(worst, same_reduction(got[0], ref[0], what))
                 same_reduction(got[1], ref[1], what + " valid counts")
+                if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                    raise AssertionError(f"{what}: two launches differ")
         a = segment_reduce.segment_reduce_sorted(noisy, starts, "sum", rows, validity)[0]
         b = segment_reduce.segment_reduce_sorted(noisy, starts, "sum", rows, validity)[0]
         ref = segment_reduce.segment_reduce_sorted_plain(noisy, starts, "sum", rows,
                                                          validity)[0]
         if not torch.equal(a, b):
-            raise AssertionError(f"K7 n={n} groups={n_groups}: two launches differ")
+            raise AssertionError(f"K7 n={n} {shape}: two launches differ")
         if bool(((a - ref).abs() > 1e-9 * ref.abs().clamp(min=1.0)).any()):
-            raise AssertionError(f"K7 noisy sum n={n} groups={n_groups} differs from plain")
+            raise AssertionError(f"K7 noisy sum n={n} {shape} differs from plain")
     return worst
 
 
@@ -522,10 +592,18 @@ def k9_mask(n: int, share: float, device):
     return torch.as_tensor(rng.random(n) < share, device=device)
 
 
+K9_REPEATS = 200               # launches per size in the repeated check
+K9_REPEATED_SIZES = (65_543, 6_006_330)
+
+
 def check_k9(n: int, device, compact) -> float:
     """K9 against its plain version at five selectivities and from a view
-    that starts one byte into its buffer; the check is equality."""
+    that starts one byte into its buffer; at the K9_REPEATED_SIZES also
+    K9_REPEATS launches in a row, each held against the plain version (a
+    look-back that misses a tile once in a hundred launches fails here). The
+    check is equality."""
     worst = 0.0
+    masks = []
     for share in K9_SHARES:
         mask = k9_mask(n + 1, share, device)
         for m in (mask[:n], mask[1:]):
@@ -535,7 +613,52 @@ def check_k9(n: int, device, compact) -> float:
                 raise AssertionError(f"K9 compact_indices at n={n}, share {share}, "
                                      "differs from its plain version")
             worst = max(worst, max_abs_diff(((got, ref),)))
+            masks.append((m, ref))
+    if n in K9_REPEATED_SIZES:
+        for i in range(K9_REPEATS):
+            m, ref = masks[i % len(masks)]
+            if not torch.equal(compact.compact_indices(m), ref):
+                raise AssertionError(f"K9 compact_indices at n={n}: launch {i} of "
+                                     f"{K9_REPEATS} differs from its plain version")
     return worst
+
+
+PROFILED_CALLS = 20
+
+
+def kernel_only_ms(fn, device):
+    """Device ms per call of everything fn(i) runs on the card (kernels,
+    memsets, copies), from one torch.profiler run over PROFILED_CALLS calls,
+    each after an L2 flush (whose fill kernel is left out):
+    {short name: ms, ..., "sum": ms}. A profiler run that comes back without
+    any device event (it happens once in some tens of runs) is made again,
+    three times at most."""
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    flush = torch.empty(2 * max(l2, 1 << 20), dtype=torch.uint8, device=device)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        fn(0)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            for i in range(PROFILED_CALLS):
+                flush.zero_()
+                fn(i)
+            torch.cuda.synchronize()
+        ms = {}
+        for avg in prof.key_averages():
+            if avg.device_type != torch.autograd.DeviceType.CUDA or "FillFunctor" in avg.key:
+                continue
+            # torch renamed self_cuda_time_total to self_device_time_total
+            total_us = getattr(avg, "self_device_time_total", None)
+            if total_us is None:
+                total_us = avg.self_cuda_time_total
+            named = re.search(r"(\w+)(<.*>)?\(", avg.key)
+            name = named.group(1) if named else avg.key[:40]
+            ms[name] = ms.get(name, 0.0) + total_us / 1e3 / PROFILED_CALLS
+        if ms:
+            ms["sum"] = sum(ms.values())
+            return ms
+    raise AssertionError("torch.profiler saw no device time in three runs")
 
 
 def time_k6_to_k9(n: int, device, card: str, time_ms, mods):
@@ -597,32 +720,50 @@ def time_k6_to_k9(n: int, device, card: str, time_ms, mods):
                k3_launches, nbytes, f"where + {len(lib_out)} K3 launches")
 
     # K7: a float64 sum through the permutation, at about 4 rows a group (Q18,
-    # Q21) and at 1,000 groups; index_add_ and torch.segment_reduce take the
-    # values already gathered into group order
-    for label, n_groups in (("4 rows a group", n // 4 + 1), ("1000 groups", 1000)):
-        values, starts, rows, _, _ = k7_inputs(n, n_groups, device)
-        v = values["float64"]
+    # Q21), at 1,000 groups and with a third of the rows in one group. The
+    # library calls are index_add_ and torch.segment_reduce: once given the
+    # values already gathered into group order, once with the index_select
+    # that gathers them, which is K7's whole function
+    values, rows, _, _ = k7_columns(n, device)
+    v = values["float64"]
+    for label in K7_TIMED:
+        starts = k7_starts(n, label, segment_reduce.tile_positions(), device)
+        n_groups = starts.shape[0] - 1
         got = segment_reduce.segment_reduce_sorted(v, starts, "sum", rows)
         ref = segment_reduce.segment_reduce_sorted_plain(v, starts, "sum", rows)
         worst = max(worst, same_reduction(got[0], ref[0], f"K7 timed {label}"))
         gathered = v.index_select(0, rows)
         lengths = starts[1:] - starts[:-1]
         gid = torch.repeat_interleave(torch.arange(n_groups, device=device), lengths)
-        index_add = lambda i, g=gid, d=gathered, k=n_groups: (  # noqa: E731
-            torch.zeros(k, dtype=torch.float64, device=device).index_add_(0, g, d))
-        seg_reduce = lambda i, d=gathered, ln=lengths: (  # noqa: E731
-            torch.segment_reduce(d, "sum", lengths=ln))
-        same_reduction(index_add(0), ref[0], f"K7 {label}: index_add_")
-        same_reduction(seg_reduce(0), ref[0], f"K7 {label}: torch.segment_reduce")
+
+        def index_add(i, d=gathered, g=gid, k=n_groups):
+            return torch.zeros(k, dtype=torch.float64, device=device).index_add_(0, g, d)
+
+        def seg_reduce(i, d=gathered, ln=lengths):
+            return torch.segment_reduce(d, "sum", lengths=ln)
+
+        library = {
+            "index_add_ (gather not included)": index_add,
+            "torch.segment_reduce (gather not included)": seg_reduce,
+            "index_select + index_add_": lambda i: index_add(i, v.index_select(0, rows)),
+            "index_select + torch.segment_reduce":
+                lambda i: seg_reduce(i, v.index_select(0, rows)),
+        }
+        for name, fn in library.items():
+            same_reduction(fn(0), ref[0], f"K7 {label}: {name}")
         nbytes = n * (8 + 8) + (n_groups + 1) * 8 + n_groups * 16
         args = (v, starts, "sum", rows)
-        record(f"K7 {label}",
-               lambda i, a=args: segment_reduce.segment_reduce_sorted(*a),
+        kernel = lambda i, a=args: segment_reduce.segment_reduce_sorted(*a)  # noqa: E731
+        record(f"K7 {label}", kernel,
                lambda i, a=args: segment_reduce.segment_reduce_sorted_plain(*a),
                index_add, nbytes, "index_add_ (gather not included)")
-        out[f"K7 {label}"]["segment_reduce"] = time_ms(seg_reduce, device)
-        log(f"kernels n={n} K7 {label} torch.segment_reduce (gather not included) "
-            f"{out[f'K7 {label}']['segment_reduce']:.4f} ms {card}")
+        t = out[f"K7 {label}"]
+        t["libraries"] = {name: time_ms(fn, device) for name, fn in library.items()}
+        t["kernel_only"] = kernel_only_ms(kernel, device)
+        log(f"kernels n={n} K7 {label} ({n_groups} groups) {card}: library ms "
+            + ", ".join(f"{name} {ms:.4f}" for name, ms in t["libraries"].items())
+            + "; kernel-only device ms (torch.profiler) "
+            + ", ".join(f"{k} {ms:.4f}" for k, ms in t["kernel_only"].items()))
 
     # K8: int64 keys spread over 2^40 values, n // 4 + 1 build rows, n probes
     args = k8_inputs(n, "int64", device)
@@ -644,18 +785,50 @@ def time_k6_to_k9(n: int, device, card: str, time_ms, mods):
            lambda i: hash_lookup.lookup_last_eq_plain(*hot), None,
            nb * (8 + 1) + n * 8 + n * (1 + 8), "")
 
-    # K9 at Q6's, an even and Q1's selectivity; the library call is nonzero
-    for share in (0.02, 0.5, 0.98):
-        mask = k9_mask(n, share, device)
+    # K9 at Q6's, an even and Q1's selectivity over n rows, and over the 1,000
+    # rows of a small mask (such as `rows_per_cell > 0`); the library call is
+    # nonzero. Beside each, the two ways to hand out the result: a view of the
+    # worst-case buffer, or a copy of the positions
+    for rows_in, share in ((n, 0.02), (n, 0.5), (n, 0.98), (1000, 0.5)):
+        mask = k9_mask(rows_in, share, device)
         got, ref = compact.compact_indices(mask), compact.compact_indices_plain(mask)
         if not torch.equal(got, ref):
             raise AssertionError(f"K9 timed share {share} differs from its plain version")
-        record(f"K9 share {share}",
-               lambda i, m=mask: compact.compact_indices(m),
+        label = f"K9 share {share}" + ("" if rows_in == n else f" of {rows_in} rows")
+        kernel = lambda i, m=mask: compact.compact_indices(m)  # noqa: E731
+        record(label, kernel,
                lambda i, m=mask: compact.compact_indices_plain(m),
-               lambda i, m=mask: torch.nonzero(m), n + 8 * got.shape[0],
+               lambda i, m=mask: torch.nonzero(m), rows_in + 8 * got.shape[0],
                "torch.nonzero")
+
+        def view(i, m=mask):
+            buffer, count = compact.select_into_buffer(m)
+            return buffer[:count]
+
+        t = out[label]
+        t["view"] = time_ms(view, device)
+        t["copy"] = time_ms(lambda i: view(i).clone(), device)
+        t["kernel_only"] = kernel_only_ms(kernel, device)
+        log(f"kernels n={rows_in} {label} ({got.shape[0]} True) {card}: K9 view or copy: "
+            f"median device ms as a view of the {rows_in}-entry buffer {t['view']:.4f}, "
+            f"as a copy {t['copy']:.4f}; kernel-only device ms (torch.profiler) "
+            + ", ".join(f"{k} {ms:.4f}" for k, ms in t["kernel_only"].items()))
     return out, worst
+
+
+def reset_counts(wrappers) -> None:
+    """Every wrapper's launch count, and row count where it keeps one, to 0."""
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "rows_seen"):
+            w.rows_seen = 0
+
+
+def rows_per_launch(wrappers) -> str:
+    """Mean rows per launch of the wrappers that count their rows (K7: the
+    positions a call covered; K9: its mask's rows)."""
+    return ", ".join(f"{name} {w.rows_seen / max(w.launches, 1):.1f} over {w.launches}"
+                     for name, w in wrappers.items() if hasattr(w, "rows_seen"))
 
 
 def corpus_tables(device):
@@ -765,8 +938,7 @@ def sql_phase(device, card, cat, hand_rows, hand_wall, wrappers, sql_kernels, ta
     launch count set to 0 before the two. Returns the launch counts read
     after them. (The corpus' EXCEPT and INTERSECT reach K8 through Difference;
     no join of the 22 optimized TPC-H plans takes the general lookup.)"""
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts(wrappers)
     # 6b. the corpus
     tables = corpus_tables(device)
     oracle = oracle_class(tables)
@@ -837,11 +1009,13 @@ def sql_phase(device, card, cat, hand_rows, hand_wall, wrappers, sql_kernels, ta
             raise AssertionError(f"kernel {name} was not launched by the SQL path")
     log(f"sql: launches on the SQL path: the corpus {corpus_launches}, with the 22 "
         f"texts at SF{SF} {launches}")
+    log(f"sql: mean rows per launch on the SQL path: {rows_per_launch(wrappers)}")
     return launches
 
 
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
     smi = subprocess.run(
@@ -912,10 +1086,11 @@ def main() -> None:
         k8_err = max(k8_err, check_k8(n, device, hash_lookup))
         k9_err = max(k9_err, check_k9(n, device, compact))
         log(f"kernels n={n}: K6 equal to plain in 4 shapes (1, 1, 1 and 3 launches) and "
-            f"bit-stable; K7 equal to plain in 13 reductions x 2 group counts x "
-            f"with/without rows and validity, and bit-stable; K8 equal on int64 and "
-            f"float64 keys, with a hot key and on an empty build side; K9 equal at "
-            f"{len(K9_SHARES)} selectivities, aligned and not")
+            f"bit-stable; K7 equal to plain in 13 reductions x {len(K7_SHAPES)} shapes "
+            f"{K7_SHAPES} x with/without rows and validity, and bit-stable; K8 equal on "
+            f"int64 and float64 keys, with a hot key and on an empty build side; K9 equal "
+            f"at {len(K9_SHARES)} selectivities, aligned and not"
+            + (f", and in {K9_REPEATS} launches in a row" if n in K9_REPEATED_SIZES else ""))
     # timed at the largest n, in turns: plain, kernel, kernel, plain
     n = KERNEL_SIZES[-1]
     k1_fn = lambda i: q6.q6_scan(*args[:5], 731 - i, 1096)  # noqa: E731
@@ -1057,8 +1232,7 @@ def main() -> None:
                 "compact_indices": compact.compact_indices}
     sql_kernels = ("fused_cells_reduce", "segment_reduce_sorted", "lookup_last_eq",
                    "compact_indices")
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts(wrappers)
     specs, _ = dbgen.generate_specs(SF, SEED)["lineitem"]
     li = {name: payload for name, _, payload in specs}
     pool = li["l_shipdate"][1]
@@ -1114,6 +1288,7 @@ def main() -> None:
         if count <= 0 and name not in sql_kernels:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     log(f"main: launches on the main path {launches}")
+    log(f"main: mean rows per launch on the main path: {rows_per_launch(wrappers)}")
 
     # -- 6. the SQL entry point ----------------------------------------------
     sql_launches = sql_phase(device, card, cat, results, wall, wrappers, sql_kernels,
@@ -1133,6 +1308,7 @@ def main() -> None:
         return entry(name, source, replaces, err, t["kernel"], t["plain"], t["bound"],
                      t["library"])
 
+    log(f"elapsed: {time.perf_counter() - started:.1f} s, the build included")
     log(json.dumps({"kernels": [
         entry("q6_scan", "q6_scan.cu", "hyrise_tpu/kernels/pallas_scan.py:29",
               k1_err, ms["k1"], ms["k1_plain"], n * 17 / PEAK_BYTES_PER_S * 1e3),

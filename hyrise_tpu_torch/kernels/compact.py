@@ -1,5 +1,5 @@
 """Stream compaction (K9): the plain torch version and the wrapper of the
-hand-written CUDA kernels in csrc/compact.cu.
+hand-written CUDA kernel in csrc/compact.cu.
 
 Port of hyrise_tpu/kernels/tpu_prims.py compact_indices / positions_of_true:
 the ordered int64 positions of the True entries of a bool mask. Every filter,
@@ -7,19 +7,34 @@ every masked-layout compaction and the group boundaries of the general
 group-by go through it.
 
 `compact_indices` takes `compact_indices_plain` only for tensors on the CPU.
-For CUDA tensors it launches the kernels or raises; `launches` counts the
-calls that launched. The number of True rows is read on the host once (one
-sync) to size the output.
+For CUDA tensors it launches the kernel or raises; `launches` counts the
+calls that launched and `rows_seen` the mask rows they were given. A call is
+one buffer from torch's allocator (the positions at their worst-case length
+n, and the kernel's scratch behind them) and one C call that clears the
+scratch, launches the one kernel and returns the number of True rows, which
+the kernel's last tile writes into pinned host memory: the host learns the
+length after all the counting, without a stream synchronisation.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
 from hyrise_tpu_torch.kernels import build
+
+# A result shorter than n / _COPY_BELOW, out of a buffer of at least
+# _COPY_MIN_ROWS entries, is copied out of the buffer, so that a selective
+# filter's positions (which a table's lazy columns keep alive) do not hold
+# n x 8 bytes; any other result is a view of the buffer, which then holds at
+# most _COPY_BELOW times what it needs, or under a megabyte. The copy is a
+# launch that the host can only enqueue once it knows the count; chip_smoke.py
+# ("K9 view or copy") times both forms.
+_COPY_BELOW = 4
+_COPY_MIN_ROWS = 1 << 17
 
 
 def compact_indices_plain(mask: torch.Tensor) -> torch.Tensor:
@@ -32,19 +47,45 @@ def compact_indices_plain(mask: torch.Tensor) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     lib = build.load("compact")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.compact_count.argtypes = [ptr, i64, i64, ptr, ptr, ptr]
-    lib.compact_count.restype = i32
-    lib.compact_write.argtypes = [ptr, i64, i64, ptr, ptr, ptr]
-    lib.compact_write.restype = i32
+    lib.compact_select.argtypes = [ptr, i64, i64, ptr, ptr, ptr]
+    lib.compact_select.restype = i64
     lib.compact_tile_rows.argtypes = []
     lib.compact_tile_rows.restype = i32
+    lib.compact_scratch_words.argtypes = [i64]
+    lib.compact_scratch_words.restype = i64
     return lib
+
+
+@functools.cache
+def _tile_rows() -> int:
+    return _library().compact_tile_rows()
+
+
+def select_into_buffer(mask: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Launch the K9 kernel over a non-empty CUDA mask: (buffer, count). The
+    first `count` entries of the int64 buffer are the positions; it is longer
+    than len(mask)."""
+    dev = mask.device
+    n = mask.shape[0]
+    lib = _library()
+    tiles = -(-n // _tile_rows())
+    # positions [0, n), then the kernel's scratch
+    buffer = torch.empty(n + lib.compact_scratch_words(tiles), dtype=torch.int64,
+                         device=dev)
+    with torch.cuda.device(dev):
+        count = lib.compact_select(mask.view(torch.uint8).data_ptr(), n, tiles,
+                                   buffer.data_ptr() + 8 * n, buffer.data_ptr(),
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch(max(-count, 0), "compact_select")
+    compact_indices.launches += 1
+    compact_indices.rows_seen += n
+    return buffer, count
 
 
 def compact_indices(mask: torch.Tensor) -> torch.Tensor:
     """int64 positions of the True entries of a 1-D contiguous bool mask, in
     ascending order. CPU tensors take compact_indices_plain; CUDA tensors
-    launch the K9 kernels (count per tile and scan, then write)."""
+    launch the K9 kernel (one pass over the mask)."""
     dev = mask.device
     if dev.type == "cpu":
         return compact_indices_plain(mask)
@@ -54,23 +95,10 @@ def compact_indices(mask: torch.Tensor) -> torch.Tensor:
     n = mask.shape[0]
     if n == 0:
         return torch.empty(0, dtype=torch.int64, device=dev)
-    lib = _library()
-    tiles = -(-n // lib.compact_tile_rows())
-    tile_counts = torch.empty(tiles, dtype=torch.int32, device=dev)
-    offsets = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
-    mask_ptr = mask.view(torch.uint8).data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.compact_count(mask_ptr, n, tiles, tile_counts.data_ptr(),
-                                offsets.data_ptr(), stream)
-        build.check_launch(err, "compact_count")
-        compact_indices.launches += 1
-        out = torch.empty(int(offsets[tiles]), dtype=torch.int64, device=dev)
-        if out.shape[0]:
-            err = lib.compact_write(mask_ptr, n, tiles, offsets.data_ptr(),
-                                    out.data_ptr(), stream)
-            build.check_launch(err, "compact_write")
-    return out
+    buffer, count = select_into_buffer(mask)
+    out = buffer[:count]
+    return out.clone() if n >= _COPY_MIN_ROWS and count * _COPY_BELOW < n else out
 
 
 compact_indices.launches = 0
+compact_indices.rows_seen = 0

@@ -10,10 +10,13 @@ mask (`validity`) happen inside the kernel.
 
 `segment_reduce_sorted` takes `segment_reduce_sorted_plain` only for tensors
 on the CPU. For CUDA tensors it launches the kernel or raises; `launches`
-counts the launches. No atomics: a group's values are folded in row order
-by one thread (a float64 sum then equals the sequential sum) or, where
-groups average 32 rows or more, by the 32 lanes of one warp in a fixed
-order; either way equal inputs give equal bits.
+counts the calls that launched and `rows_seen` the positions they covered.
+The kernel balances its work over tiles of consecutive positions of the
+group order, not over groups, so one form serves every distribution of group
+sizes. No atomics touch a result, so equal inputs give equal bits on every
+launch. A float64 sum is the sequential sum in position order for a short
+group inside one tile, and otherwise a fixed tree of sequential partial sums
+whose shape depends only on `starts` (csrc/segment_reduce.cu says how).
 """
 
 from __future__ import annotations
@@ -27,9 +30,6 @@ import torch
 from hyrise_tpu_torch.kernels import build
 from hyrise_tpu_torch.kernels.group_reduce import extreme
 
-_BLOCKS_PER_SM = 8
-# groups of at least this many rows on average get a warp each, not a thread
-_WARP_GROUP_ROWS = 32
 _OPS = {"sum": 0, "min": 1, "max": 2, "count": 3}
 _VALUE_TYPES = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3}
 
@@ -98,12 +98,20 @@ def _library() -> ctypes.CDLL:
     lib = build.load("segment_reduce")
     ptr, i64, i32, f64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_double)
-    lib.segment_reduce_sorted.argtypes = [ptr, i32, ptr, ptr, ptr, i64, i32, f64,
-                                          i64, ptr, ptr, i32, i32, ptr]
+    lib.segment_reduce_sorted.argtypes = [ptr, i32, ptr, ptr, ptr, i64, i64, i32, f64,
+                                          i64, ptr, ptr, ptr, i64, ptr]
     lib.segment_reduce_sorted.restype = i32
-    lib.segment_threads_per_block.argtypes = []
-    lib.segment_threads_per_block.restype = i32
+    lib.segment_tile_positions.argtypes = []
+    lib.segment_tile_positions.restype = i32
+    lib.segment_scratch_words.argtypes = [i64]
+    lib.segment_scratch_words.restype = i64
     return lib
+
+
+@functools.cache
+def tile_positions() -> int:
+    """Positions of the group order that one block of the kernel owns."""
+    return _library().segment_tile_positions()
 
 
 def segment_reduce_sorted(values: Optional[torch.Tensor], starts: torch.Tensor,
@@ -115,7 +123,8 @@ def segment_reduce_sorted(values: Optional[torch.Tensor], starts: torch.Tensor,
     order (starts is int64 and ascending); position j stands for row
     rows[j] (int64), or row j itself without `rows`; a row enters where
     `validity` (bool, indexed by row like `values`) holds, or always
-    without it. Every named row must lie inside `values`.
+    without it. Every named row must lie inside `values`, and every position
+    inside `rows` (without `rows`: inside `values`).
 
     kind 'sum': float64 for float values, exact int64 for integers, 0 for a
     group without valid input. 'min' / 'max': in the values' dtype, the
@@ -138,13 +147,16 @@ def segment_reduce_sorted(values: Optional[torch.Tensor], starts: torch.Tensor,
         return (out.to(values.dtype) if is_extremum else out), n_valid
     sentinel = extreme(values.dtype, kind == "min") if is_extremum else 0
     lib = _library()
-    # the rows in all groups, as far as the arguments' lengths tell
+    # The positions lie in [0, n_positions): the length of `rows`, or of the
+    # column that positions index directly. A count without validity reads
+    # no position.
     given = rows if rows is not None else (values if values is not None else validity)
-    warp_per_group = given is not None and \
-        given.shape[0] >= _WARP_GROUP_ROWS * n_groups
-    threads = lib.segment_threads_per_block()
-    blocks = build.grid_blocks(n_groups, threads // 32 if warp_per_group else threads,
-                               _BLOCKS_PER_SM, dev)
+    n_positions = 0 if given is None else given.shape[0]
+    scratch = None
+    tiles = max(1, -(-n_positions // tile_positions()))
+    if not (is_count and validity is None):
+        scratch = torch.empty(lib.segment_scratch_words(tiles), dtype=torch.int64,
+                              device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.segment_reduce_sorted(
@@ -152,14 +164,16 @@ def segment_reduce_sorted(values: Optional[torch.Tensor], starts: torch.Tensor,
             0 if is_count else _VALUE_TYPES[values.dtype],
             None if rows is None else rows.data_ptr(),
             None if validity is None else validity.view(torch.uint8).data_ptr(),
-            starts.data_ptr(), n_groups, _OPS[kind],
+            starts.data_ptr(), n_groups, n_positions, _OPS[kind],
             float(sentinel) if acc is torch.float64 else 0.0,
             int(sentinel) if acc is torch.int64 else 0,
-            None if is_count else out.data_ptr(), n_valid.data_ptr(), blocks,
-            int(warp_per_group), stream)
+            None if is_count else out.data_ptr(), n_valid.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), tiles, stream)
     build.check_launch(err, "segment_reduce_sorted")
     segment_reduce_sorted.launches += 1
+    segment_reduce_sorted.rows_seen += n_positions
     return (out.to(values.dtype) if is_extremum else out), n_valid
 
 
 segment_reduce_sorted.launches = 0
+segment_reduce_sorted.rows_seen = 0
