@@ -20,7 +20,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              6, 25 and 64 cells (6 and 25 are Q1's and Q5's on the main
              path), integers equal and float sums within 1e-12 relative,
              and the same bits from two launches; K4
-             (lookup_last_eq_lut) and K5 (expand_pairs) equal; K6
+             (lookup_last_eq_lut: a memset, a build and a probe of four rows
+             a thread from one C call) equal and the same bits from two
+             launches, at 65,543 and 6,006,330 rows also from views one
+             element into their buffers, with every probe key outside the
+             range, an empty build side, every build row invalid, a third of
+             the build rows on one key, a table of LUT_MAX_ENTRIES entries
+             and 0 to 9 build rows against 1 to 9 probes; K5 (expand_pairs:
+             a scan of the counts whose tiles hand their sums on through
+             status words, then an expansion whose blocks own 2,048 output
+             positions) equal, at those two sizes also in 200 launches in a
+             row, with all ranges empty but five, as one range over the whole
+             build side, as the triangular ranges of a `<` join, as one range
+             of 150,000 pairs, at totals of 0, 1, one output tile and one
+             more, at range counts around the scan's tile, from views, and
+             five kinds of ranges outside the build side must raise; K6
              (fused_cells_reduce) in four shapes and K8 (lookup_last_eq) on
              int64 and float64 keys, with a hot key and an empty build side.
              K7 (segment_reduce_sorted, which works on tiles of 2,048
@@ -45,9 +59,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              without and with the index_select that gathers the values;
              torch.nonzero for K9), at the largest n and the shapes of the
              main path (K9 also on a 1,000-row mask, as a view of its
-             worst-case buffer and as a copy), each timed shape first held
-             against its plain version; and for K7 and K9 the kernels' own
-             device time from one torch.profiler run per shape;
+             worst-case buffer and as a copy; K5 also with a third of the
+             pairs in one range, with ranges and build side in order and at
+             100,000 ranges; K4 also with its probe keys in order), each
+             timed shape first held against its plain version; and for K4, K5, K7 and K9 the
+             kernels' own device time from one torch.profiler run per shape,
+             which for K4 and K5 must show at most two kernels and a memset
+             a call;
 4. data    — all 8 TPC-H tables at SF1 generated and uploaded to the card;
 5. main    — all 22 TPC-H queries through the operator DAG on the card at
              SF 0.01 (Q20 at 0.05, where it returns rows) against a sqlite
@@ -74,10 +92,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              must hold a FusedFilterAggregate that did not fall back, and
              the launch count of each of K6-K9 must have risen.
 
-Phases 5 and 6 also print the mean rows per launch of K7 and K9 (the wrappers
-count the rows they are given), so their launch counts can be read against
-sizes. After phase 6 comes the script's run time, the build included. The
-line before the last is {"kernels": [...]}; the last line is
+Phases 5 and 6 also print the mean rows per launch of K4, K5, K7 and K9 and
+K5's mean pairs per launch (the wrappers count the rows they are given), so
+their launch counts can be read against sizes. After phase 6 comes the
+script's run time, the build included. The line before the last is
+{"kernels": [...]}; the last line is
 {"ok": true, "device": {...}} and is printed only when every phase passed.
 """
 
@@ -312,18 +331,72 @@ def max_abs_diff(pairs) -> float:
     return worst
 
 
+def same_lookup(args, join_probe, what: str) -> float:
+    """K4 on `args` equal to its plain version, and the same bits from two
+    launches; returns the largest absolute difference."""
+    matched, rows = join_probe.lookup_last_eq_lut(*args)
+    again = join_probe.lookup_last_eq_lut(*args)
+    ref_matched, ref_rows = join_probe.lookup_last_eq_lut_plain(*args)
+    torch.cuda.synchronize()
+    if matched.dtype != torch.bool or rows.dtype != torch.int64:
+        raise AssertionError(f"K4 {what}: {matched.dtype}, {rows.dtype}")
+    if not (torch.equal(matched, ref_matched) and torch.equal(rows, ref_rows)):
+        raise AssertionError(f"K4 lookup_last_eq_lut {what} differs from its plain version")
+    if not (torch.equal(matched, again[0]) and torch.equal(rows, again[1])):
+        raise AssertionError(f"K4 lookup_last_eq_lut {what}: two launches differ")
+    return max_abs_diff(((matched, ref_matched), (rows, ref_rows)))
+
+
 def check_k4(n: int, device, join_probe) -> float:
     """K4 against its plain version; returns the largest absolute
     difference (the check itself is equality)."""
     args = k4_inputs(n, device)
-    matched, rows = join_probe.lookup_last_eq_lut(*args)
-    ref_matched, ref_rows = join_probe.lookup_last_eq_lut_plain(*args)
-    torch.cuda.synchronize()
-    if not (torch.equal(matched, ref_matched) and torch.equal(rows, ref_rows)):
-        raise AssertionError(f"K4 lookup_last_eq_lut at n={n} differs from its plain version")
-    if n > 1 and not bool(matched.any()):
+    worst = same_lookup(args, join_probe, f"at n={n}")
+    if n > 1 and not bool(join_probe.lookup_last_eq_lut(*args)[0].any()):
         raise AssertionError(f"K4 at n={n}: nothing matched, the check is empty")
-    return max_abs_diff(((matched, ref_matched), (rows, ref_rows)))
+    return worst
+
+
+K4_SHAPES = ("views one element into a buffer", "every probe key outside the range",
+             "empty build side", "every build row invalid",
+             "a third of the build rows on one key", "a table of LUT_MAX_ENTRIES entries",
+             "lengths 1 to 9")
+
+
+def check_k4_shapes(n: int, device, join_probe) -> float:
+    """K4 in the K4_SHAPES at n probe rows, each equal to the plain version
+    and the same bits from two launches."""
+    build_keys, valid, probe_keys, lo, hi = k4_inputs(n + 1, device)
+    nb = build_keys.shape[0]
+    worst = 0.0
+    views = (build_keys[1:], valid[1:], probe_keys[1:], lo, hi)
+    if views[0].data_ptr() % 16 == build_keys.data_ptr() % 16:
+        raise AssertionError("K4: the view is not off its buffer's 16-byte boundary")
+    one_key = torch.where(torch.rand(nb, device=device) < 1 / 3, build_keys[0], build_keys)
+    rng = np.random.default_rng(n + 44)
+    top = join_probe.LUT_MAX_ENTRIES - 1
+    wide = [torch.as_tensor(rng.integers(-3, top + 4, k), device=device) for k in (nb, n)]
+    cases = {
+        K4_SHAPES[0]: views,
+        K4_SHAPES[1]: (build_keys, valid, probe_keys + (hi - lo + 50), lo, hi),
+        K4_SHAPES[2]: (build_keys[:0], valid[:0], probe_keys, lo, hi),
+        K4_SHAPES[3]: (build_keys, torch.zeros_like(valid), probe_keys, lo, hi),
+        K4_SHAPES[4]: (one_key, valid | True, probe_keys, lo, hi),
+        K4_SHAPES[5]: (wide[0], valid, wide[1], 0, top),
+    }
+    for what, args in cases.items():
+        worst = max(worst, same_lookup(args, join_probe, f"{what}, n={n}"))
+    for shape in (K4_SHAPES[1], K4_SHAPES[2], K4_SHAPES[3]):
+        if bool(join_probe.lookup_last_eq_lut(*cases[shape])[0].any()):
+            raise AssertionError(f"K4 {shape}: something matched")
+    for nb_small in range(0, 10):
+        for nq in range(1, 10):
+            for off in (0, 1):  # whole buffers, and views one element in
+                args = (build_keys[off:off + nb_small], valid[off:off + nb_small],
+                        build_keys[off + 3:off + 3 + nq], lo, hi)
+                worst = max(worst, same_lookup(args, join_probe,
+                                               f"{nb_small} build rows, {nq} probes"))
+    return worst
 
 
 def k5_inputs(n: int, device):
@@ -341,16 +414,115 @@ def k5_inputs(n: int, device):
     return up(lo), up(counts), up(perm)
 
 
-def check_k5(n: int, device, join_probe):
-    """K5 against its plain version; returns the number of pairs and the
-    largest absolute difference (the check itself is equality)."""
+def k5_skewed_inputs(n: int, device):
+    """k5_inputs with one range made as long as half of all the others
+    together: a third of the pairs come from one probe row."""
     lo, counts, perm = k5_inputs(n, device)
-    probe, rows = join_probe.expand_pairs(lo, counts, perm)
-    ref_probe, ref_rows = join_probe.expand_pairs_plain(lo, counts, perm)
+    counts = counts.clone()
+    counts[n // 2] = 0
+    big = int(counts.sum()) // 2
+    perm = torch.cat([perm, torch.arange(big, device=device)])
+    lo = lo.clone()
+    lo[n // 3], counts[n // 3] = 0, big
+    return lo, counts, perm
+
+
+def same_pairs(args, join_probe, what: str):
+    """K5 on `args` equal to its plain version; returns the number of pairs
+    and the largest absolute difference."""
+    probe, rows = join_probe.expand_pairs(*args)
+    ref_probe, ref_rows = join_probe.expand_pairs_plain(*args)
     torch.cuda.synchronize()
+    if probe.dtype != torch.int64 or rows.dtype != torch.int64:
+        raise AssertionError(f"K5 {what}: {probe.dtype}, {rows.dtype}")
     if not (torch.equal(probe, ref_probe) and torch.equal(rows, ref_rows)):
-        raise AssertionError(f"K5 expand_pairs at n={n} differs from its plain version")
+        raise AssertionError(f"K5 expand_pairs {what} differs from its plain version")
     return probe.shape[0], max_abs_diff(((probe, ref_probe), (rows, ref_rows)))
+
+
+K5_REPEATS = 200               # launches per size in the repeated check
+K5_REPEATED_SIZES = (65_543, 6_006_330)
+K5_BAD_RANGES = {"end past build": ([0, 3], [1, 2]), "negative lo": ([-1, 0], [1, 1]),
+                 "negative count": ([0, 0], [1, -1]),
+                 "empty range past build": ([5, 0], [0, 1]),
+                 "end past int32": ([2**31 - 1, 0], [2**31 - 1, 1])}
+
+
+def check_k5(n: int, device, join_probe):
+    """K5 against its plain version; at the K5_REPEATED_SIZES also
+    K5_REPEATS launches in a row, each held against the plain version (a
+    look-back that misses a tile once in a hundred launches fails here).
+    Returns the number of pairs and the largest absolute difference (the
+    check itself is equality)."""
+    args = k5_inputs(n, device)
+    pairs, worst = same_pairs(args, join_probe, f"at n={n}")
+    if n in K5_REPEATED_SIZES:
+        ref = join_probe.expand_pairs_plain(*args)
+        for i in range(K5_REPEATS):
+            got = join_probe.expand_pairs(*args)
+            if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+                raise AssertionError(f"K5 expand_pairs at n={n}: launch {i} of "
+                                     f"{K5_REPEATS} differs from its plain version")
+    return pairs, worst
+
+
+def check_k5_shapes(n: int, device, join_probe) -> float:
+    """K5 in the shapes its two kernels have to get right, each equal to the
+    plain version: n ranges of which all but five are empty; one range over
+    the whole build side; the triangular ranges of a `<` join; one range of
+    150,000 pairs among empty ones; totals of 0, 1, one output tile and one
+    more; range counts around the scan's tile; ranges as views one element
+    into their buffers; and the K5_BAD_RANGES, which must raise."""
+    up = lambda a, dtype=np.int32: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a, dtype=dtype), device=device)
+    scan_tile, out_tile = join_probe.scan_tile_rows(), join_probe.out_tile_pairs()
+    rng = np.random.default_rng(n + 55)
+    nb = n // 4 + 4
+    perm = up(rng.permutation(nb), np.int64)
+    cases = {}
+    few = np.zeros(n, dtype=np.int32)
+    few[rng.integers(0, n, 5)] = rng.integers(1, 4, 5)
+    cases[f"{n} ranges, all empty but 5"] = (up(np.minimum(few, 1)), up(few), perm)
+    cases["one range over the whole build side"] = (up([0]), up([nb]), perm)
+    side = 3000
+    cases[f"triangular, {side} ranges"] = (up(np.zeros(side)), up(np.arange(side)),
+                                          up(rng.permutation(side), np.int64))
+    long_one = np.zeros(1000, dtype=np.int32)
+    long_one[500] = min(150_000, nb)
+    cases["one range of 150,000 pairs"] = (up(np.zeros(1000)), up(long_one), perm)
+    for total in (0, 1, out_tile, out_tile + 1):
+        counts = np.zeros(5000, dtype=np.int32)
+        for _ in range(total):
+            counts[rng.integers(0, 5000)] += 1
+        cases[f"a total of {total}"] = (up(rng.integers(0, nb - 8, 5000)), up(counts), perm)
+    for ranges in (scan_tile - 1, scan_tile, scan_tile + 1):
+        counts = np.minimum(rng.integers(0, 4, ranges + 1), nb)
+        lo = rng.integers(0, nb, ranges + 1) % (nb - counts + 1)
+        cases[f"{ranges} ranges"] = (up(lo)[:ranges], up(counts)[:ranges], perm)
+        counts = np.minimum(counts, nb - 1)  # perm[1:] is one row shorter
+        cases[f"{ranges} ranges as views"] = (up(lo % (nb - counts))[1:], up(counts)[1:],
+                                              perm[1:])
+    worst, totals = 0.0, {}
+    for what, args in cases.items():
+        totals[what], err = same_pairs(args, join_probe, f"{what}, n={n}")
+        worst = max(worst, err)
+    for total in (0, 1, out_tile, out_tile + 1):
+        if totals[f"a total of {total}"] != total:
+            raise AssertionError(f"K5: the case of {total} pairs has another total")
+    if totals[f"triangular, {side} ranges"] != side * (side - 1) // 2:
+        raise AssertionError("K5: the triangular case has another total")
+    small_perm = torch.arange(4, device=device)
+    for what, (lo, counts) in K5_BAD_RANGES.items():
+        try:
+            join_probe.expand_pairs(torch.tensor(lo, dtype=torch.int32, device=device),
+                                    torch.tensor(counts, dtype=torch.int32, device=device),
+                                    small_perm)
+        except ValueError as exc:
+            if "outside the build side" not in str(exc):
+                raise
+        else:
+            raise AssertionError(f"K5: ranges with {what} did not raise on the card")
+    return worst
 
 
 def exact_values(rng, n: int, device):
@@ -630,9 +802,10 @@ def kernel_only_ms(fn, device):
     """Device ms per call of everything fn(i) runs on the card (kernels,
     memsets, copies), from one torch.profiler run over PROFILED_CALLS calls,
     each after an L2 flush (whose fill kernel is left out):
-    {short name: ms, ..., "sum": ms}. A profiler run that comes back without
-    any device event (it happens once in some tens of runs) is made again,
-    three times at most."""
+    {short name: ms, ..., "sum": ms}, and the number of device kernels,
+    memsets and copies per call. A profiler run that comes back without
+    any device event, or with only a part of them (it happens once in some
+    tens of runs), is made again, three times at most."""
     l2 = torch.cuda.get_device_properties(device).L2_cache_size
     flush = torch.empty(2 * max(l2, 1 << 20), dtype=torch.uint8, device=device)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -644,7 +817,7 @@ def kernel_only_ms(fn, device):
                 flush.zero_()
                 fn(i)
             torch.cuda.synchronize()
-        ms = {}
+        ms, launched = {}, 0
         for avg in prof.key_averages():
             if avg.device_type != torch.autograd.DeviceType.CUDA or "FillFunctor" in avg.key:
                 continue
@@ -655,10 +828,13 @@ def kernel_only_ms(fn, device):
             named = re.search(r"(\w+)(<.*>)?\(", avg.key)
             name = named.group(1) if named else avg.key[:40]
             ms[name] = ms.get(name, 0.0) + total_us / 1e3 / PROFILED_CALLS
-        if ms:
+            launched += avg.count
+        # a run that lost part of its device events shows a broken number of
+        # launches per call
+        if ms and launched % PROFILED_CALLS == 0:
             ms["sum"] = sum(ms.values())
-            return ms
-    raise AssertionError("torch.profiler saw no device time in three runs")
+            return ms, launched // PROFILED_CALLS
+    raise AssertionError("torch.profiler lost device events in three runs")
 
 
 def time_k6_to_k9(n: int, device, card: str, time_ms, mods):
@@ -759,7 +935,7 @@ def time_k6_to_k9(n: int, device, card: str, time_ms, mods):
                index_add, nbytes, "index_add_ (gather not included)")
         t = out[f"K7 {label}"]
         t["libraries"] = {name: time_ms(fn, device) for name, fn in library.items()}
-        t["kernel_only"] = kernel_only_ms(kernel, device)
+        t["kernel_only"], _ = kernel_only_ms(kernel, device)
         log(f"kernels n={n} K7 {label} ({n_groups} groups) {card}: library ms "
             + ", ".join(f"{name} {ms:.4f}" for name, ms in t["libraries"].items())
             + "; kernel-only device ms (torch.profiler) "
@@ -808,7 +984,7 @@ def time_k6_to_k9(n: int, device, card: str, time_ms, mods):
         t = out[label]
         t["view"] = time_ms(view, device)
         t["copy"] = time_ms(lambda i: view(i).clone(), device)
-        t["kernel_only"] = kernel_only_ms(kernel, device)
+        t["kernel_only"], _ = kernel_only_ms(kernel, device)
         log(f"kernels n={rows_in} {label} ({got.shape[0]} True) {card}: K9 view or copy: "
             f"median device ms as a view of the {rows_in}-entry buffer {t['view']:.4f}, "
             f"as a copy {t['copy']:.4f}; kernel-only device ms (torch.profiler) "
@@ -816,19 +992,81 @@ def time_k6_to_k9(n: int, device, card: str, time_ms, mods):
     return out, worst
 
 
+SMALL_RANGES = 100_000         # a K5 call of the main path's smaller joins
+
+
+def k5_ordered_inputs(n: int, device):
+    """k5_inputs' counts over ranges that follow one another through a build
+    side in its own order, as a join of two tables sorted by the key finds
+    them: the gathers of build_perm run through it once."""
+    _, counts, _ = k5_inputs(n, device)
+    ends = torch.cumsum(counts, 0)
+    return ((ends - counts).to(torch.int32), counts,
+            torch.arange(int(ends[-1]), device=device))
+
+
+def time_k4_k5_more(n: int, device, card: str, time_ms, join_probe, k4_args, k5_args):
+    """Beside the timed shapes of K4 and K5, each first held against its plain
+    version: K5 with a third of the pairs in one range, with ranges and build
+    side in order, and at SMALL_RANGES ranges; K4 with its probe keys in
+    order; and the kernels' own device time per call from torch.profiler,
+    which must show at most two kernels and a memset a call."""
+    def profiled(label, fn):
+        ms, per_call = kernel_only_ms(fn, device)
+        if per_call > 3:
+            raise AssertionError(f"{label}: {per_call} device kernels and memsets a call")
+        return (f"kernel-only device ms (torch.profiler, {per_call} kernels and "
+                f"memsets a call) " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+
+    log(f"kernels n={n} K5 expand_pairs {card}: "
+        + profiled("K5", lambda i: join_probe.expand_pairs(*k5_args)))
+    for label, args in (("a third of the pairs in one range", k5_skewed_inputs(n, device)),
+                        ("ranges and build side in order", k5_ordered_inputs(n, device)),
+                        (f"{SMALL_RANGES} ranges", k5_inputs(SMALL_RANGES, device))):
+        total, _ = same_pairs(args, join_probe, f"timed, {label}")
+        kernel = lambda i, a=args: join_probe.expand_pairs(*a)  # noqa: E731
+        plain = lambda i, a=args: join_probe.expand_pairs_plain(*a)  # noqa: E731
+        t = turns((("plain", plain), ("kernel", kernel), ("kernel", kernel),
+                   ("plain", plain)), device, time_ms)
+        bound = (args[0].shape[0] * 8 + args[2].shape[0] * 8 + total * 16) \
+            / PEAK_BYTES_PER_S * 1e3
+        log(f"kernels n={args[0].shape[0]} K5 expand_pairs, {label} ({total} pairs) "
+            f"median device ms {card}: kernel {t['kernel']:.4f}, plain {t['plain']:.4f}, "
+            f"bound {bound:.4f}; " + profiled("K5 " + label, kernel))
+
+    log(f"kernels n={n} K4 lookup_last_eq_lut {card}: "
+        + profiled("K4", lambda i: join_probe.lookup_last_eq_lut(*k4_args)))
+    build_keys, valid, probe_keys, key_lo, key_hi = k4_args
+    ordered = (build_keys, valid, torch.sort(probe_keys).values, key_lo, key_hi)
+    same_lookup(ordered, join_probe, "timed, probe keys in order")
+    kernel = lambda i: join_probe.lookup_last_eq_lut(*ordered)  # noqa: E731
+    plain = lambda i: join_probe.lookup_last_eq_lut_plain(*ordered)  # noqa: E731
+    t = turns((("plain", plain), ("kernel", kernel), ("kernel", kernel), ("plain", plain)),
+              device, time_ms)
+    log(f"kernels n={n} K4 lookup_last_eq_lut, probe keys in order, median device ms "
+        f"{card}: kernel {t['kernel']:.4f}, plain {t['plain']:.4f}; "
+        + profiled("K4 in order", kernel))
+
+
 def reset_counts(wrappers) -> None:
-    """Every wrapper's launch count, and row count where it keeps one, to 0."""
+    """Every wrapper's launch count, and row and pair counts where it keeps
+    them, to 0."""
     for w in wrappers.values():
         w.launches = 0
-        if hasattr(w, "rows_seen"):
-            w.rows_seen = 0
+        for count in ("rows_seen", "pairs_out"):
+            if hasattr(w, count):
+                setattr(w, count, 0)
 
 
 def rows_per_launch(wrappers) -> str:
-    """Mean rows per launch of the wrappers that count their rows (K7: the
-    positions a call covered; K9: its mask's rows)."""
-    return ", ".join(f"{name} {w.rows_seen / max(w.launches, 1):.1f} over {w.launches}"
-                     for name, w in wrappers.items() if hasattr(w, "rows_seen"))
+    """Mean rows per launch of the wrappers that count their rows (K4: probe
+    rows; K5: ranges, and the pairs made of them; K7: the positions a call
+    covered; K9: its mask's rows)."""
+    return ", ".join(
+        f"{name} {w.rows_seen / max(w.launches, 1):.1f}"
+        + (f" (and {w.pairs_out / max(w.launches, 1):.1f} pairs)"
+           if hasattr(w, "pairs_out") else "") + f" over {w.launches}"
+        for name, w in wrappers.items() if hasattr(w, "rows_seen"))
 
 
 def corpus_tables(device):
@@ -1077,10 +1315,20 @@ def main() -> None:
         k4_err = max(k4_err, check_k4(n, device, join_probe))
         pairs, err = check_k5(n, device, join_probe)
         k5_err = max(k5_err, err)
+        shapes = ""
+        if n in K5_REPEATED_SIZES:
+            k4_err = max(k4_err, check_k4_shapes(n, device, join_probe))
+            k5_err = max(k5_err, check_k5_shapes(n, device, join_probe))
+            shapes = (f"; K4 also equal and bit-stable in {K4_SHAPES}; K5 also equal in "
+                      f"{K5_REPEATS} launches in a row, with all ranges empty but 5, as one "
+                      f"range over the build side, as triangular ranges, as one range of "
+                      f"150,000 pairs, at totals of 0, 1, one output tile and one more, at "
+                      f"range counts around the scan's tile, from views, and the "
+                      f"{len(K5_BAD_RANGES)} bad ranges {tuple(K5_BAD_RANGES)} raise")
         log(f"kernels n={n}: K1 {got!r} vs plain {ref!r} "
             f"(rel {rel_diff(got, ref):.3e}); K2 {total} == exact {exact}; "
             f"K3 equal to plain in 13 reductions x {len(K3_CELLS)} cell counts, and bit-stable; "
-            f"K4 equal; K5 equal over {pairs} pairs")
+            f"K4 equal and bit-stable; K5 equal over {pairs} pairs{shapes}")
         k6_err = max(k6_err, check_k6(n, device, fused_reduce))
         k7_err = max(k7_err, check_k7(n, device, segment_reduce))
         k8_err = max(k8_err, check_k8(n, device, hash_lookup))
@@ -1160,8 +1408,9 @@ def main() -> None:
     log(f"kernels n={n} median device ms {card}: K4 lookup_last_eq_lut ({nb4} build "
         f"rows, {n} probes, {k4_args[4] - k4_args[3] + 1} table entries) {jm['k4']:.4f} "
         f"vs plain {jm['k4_plain']:.4f}, bound {k4_bound:.4f}; K5 expand_pairs ({n} "
-        f"ranges, {k5_total} pairs, cumsum included) {jm['k5']:.4f} vs plain "
-        f"{jm['k5_plain']:.4f}, bound {k5_bound:.4f}")
+        f"ranges, {k5_total} pairs, scan and range check included) {jm['k5']:.4f} vs "
+        f"plain {jm['k5_plain']:.4f}, bound {k5_bound:.4f}")
+    time_k4_k5_more(n, device, card, bench_q6.time_ms, join_probe, k4_args, k5_args)
 
     new, new_err = time_k6_to_k9(n, device, card, bench_q6.time_ms,
                                  (fused_reduce, segment_reduce, hash_lookup, compact,

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` is compiled by nvcc for Hopper (sm_90a) into a shared
 library with a plain C interface and loaded with ctypes. The build runs on
 first use, inside the process that launches a kernel, into `_build/` next
-to this file; the library's name carries a hash of the source and flags, so
-an edited source is rebuilt and concurrent builds never share a partial
-file. `build_all` compiles all sources at once, one nvcc process each.
+to this file; the library's name carries a hash of the source, of every
+file under `csrc/` that it includes and of the flags, so an edited source or
+header is rebuilt and concurrent builds never share a partial file.
+`build_all` compiles all sources at once, one nvcc process each.
 Nothing here runs at import: a machine without nvcc can import every
 module and use the plain torch versions.
 """
@@ -16,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,10 +44,26 @@ def _nvcc() -> str:
     return str(candidate)
 
 
-def _library_path(name: str) -> Path:
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def _source_files(name: str, csrc_dir: Path) -> list:
+    """csrc_dir/<name>.cu and, after it, every file of csrc_dir that it
+    includes by #include "...", directly or through another such file."""
+    files = [csrc_dir / f"{name}.cu"]
+    for path in files:
+        for included in _INCLUDE.findall(path.read_bytes()):
+            header = csrc_dir / included.decode()
+            if header.exists() and header not in files:
+                files.append(header)
+    return files
+
+
+def _library_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _source_files(name, csrc_dir):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> None:

@@ -33,73 +33,29 @@
 // without a stream synchronisation, and whatever uses the positions is
 // ordered behind the kernel by the stream as usual.
 
-#include <atomic>
 #include <cstdint>
-#include <mutex>
 
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
+
+using lookback::kFullWarp;
+using lookback::kHasPrefix;
+using lookback::kHasSum;
+using lookback::status_word;
+using lookback::store_status;
 
 constexpr int kThreads = 256;
 constexpr int kWordRows = 8;  // mask bytes in one loaded word
 constexpr int kWords = 4;
 constexpr int kPerThread = kWords * kWordRows;
 constexpr int kTile = kThreads * kPerThread;
-constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 
-// A tile's status word: the top two bits say what the low 62 hold.
-constexpr int kStatusShift = 62;
-constexpr unsigned long long kHasCount = 1ULL;   // the tile's own True rows
-constexpr unsigned long long kHasPrefix = 2ULL;  // those of tiles 0..this one
-constexpr unsigned long long kValueMask = (1ULL << kStatusShift) - 1ULL;
-
-// scratch: [0] ticket counter, [1 + t] status word of tile t
+// scratch: [0] ticket counter, [1 + t] status word of tile t (lookback.cuh)
 constexpr int kTicketWord = 0;
 constexpr int kStatusWords = 1;
-
-// Totals come back through pinned host memory mapped into the card's address
-// space: a ring of slots, so that calls from several host threads each have
-// their own.
-constexpr int kSlots = 64;
-constexpr long long kPending = -1;
-constexpr unsigned kSpinsPerQuery = 1u << 16;
-std::mutex slots_mutex;
-long long* host_slots = nullptr;
-std::atomic<unsigned> next_slot{0};
-
-cudaError_t take_slot(volatile long long** host, long long** device) {
-  {
-    std::lock_guard<std::mutex> lock(slots_mutex);
-    if (host_slots == nullptr) {
-      void* p = nullptr;
-      cudaError_t err = cudaHostAlloc(&p, kSlots * sizeof(long long),
-                                      cudaHostAllocPortable | cudaHostAllocMapped);
-      if (err != cudaSuccess) return err;
-      host_slots = static_cast<long long*>(p);
-    }
-  }
-  long long* slot = host_slots + next_slot.fetch_add(1) % kSlots;
-  void* on_device = nullptr;
-  cudaError_t err = cudaHostGetDevicePointer(&on_device, slot, 0);
-  if (err != cudaSuccess) return err;
-  *host = slot;
-  *device = static_cast<long long*>(on_device);
-  **host = kPending;
-  return cudaSuccess;
-}
-
-__device__ __forceinline__ unsigned long long load_status(
-    const unsigned long long* word) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(word) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* word,
-                                             unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" :: "l"(word), "l"(v) : "memory");
-}
 
 // kWordRows mask bytes as one word, byte j = row first + j; rows at or past
 // n read as 0.
@@ -146,30 +102,6 @@ __device__ __forceinline__ int block_inclusive_scan(int v, int* warp_sums,
   return v + before;
 }
 
-// The True rows of every tile before `tile` (called by one whole warp, tile
-// > 0): looks back over the status words of tiles tile - 1, tile - 2, ...,
-// a lane each, until one of them holds an inclusive prefix.
-__device__ __forceinline__ long long rows_before(const unsigned long long* status,
-                                                 long long tile) {
-  const int lane = threadIdx.x & 31;
-  long long before = 0;
-  for (long long look = tile - 1 - lane;; look -= 32) {
-    // a lane that has run off the front reads as "prefix 0"
-    unsigned long long w;
-    do {
-      w = look >= 0 ? load_status(status + look) : (kHasPrefix << kStatusShift);
-    } while (__any_sync(kFullWarp, (w >> kStatusShift) == 0ULL));
-    const unsigned with_prefix =
-        __ballot_sync(kFullWarp, (w >> kStatusShift) == kHasPrefix);
-    // the nearest earlier tile that knows its prefix ends the walk
-    const int stop = with_prefix != 0u ? __ffs(static_cast<int>(with_prefix)) - 1 : 31;
-    long long part = lane <= stop ? static_cast<long long>(w & kValueMask) : 0;
-    for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(kFullWarp, part, d);
-    before += part;
-    if (with_prefix != 0u) return before;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const unsigned char* __restrict__ mask, long long n, bool aligned,
               long long tiles, unsigned long long* __restrict__ scratch,
@@ -200,8 +132,7 @@ select_kernel(const unsigned char* __restrict__ mask, long long n, bool aligned,
   int total;
   int at = block_inclusive_scan(mine, warp_sums, &total) - mine;
   if (threadIdx.x == 0) {
-    store_status(status + tile, ((tile == 0 ? kHasPrefix : kHasCount) << kStatusShift) |
-                                    static_cast<unsigned long long>(total));
+    store_status(status + tile, status_word(tile == 0 ? kHasPrefix : kHasSum, total));
   }
 #pragma unroll
   for (int w = 0; w < kWords; ++w) {
@@ -212,11 +143,10 @@ select_kernel(const unsigned char* __restrict__ mask, long long n, bool aligned,
     }
   }
   if (threadIdx.x < 32) {
-    const long long before = tile == 0 ? 0 : rows_before(status, tile);
+    const long long before = tile == 0 ? 0 : lookback::sum_before(status, tile);
     if (threadIdx.x == 0) {
       if (tile != 0) {
-        store_status(status + tile, (kHasPrefix << kStatusShift) |
-                                        static_cast<unsigned long long>(before + total));
+        store_status(status + tile, status_word(kHasPrefix, before + total));
       }
       if (tile == tiles - 1) *host_total = before + total;
       shared_before = before;
@@ -253,7 +183,7 @@ long long compact_select(const void* mask, long long n, long long tiles,
   }
   volatile long long* total = nullptr;
   long long* total_on_device = nullptr;
-  cudaError_t err = take_slot(&total, &total_on_device);
+  cudaError_t err = lookback::take_slot(&total, &total_on_device);
   if (err != cudaSuccess) return -static_cast<long long>(err);
   if (tiles > 1) {  // one tile takes no ticket and looks at no status word
     err = cudaMemsetAsync(scratch, 0, (kStatusWords + tiles) * 8, stream);
@@ -266,15 +196,8 @@ long long compact_select(const void* mask, long long n, long long tiles,
       total_on_device);
   err = cudaGetLastError();
   if (err != cudaSuccess) return -static_cast<long long>(err);
-  // wait for the total; now and then ask whether the stream has ended, since
-  // one that ends without a total has failed
-  for (unsigned spins = 1; *total == kPending; ++spins) {
-    if (spins % kSpinsPerQuery != 0) continue;
-    err = cudaStreamQuery(stream);
-    if (err == cudaErrorNotReady) continue;
-    if (*total != kPending) break;
-    return -static_cast<long long>(err == cudaSuccess ? cudaErrorUnknown : err);
-  }
+  err = lookback::wait_for_slot(total, stream);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
   return *total;
 }
 

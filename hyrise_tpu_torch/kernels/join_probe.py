@@ -10,9 +10,15 @@ hand-written CUDA kernels in csrc/join_probe.cu.
   (probe row, build row) index pairs; plain version `expand_pairs_plain`.
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
-tensors it launches its kernel or raises; `launches` counts the launches.
-Row ids come out as int64, ready for index_select; the lookup table itself
-is int32 (it is the largest allocation of a join).
+tensors it launches its kernels or raises; `launches` counts the calls that
+launched, `rows_seen` the probe rows (K4) or ranges (K5) they were given and
+K5's `pairs_out` the pairs they made. Each wrapper is one C call: K4's
+enqueues the table's memset, the build and the probe; K5's launches the scan
+of the counts, takes the total and whether the ranges stay inside the build
+side from pinned host memory that the scan's last tile writes (no stream
+synchronisation), has the outputs allocated and launches the expansion. Row
+ids come out as int64, ready for index_select; the lookup table itself is
+int32 (it is the largest allocation of a join).
 """
 
 from __future__ import annotations
@@ -28,26 +34,39 @@ from hyrise_tpu_torch.kernels import build
 # a direct-address table beyond this many entries costs more device memory
 # than it saves; such joins take the hash table (kernels/hash_lookup.py)
 LUT_MAX_ENTRIES = 1 << 25
-_BLOCKS_PER_SM = 8
+# K5's C call asks for its outputs through this: (number of pairs, the two
+# output pointers to fill) -> 0, or another value to stop the call
+_ALLOCATE = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_longlong,
+                             ctypes.POINTER(ctypes.c_void_p))
+_RANGES_REFUSED = -1
+_ALLOCATION_FAILED = -2
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("join_probe")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.lut_build.argtypes = [ptr, ptr, i64, i64, i64, ptr, i32, ptr]
-    lib.lut_build.restype = i32
-    lib.lut_probe.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, i32, ptr]
-    lib.lut_probe.restype = i32
-    lib.expand_pairs.argtypes = [ptr, ptr, i64, ptr, i64, ptr, ptr, i32, ptr]
+    lib.lut_lookup.argtypes = [ptr, ptr, i64, ptr, i64, i64, i64, ptr, ptr, ptr, ptr]
+    lib.lut_lookup.restype = i32
+    lib.expand_scratch_words.argtypes = [i64]
+    lib.expand_scratch_words.restype = i64
+    lib.expand_pairs.argtypes = [ptr, ptr, i64, ptr, i64, ptr, _ALLOCATE,
+                                 ctypes.POINTER(i64), ptr]
     lib.expand_pairs.restype = i32
-    lib.join_threads_per_block.argtypes = []
-    lib.join_threads_per_block.restype = i32
+    for tile in (lib.expand_scan_tile_rows, lib.expand_out_tile_pairs):
+        tile.argtypes = []
+        tile.restype = i32
     return lib
 
 
-def _blocks(n: int, lib: ctypes.CDLL, dev) -> int:
-    return build.grid_blocks(n, lib.join_threads_per_block(), _BLOCKS_PER_SM, dev)
+def scan_tile_rows() -> int:
+    """Ranges per tile of K5's scan kernel."""
+    return _library().expand_scan_tile_rows()
+
+
+def out_tile_pairs() -> int:
+    """Output pairs per block of K5's expansion kernel."""
+    return _library().expand_out_tile_pairs()
 
 
 # -- K4: direct-address equi-join probe -----------------------------------------
@@ -101,7 +120,8 @@ def lookup_last_eq_lut(build_keys: torch.Tensor, build_valid: torch.Tensor,
     [key_lo, key_hi], a range of at most LUT_MAX_ENTRIES values. Invalid
     build rows and build keys outside the range are skipped, probe keys
     outside it match nothing. CPU tensors take lookup_last_eq_lut_plain;
-    CUDA tensors launch the K4 kernels (table build, then probe)."""
+    CUDA tensors launch the K4 kernels (table fill, build and probe from one
+    C call)."""
     size = _check_lut(build_keys, build_valid, probe_keys, key_lo, key_hi)
     dev = build_keys.device
     if dev.type == "cpu":
@@ -114,25 +134,21 @@ def lookup_last_eq_lut(build_keys: torch.Tensor, build_valid: torch.Tensor,
     rows = torch.empty(nq, dtype=torch.int64, device=dev)
     if nq == 0:
         return matched, rows
-    lib = _library()
-    lut = torch.full((size,), -1, dtype=torch.int32, device=dev)
+    table = torch.empty(size, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if nb:
-            err = lib.lut_build(build_keys.data_ptr(),
-                                build_valid.view(torch.uint8).data_ptr(), nb,
-                                int(key_lo), size, lut.data_ptr(),
-                                _blocks(nb, lib, dev), stream)
-            build.check_launch(err, "lut_build")
-        err = lib.lut_probe(probe_keys.data_ptr(), nq, int(key_lo), size,
-                            lut.data_ptr(), matched.view(torch.uint8).data_ptr(),
-                            rows.data_ptr(), _blocks(nq, lib, dev), stream)
-    build.check_launch(err, "lut_probe")
+        err = _library().lut_lookup(
+            build_keys.data_ptr(), build_valid.view(torch.uint8).data_ptr(), nb,
+            probe_keys.data_ptr(), nq, int(key_lo), size, table.data_ptr(),
+            matched.view(torch.uint8).data_ptr(), rows.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch(err, "lut_lookup")
     lookup_last_eq_lut.launches += 1
+    lookup_last_eq_lut.rows_seen += nq
     return matched, rows
 
 
 lookup_last_eq_lut.launches = 0
+lookup_last_eq_lut.rows_seen = 0
 
 
 # -- K5: pair expansion ---------------------------------------------------------
@@ -147,21 +163,28 @@ def _check_ranges(lo, counts, build_perm) -> None:
         raise ValueError("lo and counts differ in length")
 
 
+def _ranges_refused(min_count: int, min_lo: int, min_end: int, max_end: int,
+                    n_build: int) -> ValueError:
+    """What is raised for a negative count or a range (an empty one too)
+    outside build_perm's n_build rows."""
+    return ValueError(f"ranges outside the build side: least count {min_count}, "
+                      f"least lo {min_lo}, ends {min_end} to {max_end} of "
+                      f"{n_build} build rows")
+
+
 def _ends_and_total(lo, counts, build_perm) -> Tuple[torch.Tensor, int]:
     """Inclusive prefix sum of counts (int64) and its total, read on the
-    host in one transfer together with the ranges' bounds; raises for a
-    negative count or a range (an empty one too) outside build_perm."""
+    host in one transfer together with the ranges' bounds, which are
+    checked."""
     ends = torch.cumsum(counts, 0, dtype=torch.int64)
     if lo.shape[0] == 0:
         return ends, 0
     # int32 throughout: an end past 2^31 wraps below 0 and fails the check
     min_end, max_end = torch.aminmax(lo + counts)
-    total, min_count, min_lo, min_end, max_end = torch.stack(
+    total, *bounds = torch.stack(
         [ends[-1], counts.min(), lo.min(), min_end, max_end]).tolist()
-    if min(min_count, min_lo, min_end) < 0 or max_end > build_perm.shape[0]:
-        raise ValueError(f"ranges outside the build side: least count {min_count}, "
-                         f"least lo {min_lo}, ends {min_end} to {max_end} of "
-                         f"{build_perm.shape[0]} build rows")
+    if min(bounds[:3]) < 0 or bounds[3] > build_perm.shape[0]:
+        raise _ranges_refused(*bounds, build_perm.shape[0])
     return ends, total
 
 
@@ -191,10 +214,12 @@ def expand_pairs(lo: torch.Tensor, counts: torch.Tensor,
     non-negative, every range inside build_perm), `build_perm` int64. Rows
     with a zero count own no output.
 
-    The total is read on the host (one sync) to size the output, and with
-    it the ranges' bounds: a negative count or a range outside build_perm
-    raises. A total of 0 launches nothing. CPU tensors take
-    expand_pairs_plain; CUDA tensors launch the K5 kernel."""
+    A negative count or a range outside build_perm raises ValueError before
+    any pair is written. CPU tensors take expand_pairs_plain. CUDA tensors
+    launch the K5 kernels from one C call: the scan of the counts, whose
+    total and bounds reach the host without a stream synchronisation, then
+    the expansion into outputs allocated in between; no pair launches no
+    expansion, no range launches nothing."""
     _check_ranges(lo, counts, build_perm)
     dev = lo.device
     if dev.type == "cpu":
@@ -202,22 +227,40 @@ def expand_pairs(lo: torch.Tensor, counts: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     n_probe = lo.shape[0]
-    ends, total = _ends_and_total(lo, counts, build_perm)
-    probe = torch.empty(total, dtype=torch.int64, device=dev)
-    rows = torch.empty(total, dtype=torch.int64, device=dev)
-    if total == 0:
-        return probe, rows
-    offsets = ends - counts
+    if n_probe == 0:
+        empty = torch.empty(0, dtype=torch.int64, device=dev)
+        return empty, torch.empty_like(empty)
     lib = _library()
+    scratch = torch.empty(lib.expand_scratch_words(n_probe), dtype=torch.int64, device=dev)
+    outputs, failure = [], []
+
+    def allocate(total, pointers):
+        try:
+            outputs.extend(torch.empty(total, dtype=torch.int64, device=dev)
+                           for _ in range(2))
+        except Exception as exc:  # an exception cannot cross the C call: kept, raised below
+            failure.append(exc)
+            return 1
+        pointers[0], pointers[1] = outputs[0].data_ptr(), outputs[1].data_ptr()
+        return 0
+
+    stats = (ctypes.c_longlong * 5)()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.expand_pairs(lo.data_ptr(), offsets.data_ptr(), n_probe,
-                               build_perm.data_ptr(), total,
-                               probe.data_ptr(), rows.data_ptr(),
-                               _blocks(total, lib, dev), stream)
-    build.check_launch(err, "expand_pairs")
+        err = lib.expand_pairs(lo.data_ptr(), counts.data_ptr(), n_probe,
+                               build_perm.data_ptr(), build_perm.shape[0],
+                               scratch.data_ptr(), _ALLOCATE(allocate), stats,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch(max(err, 0), "expand_pairs")
+    if err == _ALLOCATION_FAILED:
+        raise failure[0]
     expand_pairs.launches += 1
-    return probe, rows
+    expand_pairs.rows_seen += n_probe
+    if err == _RANGES_REFUSED:
+        raise _ranges_refused(*stats[1:], build_perm.shape[0])
+    expand_pairs.pairs_out += stats[0]
+    return outputs[0], outputs[1]
 
 
 expand_pairs.launches = 0
+expand_pairs.rows_seen = 0
+expand_pairs.pairs_out = 0
