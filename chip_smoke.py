@@ -2,6 +2,12 @@
 """Drive the PyTorch/CUDA port (hyrise_tpu_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cells [--kernels-from DIR]
+
+The second form runs phases 1 and 2, then only K3's and K6's checks and
+timings (`cells_phase`); with --kernels-from it imports the package of the
+checkout in DIR instead (an older commit unpacked there), for its timings
+beside this one's in the same call.
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -35,8 +41,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              of 150,000 pairs, at totals of 0, 1, one output tile and one
              more, at range counts around the scan's tile, from views, and
              five kinds of ranges outside the build side must raise; K6
-             (fused_cells_reduce) in four shapes and K8 (lookup_last_eq) on
-             int64 and float64 keys, with a hot key and an empty build side.
+             (fused_cells_reduce, one kernel a call on tiles staged by bulk
+             copies) in four shapes and K8 (lookup_last_eq) on int64 and
+             float64 keys, with a hot key and an empty build side. K3 and K6
+             also at 2,047 / 2,048 / 2,049 rows and over 37 tiles, at 1, 2,
+             8, 9, 63 and 64 cells, for the four types and folds, with NaN
+             and +-inf in min and max, from columns one element into their
+             buffers, and in 200 launches in a row at changing lengths (so
+             changing block counts: a ticket left standing shows there).
              K7 (segment_reduce_sorted, which works on tiles of 2,048
              positions of the group order): sum, min and max of the four
              types and the count, with and without the permutation and the
@@ -62,10 +74,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              worst-case buffer and as a copy; K5 also with a third of the
              pairs in one range, with ranges and build side in order and at
              100,000 ranges; K4 also with its probe keys in order), each
-             timed shape first held against its plain version; and for K4, K5, K7 and K9 the
-             kernels' own device time from one torch.profiler run per shape,
-             which for K4 and K5 must show at most two kernels and a memset
-             a call;
+             timed shape first held against its plain version; and for K3,
+             K4, K5, K6, K7 and K9 the kernels' own device time from one
+             torch.profiler run per shape, which for K4 and K5 must show at
+             most two kernels and a memset a call and for K6 one kernel;
 4. data    — all 8 TPC-H tables at SF1 generated and uploaded to the card;
 5. main    — all 22 TPC-H queries through the operator DAG on the card at
              SF 0.01 (Q20 at 0.05, where it returns rows) against a sqlite
@@ -546,6 +558,11 @@ def same_reduction(got, ref, what: str) -> float:
                              f"{ref.dtype}{tuple(ref.shape)}")
     if got.numel() == 0:
         return 0.0
+    if got.is_floating_point():  # a NaN of a min or max must be a NaN in both
+        nan = torch.isnan(ref)
+        if not torch.equal(torch.isnan(got), nan):
+            raise AssertionError(f"{what}: NaN where its plain version has none, or not")
+        got, ref = torch.where(nan, 0.0, got), torch.where(nan, 0.0, ref)
     if got.dtype == torch.float64:
         both_inf = torch.isinf(got) & (got == ref)  # an empty group's extreme
         diff = torch.where(both_inf, 0.0, (got - ref).abs())
@@ -597,7 +614,7 @@ def check_k6(n: int, device, fused_reduce) -> float:
     """K6 against its plain version in four shapes; the same bits from two
     launches. Returns the largest absolute difference of a float sum."""
     worst = 0.0
-    for shape, launches in (("q1", 1), ("q6", 1), ("mixed", 1), ("split", 3)):
+    for shape, launches in (("q1", 1), ("q6", 1), ("mixed", 2), ("split", 6)):
         args = k6_inputs(n, shape, device)
         before = fused_reduce.fused_cells_reduce.launches
         counts, results = fused_reduce.fused_cells_reduce(*args)
@@ -615,6 +632,177 @@ def check_k6(n: int, device, fused_reduce) -> float:
             if not (torch.equal(r, r2) and torch.equal(c, c2)):
                 raise AssertionError(f"K6 {shape} n={n} slot {i}: two launches differ")
     return worst
+
+
+CELLS_EDGE_SIZES = (2047, 2048, 2049, 37 * 2048 + 5)  # a tile -1 / +0 / +1, many tiles
+CELLS_EDGE_COUNTS = (1, 2, 8, 9, 63, 64)               # every cell bucket's edges
+CELLS_REPEATS = 200
+CELLS_REPEAT_ROWS = 1_100_000  # block counts change up to about 130 x 4 tiles
+
+
+def special_values(rng, n: int, device):
+    """exact_values with NaN, +inf and -inf planted in the float columns
+    (for min and max), and every column one element into a buffer of n + 1."""
+    out = {}
+    for name, v in exact_values(rng, n + 1, device).items():
+        if v.is_floating_point():
+            at = torch.as_tensor(rng.permutation(n + 1)[:3], device=device)
+            v[at] = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                                 dtype=v.dtype, device=device)[:at.shape[0]]
+        out[name] = v[1:]
+    return out
+
+
+def check_cells_edges(device, group_reduce, fused_reduce) -> float:
+    """K3 and K6 against their plain versions at a tile's size -1 / +0 / +1
+    and over many tiles, at every cell bucket's edges, for the four types
+    and the four folds, with NaN and +-inf in min and max, from columns one
+    element into their buffers. Returns the largest float64 difference."""
+    worst = 0.0
+    for n in CELLS_EDGE_SIZES:
+        for n_cells in CELLS_EDGE_COUNTS:
+            rng = np.random.default_rng(n * 131 + n_cells)
+            exact = {k: v[1:] for k, v in exact_values(rng, n + 1, device).items()}
+            special = special_values(rng, n, device)
+            cell = torch.as_tensor(rng.integers(-1, n_cells + 1, n + 1).astype(np.int32),
+                                   device=device)[1:]
+            what = f"n={n} cells={n_cells}"
+            cases = [("count", None)] + [("sum", v) for v in exact.values()]
+            cases += [(kind, v) for v in special.values() for kind in ("min", "max")]
+            for kind, v in cases:
+                sentinel = None if kind in ("sum", "count") else \
+                    group_reduce.extreme(v.dtype, kind == "min")
+                got = group_reduce.segment_reduce_cells(v, cell, n_cells, kind, sentinel)
+                ref = group_reduce.segment_reduce_cells_plain(v, cell, n_cells, kind,
+                                                              sentinel)
+                worst = max(worst, same_reduction(
+                    got, ref, f"K3 {kind} {None if v is None else v.dtype} {what}"))
+            mask = torch.as_tensor(rng.random(n + 1) < 0.8, device=device)[1:]
+            valid = torch.as_tensor(rng.random(n + 1) < 0.6, device=device)[1:]
+            key = torch.as_tensor(rng.integers(0, n_cells, n + 1).astype(np.int32),
+                                  device=device)[1:]
+            slots = [(v, valid if i % 2 else None, "sum")
+                     for i, v in enumerate(exact.values())]
+            slots += [(v, None if i % 2 else valid, kind) for i, v in enumerate(special.values())
+                      for kind in ("min", "max")]
+            slots += [(None, valid, "count"), (None, None, "count")]
+            counts, results = fused_reduce.fused_cells_reduce(mask, [key], [n_cells], slots)
+            ref_counts, ref = fused_reduce.fused_cells_reduce_plain(mask, [key], [n_cells],
+                                                                    slots)
+            same_reduction(counts, ref_counts, f"K6 {what} row counts")
+            for i, ((r, c), (rr, rc)) in enumerate(zip(results, ref)):
+                worst = max(worst, same_reduction(r, rr, f"K6 {what} slot {i}"))
+                same_reduction(c, rc, f"K6 {what} slot {i} valid counts")
+    return worst
+
+
+def check_cells_repeated(device, group_reduce, fused_reduce) -> None:
+    """CELLS_REPEATS launches of K3 and of K6 in a row over prefixes of
+    changing length, so changing block counts, each held against its plain
+    version: a ticket left standing would leave a launch without its combine."""
+    rng = np.random.default_rng(606)
+    n_max = CELLS_REPEAT_ROWS
+    v = exact_values(rng, n_max, device)["float64"]
+    cell = torch.as_tensor(rng.integers(-1, 7, n_max).astype(np.int32), device=device)
+    mask, keys, sizes, slots = k6_inputs(n_max, "q1", device)
+    for i in range(CELLS_REPEATS):
+        n = 1 + (i * 104_729) % n_max
+        got = group_reduce.segment_reduce_cells(v[:n], cell[:n], 6, "sum")
+        same_reduction(got, group_reduce.segment_reduce_cells_plain(v[:n], cell[:n], 6, "sum"),
+                       f"K3 launch {i} of {CELLS_REPEATS} (n={n})")
+        part = (mask[:n], [k[:n] for k in keys], sizes,
+                [(None if x is None else x[:n], m, kind) for x, m, kind in slots])
+        counts, results = fused_reduce.fused_cells_reduce(*part)
+        ref_counts, ref = fused_reduce.fused_cells_reduce_plain(*part)
+        same_reduction(counts, ref_counts, f"K6 launch {i} of {CELLS_REPEATS} (n={n})")
+        for (r, _), (rr, _) in zip(results, ref):
+            same_reduction(r, rr, f"K6 launch {i} of {CELLS_REPEATS} (n={n})")
+
+
+# K3's timed shapes: (label, values type, cells); f32 into 6 and 25 cells are
+# Q1's and Q5's on the main path
+K3_TIMED = (("f32x6", "float32", 6), ("f32x25", "float32", 25), ("f64x1", "float64", 1),
+            ("f64x4", "float64", 4), ("f64x64", "float64", 64))
+
+
+def time_cells(n: int, device, card: str, time_ms, group_reduce, fused_reduce,
+               one_kernel: bool):
+    """Median device ms of K3 at K3_TIMED and of K6 in Q1's and Q6's shapes,
+    beside the plain versions and the yardstick (index_add_ for K3; for K6
+    the cell column by `where` and the K3 launches it replaces), each shape
+    first held against its plain version; and each kernel's own device time
+    from torch.profiler, which for K6 with `one_kernel` must show one device
+    kernel and no memset a call (K3 keeps its two kernels). Returns ({label:
+    times}, largest difference)."""
+    out, worst = {}, 0.0
+
+    def record(label, kernel, plain, library, nbytes, note, flops=0):
+        t = turns((("plain", plain), ("kernel", kernel), ("library", library),
+                   ("kernel", kernel), ("plain", plain)), device, time_ms)
+        t["bytes"] = nbytes
+        t["bound"] = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_PER_S) * 1e3
+        t["kernel_only"], t["per_call"] = kernel_only_ms(kernel, device)
+        if one_kernel and label.startswith("K6") and t["per_call"] != 1:
+            raise AssertionError(f"{label}: {t['per_call']} device kernels and memsets a "
+                                 "call, not one kernel")
+        out[label] = t
+        log(f"kernels n={n} {label} median device ms {card}: kernel {t['kernel']:.4f}, "
+            f"plain {t['plain']:.4f}, {note} {t['library']:.4f}, bound {t['bound']:.4f} "
+            f"({nbytes / t['kernel'] / 1e6:.1f} GB/s); kernel-only device ms "
+            f"(torch.profiler, {t['per_call']} kernels and memsets a call) "
+            + ", ".join(f"{k} {ms:.4f}" for k, ms in t["kernel_only"].items()))
+
+    for label, dtype, n_cells in K3_TIMED:
+        values, cell, _ = k3_inputs(n, n_cells, device)
+        v = values[dtype]
+        cell = cell.clamp(0, n_cells - 1)  # every row inside, as after Q1's scan
+        v64, cell64 = v.to(torch.float64), cell.to(torch.int64)
+        kernel = lambda i, v=v, c=cell, k=n_cells: (  # noqa: E731
+            group_reduce.segment_reduce_cells(v, c, k, "sum"))
+        plain = lambda i, v=v, c=cell, k=n_cells: (  # noqa: E731
+            group_reduce.segment_reduce_cells_plain(v, c, k, "sum"))
+        library = lambda i, v=v64, c=cell64, k=n_cells: (  # noqa: E731
+            torch.zeros(k, dtype=torch.float64, device=device).index_add_(0, c, v))
+        got, ref = kernel(0), plain(0)
+        worst = max(worst, same_reduction(got, ref, f"K3 sum {label} n={n}"))
+        if not torch.equal(library(0), ref):
+            raise AssertionError(f"K3 {label}: index_add_ is not the same function")
+        record(f"K3 {label}", kernel, plain, library,
+               n * (v.element_size() + 4) + n_cells * 8, "index_add_", flops=n)
+
+    for shape in ("q1", "q6"):
+        mask, keys, sizes, slots = k6_inputs(n, shape, device)
+        n_cells = int(np.prod(sizes)) if sizes else 1
+        got, ref = (f(mask, keys, sizes, slots) for f in
+                    (fused_reduce.fused_cells_reduce, fused_reduce.fused_cells_reduce_plain))
+        for i, ((r, c), (rr, rc)) in enumerate(zip(got[1], ref[1])):
+            worst = max(worst, same_reduction(r, rr, f"K6 {shape} timed slot {i}"))
+            same_reduction(c, rc, f"K6 {shape} timed slot {i} valid counts")
+
+        def k3_launches(i, mask=mask, keys=keys, sizes=sizes, slots=slots, k=n_cells):
+            cell = torch.zeros(n, dtype=torch.int32, device=device)
+            for key, size in zip(keys, sizes):
+                cell = cell * size + key
+            cell = torch.where(mask, cell, k)
+            res = [group_reduce.segment_reduce_cells(None, cell, k, "count")]
+            for values, _, kind in slots:
+                if kind == "sum":
+                    res.append(group_reduce.segment_reduce_cells(values, cell, k, "sum"))
+            return res
+
+        lib_out = k3_launches(0)
+        same_reduction(lib_out[0], got[0], f"K6 {shape}: the K3 launches' row count")
+        same_reduction(lib_out[1], got[1][0][0], f"K6 {shape}: the K3 launches' first sum")
+        distinct = {id(v): v for v, _, _ in slots if v is not None}
+        nbytes = n * (1 + 4 * len(keys)) + sum(v.element_size() * n for v in
+                                               distinct.values()) \
+            + 8 * n_cells * (1 + len(slots))
+        record(f"K6 {shape}",
+               lambda i, a=(mask, keys, sizes, slots): fused_reduce.fused_cells_reduce(*a),
+               lambda i, a=(mask, keys, sizes, slots):
+                   fused_reduce.fused_cells_reduce_plain(*a),
+               k3_launches, nbytes, f"where + {len(lib_out)} K3 launches")
+    return out, worst
 
 
 K7_SHAPES = ("4 rows a group", "1000 groups", "one group", "skewed", "tile boundaries",
@@ -837,14 +1025,14 @@ def kernel_only_ms(fn, device):
     raise AssertionError("torch.profiler lost device events in three runs")
 
 
-def time_k6_to_k9(n: int, device, card: str, time_ms, mods):
-    """Median device ms of K6-K9, their plain versions and the PyTorch calls
+def time_k7_to_k9(n: int, device, card: str, time_ms, mods):
+    """Median device ms of K7-K9, their plain versions and the PyTorch calls
     that compute the same function, at the shapes of the main path; each
     shape is first held against its plain version. Returns, per label,
     {kernel, plain, library, bytes, bound} (ms; bound: each input read and
     each output written once at the card's memory rate) and the largest
     absolute difference seen."""
-    fused_reduce, segment_reduce, hash_lookup, compact, group_reduce = mods
+    segment_reduce, hash_lookup, compact = mods
     out, worst = {}, 0.0
 
     def record(label, kernel, plain, library, nbytes, note):
@@ -859,41 +1047,6 @@ def time_k6_to_k9(n: int, device, card: str, time_ms, mods):
         log(f"kernels n={n} {label} median device ms {card}: kernel {t['kernel']:.4f}, "
             f"plain {t['plain']:.4f}{lib}, bound {t['bound']:.4f} "
             f"({nbytes / t['kernel'] / 1e6:.1f} GB/s)")
-
-    # K6 in Q1's shape (what replaces it: the cell column by `where` and the 8
-    # K3 launches of Aggregate._dense) and in Q6's
-    for shape in ("q1", "q6"):
-        mask, keys, sizes, slots = k6_inputs(n, shape, device)
-        n_cells = int(np.prod(sizes)) if sizes else 1
-        got, ref = (f(mask, keys, sizes, slots) for f in
-                    (fused_reduce.fused_cells_reduce, fused_reduce.fused_cells_reduce_plain))
-        for i, ((r, c), (rr, rc)) in enumerate(zip(got[1], ref[1])):
-            worst = max(worst, same_reduction(r, rr, f"K6 {shape} timed slot {i}"))
-            same_reduction(c, rc, f"K6 {shape} timed slot {i} valid counts")
-
-        def k3_launches(i, mask=mask, keys=keys, sizes=sizes, slots=slots, k=n_cells):
-            cell = torch.zeros(n, dtype=torch.int32, device=device)
-            for key, size in zip(keys, sizes):
-                cell = cell * size + key
-            cell = torch.where(mask, cell, k)
-            res = [group_reduce.segment_reduce_cells(None, cell, k, "count")]
-            for values, _, kind in slots:
-                if kind == "sum":
-                    res.append(group_reduce.segment_reduce_cells(values, cell, k, "sum"))
-            return res
-
-        lib_out = k3_launches(0)
-        same_reduction(lib_out[0], got[0], f"K6 {shape}: the K3 launches' row count")
-        same_reduction(lib_out[1], got[1][0][0], f"K6 {shape}: the K3 launches' first sum")
-        distinct = {id(v): v for v, _, _ in slots if v is not None}
-        nbytes = n * (1 + 4 * len(keys)) + sum(v.element_size() * n for v in
-                                               distinct.values()) \
-            + 8 * n_cells * (1 + len(slots))
-        record(f"K6 {shape}",
-               lambda i, a=(mask, keys, sizes, slots): fused_reduce.fused_cells_reduce(*a),
-               lambda i, a=(mask, keys, sizes, slots):
-                   fused_reduce.fused_cells_reduce_plain(*a),
-               k3_launches, nbytes, f"where + {len(lib_out)} K3 launches")
 
     # K7: a float64 sum through the permutation, at about 4 rows a group (Q18,
     # Q21), at 1,000 groups and with a third of the rows in one group. The
@@ -1251,9 +1404,43 @@ def sql_phase(device, card, cat, hand_rows, hand_wall, wrappers, sql_kernels, ta
     return launches
 
 
+def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None:
+    """`--cells`: K3 and K6 alone. With `checked` (this checkout's kernels)
+    every check of phase 3 for them, then their timed shapes; without (the
+    kernels of another checkout, `--kernels-from DIR`, for the same timings
+    of an older form in the same run) the timed shapes only, each still held
+    against its plain version. Ends with one JSON line of the times."""
+    n = KERNEL_SIZES[-1]
+    if checked:
+        err = check_cells_edges(device, group_reduce, fused_reduce)
+        check_cells_repeated(device, group_reduce, fused_reduce)
+        for size in KERNEL_SIZES:
+            err = max(err, check_k3(size, device, group_reduce),
+                      check_k6(size, device, fused_reduce))
+        log(f"cells: K3 and K6 equal to plain at {CELLS_EDGE_SIZES} rows x "
+            f"{CELLS_EDGE_COUNTS} cells and at {KERNEL_SIZES}, in {CELLS_REPEATS} launches "
+            f"in a row, and bit-stable (largest float64 difference {err!r})")
+    cells, _ = time_cells(n, device, card, time_ms_of(), group_reduce, fused_reduce,
+                          one_kernel=checked)
+    log(json.dumps({"cells": {label: {
+        "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
+        "bound_ms": t["bound"], "kernel_only_ms": t["kernel_only"]["sum"],
+        "kernels_a_call": t["per_call"]} for label, t in cells.items()}}))
+
+
+def time_ms_of():
+    from hyrise_tpu_torch import bench_q6
+    return bench_q6.time_ms
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     started = time.perf_counter()
+    argv = sys.argv[1:]
+    cells_only = "--cells" in argv
+    other = argv[argv.index("--kernels-from") + 1] if "--kernels-from" in argv else None
+    if other is not None:
+        sys.path.insert(0, other)  # that checkout's hyrise_tpu_torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
     smi = subprocess.run(
@@ -1291,6 +1478,11 @@ def main() -> None:
         seconds = re.search(r"nvcc seconds: ([\d.]+)", text).group(1)
         log(f"build: {source}.cu: nvcc {seconds} s, {len(registers)} kernels, at most "
             f"{max(registers)} registers, {sum(spills)} bytes of spills (ptxas -v)")
+
+    if cells_only:
+        cells_phase(device, card, group_reduce, fused_reduce, checked=other is None)
+        log(f"elapsed: {time.perf_counter() - started:.1f} s, the build included")
+        return
 
     # -- 3. kernels against their plain versions -----------------------------
     k1_err = k2_err = k3_err = k4_err = k5_err = 0.0
@@ -1333,12 +1525,19 @@ def main() -> None:
         k7_err = max(k7_err, check_k7(n, device, segment_reduce))
         k8_err = max(k8_err, check_k8(n, device, hash_lookup))
         k9_err = max(k9_err, check_k9(n, device, compact))
-        log(f"kernels n={n}: K6 equal to plain in 4 shapes (1, 1, 1 and 3 launches) and "
+        log(f"kernels n={n}: K6 equal to plain in 4 shapes (1, 1, 2 and 6 launches) and "
             f"bit-stable; K7 equal to plain in 13 reductions x {len(K7_SHAPES)} shapes "
             f"{K7_SHAPES} x with/without rows and validity, and bit-stable; K8 equal on "
             f"int64 and float64 keys, with a hot key and on an empty build side; K9 equal "
             f"at {len(K9_SHARES)} selectivities, aligned and not"
             + (f", and in {K9_REPEATS} launches in a row" if n in K9_REPEATED_SIZES else ""))
+    err = check_cells_edges(device, group_reduce, fused_reduce)
+    k3_err, k6_err = max(k3_err, err), max(k6_err, err)
+    check_cells_repeated(device, group_reduce, fused_reduce)
+    log(f"kernels: K3 and K6 equal to plain at {CELLS_EDGE_SIZES} rows x "
+        f"{CELLS_EDGE_COUNTS} cells (four types, four folds, NaN and +-inf in min and "
+        f"max, columns one element into their buffers) and in {CELLS_REPEATS} launches "
+        f"in a row at changing lengths up to {CELLS_REPEAT_ROWS} rows")
     # timed at the largest n, in turns: plain, kernel, kernel, plain
     n = KERNEL_SIZES[-1]
     k1_fn = lambda i: q6.q6_scan(*args[:5], 731 - i, 1096)  # noqa: E731
@@ -1354,39 +1553,12 @@ def main() -> None:
     log(f"kernels n={n} effective GB/s {card}: K1 {n * 17 / ms['k1'] / 1e6:.1f}, "
         f"K2 {n * 8 / ms['k2'] / 1e6:.1f}")
 
-    # K3 at Q1's shape on the main path: float32 values summed into the 6
-    # cells of (l_returnflag, l_linestatus); beside it float64 values into 1,
-    # 4 and 64 cells. The library call is index_add_ on the same inputs,
-    # already promoted to float64 with int64 cell ids.
-    k3 = {}
-    for label, dtype, n_cells in (("f32x6", "float32", 6), ("f64x1", "float64", 1),
-                                  ("f64x4", "float64", 4), ("f64x64", "float64", 64)):
-        values, cell, _ = k3_inputs(n, n_cells, device)
-        v = values[dtype]
-        cell = cell.clamp(0, n_cells - 1)  # every row inside, as after Q1's scan
-        v64, cell64 = v.to(torch.float64), cell.to(torch.int64)
-        kernel = lambda i, v=v, c=cell, k=n_cells: (  # noqa: E731
-            group_reduce.segment_reduce_cells(v, c, k, "sum"))
-        plain = lambda i, v=v, c=cell, k=n_cells: (  # noqa: E731
-            group_reduce.segment_reduce_cells_plain(v, c, k, "sum"))
-        library = lambda i, v=v64, c=cell64, k=n_cells: (  # noqa: E731
-            torch.zeros(k, dtype=torch.float64, device=device).index_add_(0, c, v))
-        got, ref = kernel(0), plain(0)
-        if bool(((got - ref).abs() > 1e-12 * ref.abs().clamp(min=1.0)).any()):
-            raise AssertionError(f"K3 sum {label} n={n}: {got.tolist()} vs plain "
-                                 f"{ref.tolist()}")
-        if not torch.equal(library(0), ref):
-            raise AssertionError(f"K3 {label}: index_add_ is not the same function")
-        k3_err = max(k3_err, float((got - ref).abs().max()))
-        k3[label] = turns((("plain", plain), ("kernel", kernel), ("library", library),
-                           ("kernel", kernel), ("plain", plain)), device, bench_q6.time_ms)
-        k3[label]["bytes"] = n * (v.element_size() + 4) + n_cells * 8
-        k3[label]["bound"] = max(k3[label]["bytes"] / PEAK_BYTES_PER_S,
-                                 n / PEAK_F64_PER_S) * 1e3
-        log(f"kernels n={n} K3 sum {label} median device ms {card}: kernel "
-            f"{k3[label]['kernel']:.4f}, plain {k3[label]['plain']:.4f}, index_add_ "
-            f"{k3[label]['library']:.4f}, bound {k3[label]['bound']:.4f} "
-            f"({k3[label]['bytes'] / k3[label]['kernel'] / 1e6:.1f} GB/s)")
+    # K3 and K6 at the main path's shapes, beside their plain versions and
+    # yardsticks, with their own device time
+    cells, cells_err = time_cells(n, device, card, bench_q6.time_ms, group_reduce,
+                                  fused_reduce, one_kernel=True)
+    k3_err, k6_err = max(k3_err, cells_err), max(k6_err, cells_err)
+    k3 = cells["K3 f32x6"]
     k4_args = k4_inputs(n, device)
     k5_args = k5_inputs(n, device)
     k5_total = int(k5_args[1].sum())
@@ -1412,10 +1584,9 @@ def main() -> None:
         f"plain {jm['k5_plain']:.4f}, bound {k5_bound:.4f}")
     time_k4_k5_more(n, device, card, bench_q6.time_ms, join_probe, k4_args, k5_args)
 
-    new, new_err = time_k6_to_k9(n, device, card, bench_q6.time_ms,
-                                 (fused_reduce, segment_reduce, hash_lookup, compact,
-                                  group_reduce))
-    k6_err = max(k6_err, new_err)
+    new, new_err = time_k7_to_k9(n, device, card, bench_q6.time_ms,
+                                 (segment_reduce, hash_lookup, compact))
+    k7_err = max(k7_err, new_err)
 
     # -- 4. data -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1564,15 +1735,15 @@ def main() -> None:
         entry("q6_encoded", "q6_scan.cu", "hyrise_tpu/kernels/q6.py:87",
               k2_err, ms["k2"], ms["k2_plain"], n * 8 / PEAK_BYTES_PER_S * 1e3),
         entry("segment_reduce_cells", "group_reduce.cu",
-              "hyrise_tpu/kernels/tpu_prims.py:470", k3_err, k3["f32x6"]["kernel"],
-              k3["f32x6"]["plain"], k3["f32x6"]["bound"], k3["f32x6"]["library"]),
+              "hyrise_tpu/kernels/tpu_prims.py:470", k3_err, k3["kernel"], k3["plain"],
+              k3["bound"], k3["library"]),
         entry("lookup_last_eq_lut", "join_probe.cu",
               "hyrise_tpu/kernels/tpu_prims.py:354", k4_err, jm["k4"], jm["k4_plain"],
               k4_bound),
         entry("expand_pairs", "join_probe.cu", "hyrise_tpu/ops/join.py:140", k5_err,
               jm["k5"], jm["k5_plain"], k5_bound),
         new_entry("fused_cells_reduce", "fused_reduce.cu",
-                  "hyrise_tpu/kernels/fused.py:101", k6_err, new["K6 q1"]),
+                  "hyrise_tpu/kernels/fused.py:101", k6_err, cells["K6 q1"]),
         new_entry("segment_reduce_sorted", "segment_reduce.cu",
                   "hyrise_tpu/kernels/tpu_prims.py:494", k7_err, new["K7 4 rows a group"]),
         new_entry("lookup_last_eq", "hash_lookup.cu",

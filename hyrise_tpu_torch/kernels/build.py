@@ -126,8 +126,22 @@ def check_tensor(t: torch.Tensor, dtype: torch.dtype, device: torch.device,
         raise ValueError(f"{what}: must be contiguous")
 
 
+@functools.cache
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def ticket(device, owner: str) -> torch.Tensor:
+    """A zeroed int32 word on `device` for the kernels of `owner`: a launch
+    takes a ticket from it per block and its last block puts it back to 0,
+    so it is allocated and cleared once. Launches that share it must run one
+    after another (one stream), as every caller of the port's kernels does."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
 def grid_blocks(n: int, rows_per_block: int, blocks_per_sm: int, device) -> int:
     """Blocks for a grid-stride kernel over n rows: enough to cover the
     rows once, at most blocks_per_sm resident blocks on every SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-n // rows_per_block), sms * blocks_per_sm))
+    return max(1, min(-(-n // rows_per_block), sm_count(device) * blocks_per_sm))

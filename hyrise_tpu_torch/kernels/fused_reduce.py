@@ -13,13 +13,18 @@ the CPU. For CUDA tensors it launches the kernel or raises; `launches`
 counts the launches. No atomics, a fixed fold order: equal inputs give equal
 bits on every call.
 
-One rule sizes a launch (`plan_launches`). Every thread of a block owns
-n_acc * n_cells 8-byte accumulators in shared memory, n_acc = 1 (the row
-count) + the distinct validity columns + the distinct (value column, fold)
-pairs. The block takes the most threads of 256, 128, 64, 32 whose
-accumulators fit one block's 227 KB; where 32 do not fit, or a launch
-would exceed the kernel's 16 slots, the slots are split over several
-launches, each counting rows and the validities its own slots need.
+Two rules size a launch. `launch_shape` picks its tile (8 or 4 rows a
+thread) and, above 8 cells, its folders (the threads with private
+accumulators): a block stages two tiles of every column it reads (mask,
+code columns, validity columns, distinct value columns) and keeps n_acc *
+n_cells accumulators for each of its 8 warps (up to 8 cells) or folders,
+n_acc = 1 (the row count) + the distinct validity columns + the distinct
+(value column, fold) pairs, and the first shape that leaves room for two
+blocks an SM is taken. `plan_launches` splits the slots over several
+launches where even the smallest shape exceeds one block's 227 KB, or a
+launch would exceed the kernel's 16 slots, each launch counting rows and the
+validities its own slots need. Each launch is one kernel and no memset, its
+result and partials in one buffer.
 """
 
 from __future__ import annotations
@@ -37,9 +42,18 @@ from hyrise_tpu_torch.kernels.group_reduce import (DENSE_CELL_MAX, extreme,
 # the limits compiled into csrc/fused_reduce.cu (checked when it is loaded)
 MAX_KEYS = 8
 MAX_SLOTS = 16
-SHARED_BYTES = 227 * 1024
-_THREAD_CHOICES = (256, 128, 64, 32)
+# the launch shape of csrc/cells_reduce.cuh: 256 threads (8 warps) a block,
+# at most 8 blocks an SM (2,048 threads), 8 or 4 rows a thread a tile, 128,
+# 64 or 32 folders above 8 cells
+WARPS = 8
+THREADS = 32 * WARPS
 _MAX_BLOCKS_PER_SM = 8
+_ROWS = (8, 4)
+_FOLDERS = (128, 64, 32)
+# shared memory of one block (227 KB) and of an SM (228 KB); each resident
+# block also takes 1 KB of the SM's
+SHARED_BYTES = 227 * 1024
+_TWO_BLOCKS = 228 * 1024 // 2 - 1024
 
 _FOLDS = {"sum": 0, "min": 1, "max": 2}
 _VALUE_TYPES = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3}
@@ -107,89 +121,150 @@ def fused_cells_reduce_plain(mask: torch.Tensor, keys: Sequence[torch.Tensor],
     return counts, out
 
 
-def plan_launches(n_cells: int, items: Sequence[Tuple[bool, int]]
-                  ) -> List[Tuple[int, List[int]]]:
-    """Split accumulator work over launches: [(threads per block, item
-    numbers)]. An item is (has a fold, validity column number or -1): a fold
-    slot, or a validity column of which only the count is wanted. A launch's
-    accumulators are its row count, one count per validity column its items
-    name, and its folds. Items join the current launch while its
-    accumulators fit one block's shared memory at 32 threads and the
-    kernel's slot limits; then the launch takes the most threads that fit."""
-    def n_acc(validities, folds):
-        return 1 + len(validities) + folds
+def max_blocks(n: int, sms: int, tile_rows: int) -> int:
+    """The most blocks a launch over n rows may take, and so the partials
+    its buffer holds: one a tile, at most _MAX_BLOCKS_PER_SM an SM. The C
+    side takes fewer where the SM's occupancy holds fewer."""
+    return max(1, min(-(-n // tile_rows), sms * _MAX_BLOCKS_PER_SM))
 
-    def fits(validities, folds, threads=_THREAD_CHOICES[-1]):
-        return (n_acc(validities, folds) * n_cells * threads * 8 <= SHARED_BYTES
-                and folds <= MAX_SLOTS and len(validities) <= MAX_SLOTS)
 
-    groups: List[Tuple[set, int, List[int]]] = [(set(), 0, [])]
-    for number, (has_fold, validity) in enumerate(items):
-        used, folds, members = groups[-1]
+def shared_bytes(column_bytes: Sequence[int], n_entries: int, rows_per_thread: int = 8,
+                 width: int = WARPS) -> int:
+    """Dynamic shared memory of a block (csrc/cells_reduce.cuh
+    shared_bytes): the launch's job (1,280 bytes), two stages of a tile of
+    every column (each a 16-byte chunk longer, for a column that starts
+    inside a chunk), n_entries accumulators of `width` (the 8 warps, or the
+    folders), the tile's cell bytes, a flag word and the two stages'
+    barriers."""
+    tile = rows_per_thread * THREADS
+    stage = sum(tile * b + 16 for b in column_bytes)
+    return 1280 + 2 * stage + n_entries * width * 8 + tile + 16 + 16
+
+
+def launch_shape(column_bytes: Sequence[int], n_acc: int, n_cells: int,
+                 rows_options: Sequence[int] = _ROWS) -> Tuple[int, int, int]:
+    """(rows a thread, folders, shared bytes) of a launch that stages
+    columns of `column_bytes` and keeps n_acc accumulators a cell: the
+    first shape, in the order folders (128, 64, 32; 0 up to 8 cells, which
+    fold in registers), rows a thread (`rows_options`), of which two blocks
+    fit an SM; else the smallest, one block an SM."""
+    folders_options = _FOLDERS if n_cells > 8 else (0,)
+    for folders in folders_options:
+        for rows in rows_options:
+            shared = shared_bytes(column_bytes, n_acc * n_cells, rows, folders or WARPS)
+            if shared <= _TWO_BLOCKS:
+                return rows, folders, shared
+    rows, folders = rows_options[-1], folders_options[-1]
+    return rows, folders, shared_bytes(column_bytes, n_acc * n_cells, rows, folders or WARPS)
+
+
+def plan_launches(n_cells: int, items: Sequence[Tuple[int, int]],
+                  fixed: Sequence[int] = ()) -> List[Tuple[int, List[int]]]:
+    """Split accumulator work over launches: [(shared bytes of a block at 4
+    rows a thread, item numbers)]. An item is (value bytes, validity column
+    number or -1): a fold of a value column of that element size, or, with
+    0 bytes, a validity column of which only the count is wanted. `fixed`
+    lists the element bytes of the columns every launch reads (mask, code
+    columns). A launch stages its fixed columns, one byte per validity
+    column its items name and its items' value columns, and keeps its row
+    count, those validities' counts and its folds for every cell
+    (launch_shape). Items join the current launch while its
+    shape at 4 rows a thread fits one block's shared memory and the kernel's
+    slot limits."""
+    def shared(validities, values):
+        return launch_shape([*fixed, *([1] * len(validities)), *values],
+                            1 + len(validities) + len(values), n_cells, _ROWS[-1:])[2]
+
+    def fits(validities, values):
+        return (shared(validities, values) <= SHARED_BYTES
+                and len(values) <= MAX_SLOTS and len(validities) <= MAX_SLOTS)
+
+    groups: List[Tuple[set, List[int], List[int]]] = [(set(), [], [])]
+    for number, (value_bytes, validity) in enumerate(items):
+        used, values, members = groups[-1]
         grown = used | ({validity} if validity >= 0 else set())
-        if members and not fits(grown, folds + has_fold):
-            used, folds, members = set(), 0, []
-            groups.append((used, folds, members))
+        more = values + ([value_bytes] if value_bytes else [])
+        if members and not fits(grown, more):
+            members = []
+            groups.append((set(), [], members))
             grown = {validity} if validity >= 0 else set()
-        if not fits(grown, folds + has_fold):
+            more = [value_bytes] if value_bytes else []
+        if not fits(grown, more):
             raise ValueError(f"one aggregate over {n_cells} cells does not fit "
                              "a block's shared memory")
         members.append(number)
-        groups[-1] = (grown, folds + has_fold, members)
-    return [(next(t for t in _THREAD_CHOICES if fits(used, folds, t)), members)
-            for used, folds, members in groups]
+        groups[-1] = (grown, more, members)
+    return [(shared(used, values), members) for used, values, members in groups]
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("fused_reduce")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.fused_cells_reduce.argtypes = [ptr, i32, ptr, ptr, i32, ptr, i32, ptr, ptr,
-                                       ptr, ptr, i64, i32, i32, i32, ptr, ptr, ptr]
+    lib.fused_cells_reduce.argtypes = [ptr, i32, ptr, ptr, i32, ptr, i32, ptr, ptr, i32,
+                                       ptr, ptr, ptr, i64, i32, ptr, ptr, i32, i32, i32, ptr]
     lib.fused_cells_reduce.restype = i32
+    lib.fused_shared_bytes.argtypes = [i32, ptr, i32, i32, i32]
+    lib.fused_shared_bytes.restype = i32
     for fn, want in ((lib.fused_max_keys, MAX_KEYS), (lib.fused_max_slots, MAX_SLOTS),
                      (lib.fused_max_cells, DENSE_CELL_MAX),
-                     (lib.fused_max_shared, SHARED_BYTES)):
+                     (lib.fused_max_shared, SHARED_BYTES), (lib.fused_warps, WARPS)):
         fn.argtypes = []
         fn.restype = i32
         if fn() != want:
             raise RuntimeError("csrc/fused_reduce.cu and fused_reduce.py disagree "
                                "on a limit")
+    for column_bytes, n_entries, shape in (([1, 4, 4, 4, 4, 4, 4], 42, (4, 8)),
+                                           ([8] * 5, 640, (8, 64))):
+        if lib.fused_shared_bytes(len(column_bytes), _ints(column_bytes), n_entries,
+                                  *shape) != shared_bytes(column_bytes, n_entries, *shape):
+            raise RuntimeError("csrc/cells_reduce.cuh and fused_reduce.shared_bytes "
+                               "disagree")
+    lib.fused_init.argtypes = []
+    lib.fused_init.restype = i32
+    build.check_launch(lib.fused_init(), "fused_init")
     return lib
 
 
+def _pointers(tensors):
+    return (ctypes.c_void_p * max(len(tensors), 1))(*[t.data_ptr() for t in tensors])
+
+
+def _ints(values):
+    return (ctypes.c_int * max(len(values), 1))(*values)
+
+
 def _launch(lib, mask, keys, sizes, n_cells: int, validities: List[torch.Tensor],
-            folds: List[Tuple[torch.Tensor, str, int]], threads: int) -> torch.Tensor:
+            folds: List[Tuple[torch.Tensor, str, int]]) -> torch.Tensor:
     """One kernel launch: int64 [1 + validities + folds, n_cells] (float
-    accumulators as their bits)."""
+    accumulators as their bits), a view of the one buffer that also holds
+    the blocks' partials."""
     dev = mask.device
     n = mask.shape[0]
-    n_acc = 1 + len(validities) + len(folds)
-    shared = n_acc * n_cells * threads * 8
-    per_sm = max(1, min(_MAX_BLOCKS_PER_SM, SHARED_BYTES // shared))
-    blocks = build.grid_blocks(n, threads, per_sm, dev)
-    partials = torch.empty(blocks * n_acc * n_cells, dtype=torch.int64, device=dev)
-    out = torch.empty((n_acc, n_cells), dtype=torch.int64, device=dev)
-
-    def pointers(tensors):
-        return (ctypes.c_void_p * max(len(tensors), 1))(*[t.data_ptr() for t in tensors])
-
-    def ints(values):
-        return (ctypes.c_int * max(len(values), 1))(*values)
-
+    n_entries = (1 + len(validities) + len(folds)) * n_cells
+    values: List[torch.Tensor] = []  # distinct value columns, staged once each
+    for v, _, _ in folds:
+        if not any(v is w for w in values):
+            values.append(v)
+    rows, folders, _ = launch_shape(
+        [1] + [4] * len(keys) + [1] * len(validities) + [v.element_size() for v in values],
+        1 + len(validities) + len(folds), n_cells, _ROWS)
+    blocks = max_blocks(n, build.sm_count(dev), rows * THREADS)
+    buffer = torch.empty(n_entries * (1 + blocks), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_cells_reduce(
-            mask.view(torch.uint8).data_ptr(), len(keys), pointers(keys),
-            ints([int(s) for s in sizes]), len(validities),
-            pointers([v.view(torch.uint8) for v in validities]), len(folds),
-            pointers([f[0] for f in folds]),
-            ints([_VALUE_TYPES[f[0].dtype] for f in folds]),
-            ints([_FOLDS[f[1]] for f in folds]), ints([f[2] for f in folds]),
-            n, n_cells, threads, blocks, partials.data_ptr(), out.data_ptr(), stream)
+            mask.view(torch.uint8).data_ptr(), len(keys), _pointers(keys),
+            _ints([int(s) for s in sizes]), len(validities),
+            _pointers([v.view(torch.uint8) for v in validities]), len(values),
+            _pointers(values), _ints([_VALUE_TYPES[v.dtype] for v in values]), len(folds),
+            _ints([next(i for i, w in enumerate(values) if w is f[0]) for f in folds]),
+            _ints([_FOLDS[f[1]] for f in folds]), _ints([f[2] for f in folds]),
+            n, n_cells, buffer.data_ptr(), build.ticket(dev, "fused_reduce").data_ptr(),
+            blocks, rows, folders, stream)
     build.check_launch(err, "fused_cells_reduce")
     fused_cells_reduce.launches += 1
-    return out
+    return buffer[:n_entries].view(-1, n_cells)
 
 
 def fused_cells_reduce(mask: torch.Tensor, keys: Sequence[torch.Tensor],
@@ -232,21 +307,21 @@ def fused_cells_reduce(mask: torch.Tensor, keys: Sequence[torch.Tensor],
                 f = len(folds) - 1
         slot_validity.append(v)
         slot_fold.append(f)
-    items = [(True, v) for _, _, v in folds]
+    items = [(values.element_size(), v) for values, _, v in folds]
     folded = {v for _, _, v in folds}
-    items += [(False, v) for v in range(len(validities)) if v not in folded]
+    items += [(0, v) for v in range(len(validities)) if v not in folded]
 
     lib = _library()
     counts = None
     valid_counts = {}
     fold_out = {}
-    for threads, members in plan_launches(n_cells, items):
+    for _, members in plan_launches(n_cells, items, [1] + [4] * len(keys)):
         used = sorted({items[m][1] for m in members if items[m][1] >= 0})
         local = {v: i for i, v in enumerate(used)}
         launch_folds = [m for m in members if items[m][0]]
         out = _launch(lib, mask, keys, sizes, n_cells, [validities[v] for v in used],
                       [(folds[m][0], folds[m][1], local.get(folds[m][2], -1))
-                       for m in launch_folds], threads)
+                       for m in launch_folds])
         counts = out[0] if counts is None else counts
         for v, i in local.items():
             valid_counts[v] = out[1 + i]

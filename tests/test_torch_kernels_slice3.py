@@ -537,28 +537,39 @@ def test_fused_cells_reduce_plain_matches_a_numpy_oracle(n, n_cells_shape):
                                        else values[sel].max())
 
 
-@pytest.mark.parametrize("n_cells,items,want", [
-    # Q1: 6 cells, row count + 5 sums fit 256 threads
-    (6, [(True, -1)] * 5, [(256, [0, 1, 2, 3, 4])]),
-    # 64 cells x 9 accumulators fit one block only at 32 threads
-    (64, [(True, -1)] * 8, [(32, list(range(8)))]),
-    # 64 cells, 16 nullable inputs: 33 accumulators do not fit 32 threads,
-    # so the slots are split, each launch with its own validity counts
-    (64, [(True, v) for v in range(16)],
-     [(32, [0, 1, 2, 3, 4, 5]), (32, [6, 7, 8, 9, 10, 11]), (32, [12, 13, 14, 15])]),
+# A launch's shape (fused_reduce.launch_shape, here at 4 rows a thread, tiles
+# of 1,024 rows): 1,280 bytes of the job, two stages of every column (1,024
+# rows, 16 bytes more each), 8 bytes an accumulator entry for each of the 8
+# warps (up to 8 cells) or of 128, 64 or 32 folders (9 to 64 cells), 1,024
+# cell bytes, a 16-byte flag and 16 bytes of barriers; the first that leaves
+# room for two blocks an SM (115,712 bytes), else the smallest.
+@pytest.mark.parametrize("n_cells,items,fixed,want", [
+    # Q1: 6 cells, mask and two code columns, row count + 5 float32 sums:
+    # 1,280 + 2 x (1,040 + 7 x 4,112) + 36 x 64 + 1,024 + 32
+    (6, [(4, -1)] * 5, [1, 4, 4], [(64288, [0, 1, 2, 3, 4])]),
+    # 64 cells x 8 float64 sums: 32 folders, split 5 + 3
+    (64, [(8, -1)] * 8, [1, 4, 4], [(201248, [0, 1, 2, 3, 4]), (135648, [5, 6, 7])]),
+    # 64 cells, 16 nullable inputs: each launch with its own validity counts
+    (64, [(8, v) for v in range(16)], [1, 4, 4],
+     [(191040, [0, 1, 2]), (191040, [3, 4, 5]), (191040, [6, 7, 8]),
+      (191040, [9, 10, 11]), (191040, [12, 13, 14]), (88512, [15])]),
     # more folds than the kernel's 16 slots
-    (4, [(True, -1)] * 20, [(256, list(range(16))), (256, [16, 17, 18, 19])]),
+    (4, [(4, -1)] * 20, [1, 4], [(148576, list(range(16))), (46816, [16, 17, 18, 19])]),
     # a bare row count
-    (1, [], [(256, [])]),
+    (1, [], [1], [(4480, [])]),
     # a validity column of which only the count is wanted
-    (2, [(True, 0), (False, 1)], [(256, [0, 1])]),
+    (2, [(4, 0), (0, 1)], [1, 4], [(25536, [0, 1])]),
 ])
-def test_fused_launch_plan(n_cells, items, want):
-    assert fused_reduce.plan_launches(n_cells, items) == want
-    for threads, members in want:
+def test_fused_launch_plan(n_cells, items, fixed, want):
+    assert fused_reduce.plan_launches(n_cells, items, fixed) == want
+    for shared, members in want:
         used = {items[m][1] for m in members if items[m][1] >= 0}
-        folds = sum(items[m][0] for m in members)
-        assert (1 + len(used) + folds) * n_cells * threads * 8 <= fused_reduce.SHARED_BYTES
+        values = [items[m][0] for m in members if items[m][0]]
+        assert len(values) <= fused_reduce.MAX_SLOTS
+        assert shared <= fused_reduce.SHARED_BYTES
+        assert shared == fused_reduce.launch_shape(
+            [*fixed, *[1] * len(used), *values], 1 + len(used) + len(values), n_cells,
+            (4,))[2]
 
 
 def test_fused_cells_reduce_rejects_what_the_kernel_does_not_take():

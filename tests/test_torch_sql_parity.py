@@ -234,3 +234,30 @@ def test_tpch_rows_match_jax_and_sqlite(qid):
                         abs_tol=0.0)
     assert_tables_equal(got.rows(), oracle.query(TPCH_SQL[qid]), ordered=False,
                         rel_tol=1e-6, abs_tol=0.0)
+
+
+# -- (d) ORDER BY: the rows in order --------------------------------------------
+
+
+def _ordered(sql: str) -> bool:
+    return "ORDER BY" in " ".join(sql.upper().split())
+
+
+@pytest.mark.parametrize("idx,sql", [(i, q) for i, q in enumerate(_corpus_queries())
+                                     if _ordered(q)])
+def test_corpus_order_by_rows_in_order_match_jax(idx, sql):
+    """Statements with an ORDER BY give the JAX pipeline's rows in its order
+    (not sqlite's, which puts NULLs last under DESC where both packages put
+    them first)."""
+    jcat, cat, _ = _corpus_setup()
+    got, want = _run_both(sql, jcat, cat)
+    assert got.column_names == want.column_names
+    assert_tables_equal(got.rows(), want.rows(), ordered=True, rel_tol=1e-6, abs_tol=0.0)
+
+
+@pytest.mark.parametrize("qid", [q for q in sorted(TPCH_SQL) if _ordered(TPCH_SQL[q])])
+def test_tpch_order_by_rows_in_order_match_jax(qid):
+    jcat, cat, _ = _tpch_setup(QUERY_SF.get(qid, SF))
+    got, want = _run_both(TPCH_SQL[qid], jcat, cat)
+    assert got.column_names == want.column_names
+    assert_tables_equal(got.rows(), want.rows(), ordered=True, rel_tol=1e-6, abs_tol=0.0)
