@@ -3,11 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cells [--kernels-from DIR]
+    python3 chip_smoke.py --kernels K2,K8 [--kernels-from DIR]
 
 The second form runs phases 1 and 2, then only K3's and K6's checks and
-timings (`cells_phase`); with --kernels-from it imports the package of the
-checkout in DIR instead (an older commit unpacked there), for its timings
-beside this one's in the same call.
+timings (`cells_phase`); the third builds only q6_scan.cu, hash_lookup.cu
+and compact.cu and runs only the checks and timings of the kernels named,
+K2, K8 or both (`kernels_phase`). With
+--kernels-from either imports the package of the checkout in DIR instead (an
+older commit unpacked there), for its timings beside this one's in the same
+call; the checks of phase 3 are then left out, but each timed shape is still
+held against its plain version.
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -42,8 +47,20 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              more, at range counts around the scan's tile, from views, and
              five kinds of ranges outside the build side must raise; K6
              (fused_cells_reduce, one kernel a call on tiles staged by bulk
-             copies) in four shapes and K8 (lookup_last_eq) on int64 and
-             float64 keys, with a hot key and an empty build side. K3 and K6
+             copies) in four shapes and K8 (lookup_last_eq: a memset, a
+             build and a probe from one C call) on int64 and float64 keys,
+             with a hot key and an empty build side. K2 also at 1 to 17
+             rows, around one block's and one grid's step of rows, with the
+             int32 products wrapping, from views one element into their
+             buffers and in 200 launches in a row at changing lengths (its
+             last block's ticket); K8 also with the keys a hash table can
+             get wrong (INT64_MIN, whose stored pattern is the empty slot's,
+             INT64_MAX, -0.0, NaN, +-inf, subnormals), at 1 and 2^20 - 1 /
+             2^20 / 2^20 + 1 distinct build keys, with every build row
+             invalid, an empty build side, a third of the build rows on one
+             key, from views one element into their buffers, and in 200
+             launches in a row at changing lengths; every K2 and K8 case
+             also gives the same bits from two launches. K3 and K6
              also at 2,047 / 2,048 / 2,049 rows and over 37 tiles, at 1, 2,
              8, 9, 63 and 64 cells, for the four types and folds, with NaN
              and +-inf in min and max, from columns one element into their
@@ -74,10 +91,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              worst-case buffer and as a copy; K5 also with a third of the
              pairs in one range, with ranges and build side in order and at
              100,000 ranges; K4 also with its probe keys in order), each
-             timed shape first held against its plain version; and for K3,
-             K4, K5, K6, K7 and K9 the kernels' own device time from one
-             torch.profiler run per shape, which for K4 and K5 must show at
-             most two kernels and a memset a call and for K6 one kernel;
+             timed shape first held against its plain version (K8 also with
+             a third of its build rows on one key, with distinct keys and
+             at the size of Q20's call); and for K2-K9 the kernels' own device
+             time from one torch.profiler run per shape, which for K4, K5
+             and K8 must show at most two kernels and a memset a call and
+             for K2 and K6 one kernel;
 4. data    — all 8 TPC-H tables at SF1 generated and uploaded to the card;
 5. main    — all 22 TPC-H queries through the operator DAG on the card at
              SF 0.01 (Q20 at 0.05, where it returns rows) against a sqlite
@@ -118,6 +137,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -986,17 +1006,19 @@ def check_k9(n: int, device, compact) -> float:
 PROFILED_CALLS = 20
 
 
-def kernel_only_ms(fn, device):
+def kernel_only_ms(fn, device, keep_fills: bool = False):
     """Device ms per call of everything fn(i) runs on the card (kernels,
     memsets, copies), from one torch.profiler run over PROFILED_CALLS calls,
-    each after an L2 flush (whose fill kernel is left out):
-    {short name: ms, ..., "sum": ms}, and the number of device kernels,
-    memsets and copies per call. A profiler run that comes back without
-    any device event, or with only a part of them (it happens once in some
-    tens of runs), is made again, three times at most."""
+    each after an L2 flush (whose fill kernel is left out; with `keep_fills`
+    only that one, so that the fills fn itself runs are counted, each as
+    "fill <type>"): {short name: ms, ..., "sum": ms}, and the number of
+    device kernels, memsets and copies per call. A profiler run that comes
+    back without any device event, or with only a part of them (it happens
+    once in some tens of runs), is made again, three times at most."""
     l2 = torch.cuda.get_device_properties(device).L2_cache_size
     flush = torch.empty(2 * max(l2, 1 << 20), dtype=torch.uint8, device=device)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    left_out = "FillFunctor<unsigned char>" if keep_fills else "FillFunctor"
     for _ in range(3):
         fn(0)
         torch.cuda.synchronize()
@@ -1007,7 +1029,7 @@ def kernel_only_ms(fn, device):
             torch.cuda.synchronize()
         ms, launched = {}, 0
         for avg in prof.key_averages():
-            if avg.device_type != torch.autograd.DeviceType.CUDA or "FillFunctor" in avg.key:
+            if avg.device_type != torch.autograd.DeviceType.CUDA or left_out in avg.key:
                 continue
             # torch renamed self_cuda_time_total to self_device_time_total
             total_us = getattr(avg, "self_device_time_total", None)
@@ -1015,6 +1037,9 @@ def kernel_only_ms(fn, device):
                 total_us = avg.self_cuda_time_total
             named = re.search(r"(\w+)(<.*>)?\(", avg.key)
             name = named.group(1) if named else avg.key[:40]
+            fill = re.search(r"FillFunctor<([\w ]+)>", avg.key)
+            if fill:
+                name = f"fill {fill.group(1)}"
             ms[name] = ms.get(name, 0.0) + total_us / 1e3 / PROFILED_CALLS
             launched += avg.count
         # a run that lost part of its device events shows a broken number of
@@ -1025,14 +1050,261 @@ def kernel_only_ms(fn, device):
     raise AssertionError("torch.profiler lost device events in three runs")
 
 
-def time_k7_to_k9(n: int, device, card: str, time_ms, mods):
-    """Median device ms of K7-K9, their plain versions and the PyTorch calls
+def listed(ms) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+
+
+# -- K2 and K8: the shapes their designs have to get right ----------------------
+
+K2_RAGGED = tuple(range(1, 18))   # rows 1 to 17: the tail alone, one step and a row
+REPEATS = 200                     # launches in a row at changing lengths (K2, K8)
+REPEAT_ROWS = 1_100_000
+
+
+def k2_columns(n: int, device, wrap: bool = False):
+    """Seeded encoded Q6 columns of n rows, as kernel_inputs makes them;
+    with `wrap`, prices up to 2^31 - 1, so that price * discount wraps in
+    int32 on about half the rows."""
+    rng = np.random.default_rng(n + 2 + wrap)
+    hi = 2**31 - 1 if wrap else 10_495_000
+    cols = (rng.integers(0, 2557, n).astype(np.int16),
+            rng.integers(0, 11, n).astype(np.int8),
+            rng.integers(1, 51, n).astype(np.int8),
+            rng.integers(90_000, hi, n).astype(np.int32))
+    return [torch.as_tensor(c, device=device) for c in cols]
+
+
+def same_k2(cols, q6, what: str, lo: int = 731, hi: int = 1096) -> None:
+    got, again = q6.q6_encoded(*cols, lo, hi), q6.q6_encoded(*cols, lo, hi)
+    ref = q6.q6_encoded_reference(*cols, lo, hi)
+    if not (got.dtype == ref.dtype == torch.int64 and got.shape == ref.shape
+            and int(got) == int(ref) == int(again)):
+        raise AssertionError(f"K2 {what}: {int(got)} (again {int(again)}) vs plain "
+                             f"{int(ref)}")
+
+
+def check_k2_edges(device, q6) -> str:
+    """K2 against its plain version (exact int64 equality, and the same value
+    from two launches) at 1 to 17 rows, around one block's step and one
+    grid's step of rows, with and without int32 wrap of the products, from
+    aligned columns and from views one element into their buffers; then
+    REPEATS launches in a row at changing lengths (a ticket left standing
+    would leave a launch without its total). Returns what it checked."""
+    lib = q6._library()
+    step = lib.q6_threads_per_block() * lib.q6_encoded_rows_per_step()
+    grid_step = step * lib.q6_encoded_blocks_per_sm() * torch.cuda.get_device_properties(
+        device).multi_processor_count
+    sizes = K2_RAGGED + (step - 1, step, step + 1, grid_step - 1, grid_step,
+                         grid_step + 1, 2 * grid_step + 17)
+    for n in sizes:
+        for wrap in (False, True):
+            cols = k2_columns(n + 1, device, wrap)
+            same_k2([c[:n] for c in cols], q6, f"n={n} wrap={wrap}")
+            same_k2([c[1:] for c in cols], q6, f"n={n} wrap={wrap}, views")
+    cols = k2_columns(REPEAT_ROWS, device, wrap=True)
+    for i in range(REPEATS):
+        n = 1 + (i * 104_729) % REPEAT_ROWS
+        same_k2([c[:n] for c in cols], q6, f"launch {i} of {REPEATS} (n={n})",
+                lo=700 + i % 40)
+    return (f"K2 equal to plain and the same from two launches at {sizes} rows, with "
+            f"and without int32 wrap, aligned and from views one element in, and in "
+            f"{REPEATS} launches in a row at changing lengths")
+
+
+K8_EDGE_BITS = 20                 # 2^20 - 1 / 2^20 / 2^20 + 1 build rows, near the timed shape
+
+
+def k8_special_keys(kind: str):
+    """Keys a hash table can get wrong: for int64 the one whose stored
+    pattern (key ^ 0x8000000000000000) is the empty slot's, INT64_MIN, and
+    INT64_MAX, 0, -1; for float64 -0.0 (the same bits as INT64_MIN) and
+    0.0, NaN, +-inf, the largest and the smallest floats."""
+    if kind == "int64":
+        i = np.iinfo(np.int64)
+        return np.array([i.min, i.max, 0, -1, 1, i.min + 1, i.max - 1], dtype=np.int64)
+    f = np.finfo(np.float64)
+    return np.array([-0.0, 0.0, np.nan, np.inf, -np.inf, f.max, -f.max, 5e-324, -5e-324])
+
+
+def k8_edge_cases(device):
+    """(label, build_keys, build_valid, probe_keys) for check_k8_edges."""
+    rng = np.random.default_rng(88)
+    up = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
+    cases = []
+    for kind in ("int64", "float64"):
+        special = k8_special_keys(kind)
+        for nb in (20, 65_543):
+            keys = rng.integers(-2**62, 2**62, nb)
+            keys = keys.astype(np.float64) if kind == "float64" else keys
+            keys[rng.integers(0, nb, 3 * len(special))] = np.tile(special, 3)
+            probes = np.concatenate([special, rng.choice(keys, 2 * nb),
+                                     rng.integers(-2**62, 2**62, nb).astype(keys.dtype)])
+            cases.append((f"{kind} special keys, {nb} build rows", up(keys),
+                          up(rng.random(nb) < 0.9), up(probes)))
+        # all-distinct keys at the edges of a power of two: the table's fullest
+        for nb in (1, 2**K8_EDGE_BITS - 1, 2**K8_EDGE_BITS, 2**K8_EDGE_BITS + 1):
+            keys = rng.permutation(rng.integers(-2**62, 2**62, nb) | 1)
+            keys = keys.astype(np.float64) if kind == "float64" else keys
+            probes = np.concatenate([rng.choice(keys, nb + 7), special,
+                                     rng.integers(-2**62, 2**62, nb + 7).astype(keys.dtype)])
+            cases.append((f"{kind} {nb} distinct build keys", up(keys),
+                          up(np.ones(nb, dtype=bool)), up(probes)))
+    keys, valid, probes = k8_inputs(65_543, "int64", device)
+    cases.append(("every build row invalid", keys, torch.zeros_like(valid), probes))
+    cases.append(("empty build side", keys[:0], valid[:0], probes))
+    hot = k8_hot_key_inputs(65_543, device)
+    cases.append(("a third of the build rows on one key", *hot))
+    for label, *args in list(cases):
+        if args[0].shape[0] > 1:  # the same from views one element into their buffers
+            cases.append((f"{label}, views", *(a[1:] for a in args)))
+    return cases
+
+
+def same_k8(args, hash_lookup, what: str) -> float:
+    """lookup_last_eq on the card equal to its plain version, and the same
+    bits from two launches; returns the largest difference (0)."""
+    got, again = hash_lookup.lookup_last_eq(*args), hash_lookup.lookup_last_eq(*args)
+    ref = hash_lookup.lookup_last_eq_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in ((got, ref), (again, got)):
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"K8 {what}: differs from its plain version or between "
+                                 "two launches")
+    return max_abs_diff(((got[0], ref[0]), (got[1], ref[1])))
+
+
+def check_k8_edges(device, hash_lookup) -> str:
+    """K8 on k8_edge_cases and in REPEATS launches in a row at changing build
+    and probe lengths, each held against its plain version. Returns what it
+    checked."""
+    cases = k8_edge_cases(device)
+    for label, *args in cases:
+        same_k8(args, hash_lookup, label)
+    keys, valid, probes = k8_inputs(4 * REPEAT_ROWS, "int64", device)
+    for i in range(REPEATS):
+        nb = (i * 7_919) % keys.shape[0]
+        nq = 1 + (i * 104_729) % probes.shape[0]
+        got = hash_lookup.lookup_last_eq(keys[:nb], valid[:nb], probes[:nq])
+        ref = hash_lookup.lookup_last_eq_plain(keys[:nb], valid[:nb], probes[:nq])
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"K8 launch {i} of {REPEATS} ({nb} build rows, {nq} "
+                                 "probes) differs from its plain version")
+    return (f"K8 equal to plain and bit-stable in {len(cases)} edge cases ("
+            + "; ".join(label for label, *_ in cases) + f") and in {REPEATS} launches "
+            "in a row at changing lengths")
+
+
+def k8_distinct_inputs(n: int, device):
+    """n // 4 + 1 build rows of distinct int64 keys over 2^62 values, all
+    valid, and n probes of which half are build keys: the table at its
+    fullest for the timed number of build rows."""
+    rng = np.random.default_rng(n + 88)
+    nb = n // 4 + 1
+    keys = rng.permutation(rng.integers(-2**61, 2**61, nb) * 2 + 1)
+    probes = np.where(rng.random(n) < 0.5, rng.choice(keys, n), rng.integers(-2**61, 2**61, n) * 2)
+    up = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return up(keys), up(np.ones(nb, dtype=bool)), up(probes)
+
+
+def k8_q20_inputs(device, nb: int = 541_820, nq: int = 800_000):
+    """The main path's K8 call in Q20 at SF1: nb distinct composite keys
+    (partkey * 2^20 + suppkey, all valid) on the build side and nq probes
+    that find each build key once."""
+    rng = np.random.default_rng(20)
+    probes = rng.permutation(np.unique(rng.integers(2**20, 2**38, nq + nq // 8))[:nq])
+    up = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return up(rng.permutation(probes[:nb])), up(np.ones(nb, dtype=bool)), up(probes)
+
+
+def read_flush_ms(fn, device) -> float:
+    """bench_q6.time_ms with another L2 flush: before each call it reads
+    twice the L2 instead of writing it, so the call finds the L2 holding
+    clean lines that it need not write back."""
+    from hyrise_tpu_torch import bench_q6
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    flush = torch.zeros(2 * max(l2, 1 << 20), dtype=torch.uint8, device=device)
+    for i in range(3):
+        fn(i)
+    times = []
+    for i in range(bench_q6.TIMING_REPS):
+        torch.cuda._sleep(bench_q6._HOST_HEADSTART_CYCLES)
+        flush.max()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(i)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_k2_k8(n: int, device, card: str, time_ms, q6, hash_lookup, checked: bool,
+               wanted=("K2", "K8")):
+    """Median device ms (CUDA events, L2 flushed; plain, kernel, kernel,
+    plain) of K2 at n rows and of K8 in four shapes (k8_inputs' int64 keys,
+    the same with a third of the build rows on one key, distinct keys, and
+    the size of Q20's call),
+    each first held against its plain version, with their bounds and the
+    kernels' own device time from one torch.profiler run per shape (table
+    fills included). With `checked` (this checkout's kernels) K2 must show
+    one device kernel a call and K8 at most a memset and two kernels, and
+    K2 is also timed after an L2 flush by reading (read_flush_ms). Returns
+    {label: times}."""
+    out = {}
+
+    def record(label, kernel, plain, nbytes):
+        t = turns((("plain", plain), ("kernel", kernel), ("kernel", kernel),
+                   ("plain", plain)), device, time_ms)
+        t["library"], t["bytes"] = None, nbytes
+        t["bound"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        t["kernel_only"], t["per_call"] = kernel_only_ms(kernel, device, keep_fills=True)
+        out[label] = t
+        log(f"kernels n={n} {label} median device ms {card}: kernel {t['kernel']:.4f}, "
+            f"plain {t['plain']:.4f}, bound {t['bound']:.4f} "
+            f"({nbytes / t['kernel'] / 1e6:.1f} GB/s); kernel-only device ms "
+            f"(torch.profiler, {t['per_call']} kernels, memsets and fills a call) "
+            + listed(t["kernel_only"]))
+
+    if "K2" in wanted:
+        cols = k2_columns(n, device)
+        same_k2(cols, q6, f"timed n={n}")
+        record("K2", lambda i: q6.q6_encoded(*cols, 731 - i, 1096),
+               lambda i: q6.q6_encoded_reference(*cols, 731 - i, 1096), n * 8)
+        if checked:
+            if out["K2"]["per_call"] != 1:
+                raise AssertionError(f"K2: {out['K2']['per_call']} device kernels a call, "
+                                     "not 1")
+            # the same call after a flush that reads the L2 full of clean lines
+            # instead of writing it full of dirty ones that the call writes back
+            t = out["K2"]
+            t["read_flush"] = read_flush_ms(lambda i: q6.q6_encoded(*cols, 731 - i, 1096),
+                                            device)
+            log(f"kernels n={n} K2 median device ms {card} after an L2 flush by reading: "
+                f"{t['read_flush']:.4f} (after one by writing {t['kernel']:.4f})")
+    if "K8" in wanted:
+        shapes = {"K8": k8_inputs(n, "int64", device),
+                  "K8 a third on one key": k8_hot_key_inputs(n, device),
+                  "K8 distinct keys": k8_distinct_inputs(n, device),
+                  "K8 in Q20's size": k8_q20_inputs(device)}
+        for label, args in shapes.items():
+            same_k8(args, hash_lookup, f"timed, {label}")
+            nb, nq = args[0].shape[0], args[2].shape[0]
+            record(label, lambda i, a=args: hash_lookup.lookup_last_eq(*a),
+                   lambda i, a=args: hash_lookup.lookup_last_eq_plain(*a),
+                   nb * (8 + 1) + nq * 8 + nq * (1 + 8))
+            if checked and out[label]["per_call"] > 3:
+                raise AssertionError(f"{label}: {out[label]['per_call']} device kernels and "
+                                     "memsets a call, more than a memset and two kernels")
+    return out
+
+
+def time_k7_k9(n: int, device, card: str, time_ms, segment_reduce, compact):
+    """Median device ms of K7 and K9, their plain versions and the PyTorch calls
     that compute the same function, at the shapes of the main path; each
     shape is first held against its plain version. Returns, per label,
     {kernel, plain, library, bytes, bound} (ms; bound: each input read and
     each output written once at the card's memory rate) and the largest
     absolute difference seen."""
-    segment_reduce, hash_lookup, compact = mods
     out, worst = {}, 0.0
 
     def record(label, kernel, plain, library, nbytes, note):
@@ -1093,26 +1365,6 @@ def time_k7_to_k9(n: int, device, card: str, time_ms, mods):
             + ", ".join(f"{name} {ms:.4f}" for name, ms in t["libraries"].items())
             + "; kernel-only device ms (torch.profiler) "
             + ", ".join(f"{k} {ms:.4f}" for k, ms in t["kernel_only"].items()))
-
-    # K8: int64 keys spread over 2^40 values, n // 4 + 1 build rows, n probes
-    args = k8_inputs(n, "int64", device)
-    got, ref = hash_lookup.lookup_last_eq(*args), hash_lookup.lookup_last_eq_plain(*args)
-    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
-        raise AssertionError("K8 timed shape differs from its plain version")
-    nb = args[0].shape[0]
-    record(f"K8 {nb} build rows",
-           lambda i: hash_lookup.lookup_last_eq(*args),
-           lambda i: hash_lookup.lookup_last_eq_plain(*args), None,
-           nb * (8 + 1) + n * 8 + n * (1 + 8), "")
-    out["K8"] = out[f"K8 {nb} build rows"]
-    hot = k8_hot_key_inputs(n, device)
-    got, ref = hash_lookup.lookup_last_eq(*hot), hash_lookup.lookup_last_eq_plain(*hot)
-    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
-        raise AssertionError("K8 hot-key shape differs from its plain version")
-    record(f"K8 {nb} build rows, a third on one key",
-           lambda i: hash_lookup.lookup_last_eq(*hot),
-           lambda i: hash_lookup.lookup_last_eq_plain(*hot), None,
-           nb * (8 + 1) + n * 8 + n * (1 + 8), "")
 
     # K9 at Q6's, an even and Q1's selectivity over n rows, and over the 1,000
     # rows of a small mask (such as `rows_per_cell > 0`); the library call is
@@ -1428,6 +1680,32 @@ def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None
         "kernels_a_call": t["per_call"]} for label, t in cells.items()}}))
 
 
+def kernels_phase(device, card, wanted, q6, hash_lookup, time_ms, checked: bool) -> None:
+    """`--kernels K2,K8`: the named kernels alone. With `checked` (this
+    checkout's kernels) every check of phase 3 for them, then their timed
+    shapes; without (the kernels of another checkout,
+    `--kernels-from DIR`, for the same timings of an older form in the same
+    run) the timed shapes only, each still held against its plain version.
+    Ends with one JSON line of the times."""
+    if checked:
+        for n in KERNEL_SIZES:
+            if "K2" in wanted:
+                same_k2(k2_columns(n, device), q6, f"n={n}")
+            if "K8" in wanted:
+                check_k8(n, device, hash_lookup)
+        log(f"kernels: {' and '.join(wanted)} equal to plain at {KERNEL_SIZES}")
+        if "K2" in wanted:
+            log("kernels: " + check_k2_edges(device, q6))
+        if "K8" in wanted:
+            log("kernels: " + check_k8_edges(device, hash_lookup))
+    timed = time_k2_k8(KERNEL_SIZES[-1], device, card, time_ms, q6, hash_lookup, checked,
+                       wanted)
+    log(json.dumps({"kernels_timed": {label: {
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"],
+        "kernel_only_ms": t["kernel_only"], "kernels_a_call": t["per_call"]}
+        for label, t in timed.items()}}))
+
+
 def time_ms_of():
     from hyrise_tpu_torch import bench_q6
     return bench_q6.time_ms
@@ -1438,6 +1716,9 @@ def main() -> None:
     started = time.perf_counter()
     argv = sys.argv[1:]
     cells_only = "--cells" in argv
+    kernels = argv[argv.index("--kernels") + 1].split(",") if "--kernels" in argv else None
+    if kernels is not None and not set(kernels) <= {"K2", "K8"}:
+        raise SystemExit(f"chip_smoke: --kernels takes K2 and K8, got {kernels}")
     other = argv[argv.index("--kernels-from") + 1] if "--kernels-from" in argv else None
     if other is not None:
         sys.path.insert(0, other)  # that checkout's hyrise_tpu_torch
@@ -1464,13 +1745,18 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    build.build_all()
-    for module in (q6, group_reduce, join_probe, fused_reduce, segment_reduce,
-                   hash_lookup, compact):
-        module._library()
-    log(f"build: {', '.join(f'{s}.cu' for s in build.SOURCES)} with nvcc for sm_90a, "
+    if kernels is None:
+        build.build_all()
+        modules = (q6, group_reduce, join_probe, fused_reduce, segment_reduce,
+                   hash_lookup, compact)
+    else:  # only what K2 and K8 need: K8's plain version runs K9 on the card
+        modules = (q6, hash_lookup, compact)
+    with ThreadPoolExecutor(max_workers=len(modules)) as pool:  # builds what is missing
+        list(pool.map(lambda m: m._library(), modules))
+    sources = build.SOURCES if kernels is None else ("q6_scan", "hash_lookup", "compact")
+    log(f"build: {', '.join(f'{s}.cu' for s in sources)} with nvcc for sm_90a, "
         f"in parallel, in {time.perf_counter() - t0:.2f} s")
-    for source in build.SOURCES:
+    for source in sources:
         text = build.build_log(source)
         registers = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = [int(b) for pair in re.findall(
@@ -1479,6 +1765,11 @@ def main() -> None:
         log(f"build: {source}.cu: nvcc {seconds} s, {len(registers)} kernels, at most "
             f"{max(registers)} registers, {sum(spills)} bytes of spills (ptxas -v)")
 
+    if kernels is not None:
+        kernels_phase(device, card, kernels, q6, hash_lookup, bench_q6.time_ms,
+                      checked=other is None)
+        log(f"elapsed: {time.perf_counter() - started:.1f} s, the build included")
+        return
     if cells_only:
         cells_phase(device, card, group_reduce, fused_reduce, checked=other is None)
         log(f"elapsed: {time.perf_counter() - started:.1f} s, the build included")
@@ -1538,20 +1829,19 @@ def main() -> None:
         f"{CELLS_EDGE_COUNTS} cells (four types, four folds, NaN and +-inf in min and "
         f"max, columns one element into their buffers) and in {CELLS_REPEATS} launches "
         f"in a row at changing lengths up to {CELLS_REPEAT_ROWS} rows")
+    log("kernels: " + check_k2_edges(device, q6))
+    log("kernels: " + check_k8_edges(device, hash_lookup))
     # timed at the largest n, in turns: plain, kernel, kernel, plain
     n = KERNEL_SIZES[-1]
     k1_fn = lambda i: q6.q6_scan(*args[:5], 731 - i, 1096)  # noqa: E731
     k1_plain = lambda i: q6.q6_compute(*args[:5], 731 - i, 1096)  # noqa: E731
-    k2_fn = lambda i: q6.q6_encoded(*eargs[:4], 731 - i, 1096)  # noqa: E731
-    k2_plain = lambda i: q6.q6_encoded_reference(*eargs[:4], 731 - i, 1096)  # noqa: E731
     ms = turns((("k1_plain", k1_plain), ("k1", k1_fn), ("k1", k1_fn),
-                ("k1_plain", k1_plain), ("k2_plain", k2_plain), ("k2", k2_fn),
-                ("k2", k2_fn), ("k2_plain", k2_plain)), device, bench_q6.time_ms)
+                ("k1_plain", k1_plain)), device, bench_q6.time_ms)
     log(f"kernels n={n} median device ms (CUDA events, L2 flushed) {card}: "
         f"K1 q6_scan {ms['k1']:.4f} vs plain q6_compute {ms['k1_plain']:.4f}; "
-        f"K2 q6_encoded {ms['k2']:.4f} vs plain q6_encoded_reference {ms['k2_plain']:.4f}")
-    log(f"kernels n={n} effective GB/s {card}: K1 {n * 17 / ms['k1'] / 1e6:.1f}, "
-        f"K2 {n * 8 / ms['k2'] / 1e6:.1f}")
+        f"effective {n * 17 / ms['k1'] / 1e6:.1f} GB/s")
+    # K2 and K8 with their own device time
+    k2_k8 = time_k2_k8(n, device, card, bench_q6.time_ms, q6, hash_lookup, checked=True)
 
     # K3 and K6 at the main path's shapes, beside their plain versions and
     # yardsticks, with their own device time
@@ -1584,8 +1874,7 @@ def main() -> None:
         f"plain {jm['k5_plain']:.4f}, bound {k5_bound:.4f}")
     time_k4_k5_more(n, device, card, bench_q6.time_ms, join_probe, k4_args, k5_args)
 
-    new, new_err = time_k7_to_k9(n, device, card, bench_q6.time_ms,
-                                 (segment_reduce, hash_lookup, compact))
+    new, new_err = time_k7_k9(n, device, card, bench_q6.time_ms, segment_reduce, compact)
     k7_err = max(k7_err, new_err)
 
     # -- 4. data -----------------------------------------------------------
@@ -1732,8 +2021,8 @@ def main() -> None:
     log(json.dumps({"kernels": [
         entry("q6_scan", "q6_scan.cu", "hyrise_tpu/kernels/pallas_scan.py:29",
               k1_err, ms["k1"], ms["k1_plain"], n * 17 / PEAK_BYTES_PER_S * 1e3),
-        entry("q6_encoded", "q6_scan.cu", "hyrise_tpu/kernels/q6.py:87",
-              k2_err, ms["k2"], ms["k2_plain"], n * 8 / PEAK_BYTES_PER_S * 1e3),
+        new_entry("q6_encoded", "q6_scan.cu", "hyrise_tpu/kernels/q6.py:87", k2_err,
+                  k2_k8["K2"]),
         entry("segment_reduce_cells", "group_reduce.cu",
               "hyrise_tpu/kernels/tpu_prims.py:470", k3_err, k3["kernel"], k3["plain"],
               k3["bound"], k3["library"]),
@@ -1747,7 +2036,7 @@ def main() -> None:
         new_entry("segment_reduce_sorted", "segment_reduce.cu",
                   "hyrise_tpu/kernels/tpu_prims.py:494", k7_err, new["K7 4 rows a group"]),
         new_entry("lookup_last_eq", "hash_lookup.cu",
-                  "hyrise_tpu/kernels/tpu_prims.py:383", k8_err, new["K8"]),
+                  "hyrise_tpu/kernels/tpu_prims.py:383", k8_err, k2_k8["K8"]),
         new_entry("compact_indices", "compact.cu",
                   "hyrise_tpu/kernels/tpu_prims.py:144", k9_err, new["K9 share 0.5"]),
     ]}))

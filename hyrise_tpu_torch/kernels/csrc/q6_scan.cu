@@ -18,9 +18,14 @@
 // with enough 256-thread blocks to fill every SM, 16-byte vector loads when
 // every column is aligned for them and a scalar loop for the ragged tail
 // (base tables are unpadded, so no length is a multiple of anything). Each
-// block reduces through warp shuffles and writes one partial; the caller
-// sums the partials (in float64 or int64). No atomics, so every run gives
-// the same result for the same launch shape.
+// block reduces through warp shuffles into one partial. No atomics touch a
+// sum, so every run gives the same result for the same launch shape.
+// - q6_scan_f32 writes its partials; the caller sums them in float64.
+// - q6_encoded_i64 is one kernel a call: 16 rows a thread a step, all eight
+//   16-byte loads of a step (two of codes, one of cents, one of quantity,
+//   four of prices) issued before any compare, at 2 resident blocks an SM;
+//   the last block to take a ticket after a __threadfence folds the
+//   partials into the int64 result and puts the ticket back to 0.
 
 #include <cstdint>
 
@@ -30,6 +35,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kEncodedRows = 16;        // q6_encoded_i64: rows a thread a step
+constexpr int kEncodedBlocksPerSm = 2;  // its resident blocks an SM
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -110,64 +117,87 @@ q6_scan_f32_kernel(const int* __restrict__ ship, const float* __restrict__ disc,
 
 __device__ __forceinline__ long long q6_encoded_row(int ship, int disc_cents,
                                                     int qty, int price_cents,
-                                                    int lo, int hi) {
-  const bool keep = ship >= lo && ship < hi && disc_cents >= 5 &&
-                    disc_cents <= 7 && qty < 24;
+                                                    int lo, unsigned span) {
+  // lo <= ship < lo + span and 5 <= disc_cents <= 7, each as one unsigned compare
+  const bool keep = static_cast<unsigned>(ship - lo) < span &&
+                    static_cast<unsigned>(disc_cents - 5) < 3u && qty < 24;
   // int32 product with two's-complement wrap, as the XLA form computes it
   const int prod = static_cast<int>(static_cast<unsigned>(price_cents) *
                                     static_cast<unsigned>(disc_cents));
   return keep ? static_cast<long long>(prod) : 0LL;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kEncodedBlocksPerSm)
 q6_encoded_i64_kernel(const int16_t* __restrict__ ship,
                       const int8_t* __restrict__ disc_cents,
                       const int8_t* __restrict__ qty,
                       const int32_t* __restrict__ price_cents, long long n,
-                      int lo, int hi, long long* __restrict__ partials) {
+                      int lo, unsigned span, long long* __restrict__ partials,
+                      unsigned* __restrict__ ticket, long long* __restrict__ out) {
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   long long acc = 0;
   long long tail = 0;
-  const uintptr_t a16 = reinterpret_cast<uintptr_t>(ship) |
-                        reinterpret_cast<uintptr_t>(price_cents);
-  const uintptr_t a8 = reinterpret_cast<uintptr_t>(disc_cents) |
-                       reinterpret_cast<uintptr_t>(qty);
-  if ((a16 & 15) == 0 && (a8 & 7) == 0) {
-    // 8 rows per step: 16 bytes of codes, 8 + 8 bytes of cents and
-    // quantity, 32 bytes of prices
-    const long long n8 = n / 8;
-    const uint4* ship8 = reinterpret_cast<const uint4*>(ship);
-    const uint2* disc8 = reinterpret_cast<const uint2*>(disc_cents);
-    const uint2* qty8 = reinterpret_cast<const uint2*>(qty);
+  const uintptr_t columns = reinterpret_cast<uintptr_t>(ship) |
+                            reinterpret_cast<uintptr_t>(disc_cents) |
+                            reinterpret_cast<uintptr_t>(qty) |
+                            reinterpret_cast<uintptr_t>(price_cents);
+  if ((columns & 15) == 0) {
+    // kEncodedRows rows a step: 32 bytes of codes, 16 + 16 bytes of cents and
+    // quantity, 64 bytes of prices, all eight 16-byte loads issued first
+    const long long steps = n / kEncodedRows;
+    const uint4* ship4 = reinterpret_cast<const uint4*>(ship);
+    const uint4* disc4 = reinterpret_cast<const uint4*>(disc_cents);
+    const uint4* qty4 = reinterpret_cast<const uint4*>(qty);
     const int4* price4 = reinterpret_cast<const int4*>(price_cents);
-    for (long long i = tid; i < n8; i += stride) {
-      const uint4 s = ship8[i];
-      const uint2 d = disc8[i];
-      const uint2 q = qty8[i];
-      const int4 p0 = price4[2 * i];
-      const int4 p1 = price4[2 * i + 1];
-      const unsigned s_words[4] = {s.x, s.y, s.z, s.w};
-      const int prices[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+    for (long long i = tid; i < steps; i += stride) {
+      const uint4 s0 = __ldcs(ship4 + 2 * i);
+      const uint4 s1 = __ldcs(ship4 + 2 * i + 1);
+      const uint4 d = __ldcs(disc4 + i);
+      const uint4 q = __ldcs(qty4 + i);
+      const int4 p0 = __ldcs(price4 + 4 * i);
+      const int4 p1 = __ldcs(price4 + 4 * i + 1);
+      const int4 p2 = __ldcs(price4 + 4 * i + 2);
+      const int4 p3 = __ldcs(price4 + 4 * i + 3);
+      const unsigned s_words[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+      const unsigned d_words[4] = {d.x, d.y, d.z, d.w};
+      const unsigned q_words[4] = {q.x, q.y, q.z, q.w};
+      const int prices[kEncodedRows] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w,
+                                        p2.x, p2.y, p2.z, p2.w, p3.x, p3.y, p3.z, p3.w};
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
+      for (int k = 0; k < kEncodedRows; ++k) {
         const int sk = static_cast<int16_t>(s_words[k >> 1] >> (16 * (k & 1)));
-        const unsigned dw = k < 4 ? d.x : d.y;
-        const unsigned qw = k < 4 ? q.x : q.y;
-        const int dk = static_cast<int8_t>(dw >> (8 * (k & 3)));
-        const int qk = static_cast<int8_t>(qw >> (8 * (k & 3)));
-        acc += q6_encoded_row(sk, dk, qk, prices[k], lo, hi);
+        const int dk = static_cast<int8_t>(d_words[k >> 2] >> (8 * (k & 3)));
+        const int qk = static_cast<int8_t>(q_words[k >> 2] >> (8 * (k & 3)));
+        acc += q6_encoded_row(sk, dk, qk, prices[k], lo, span);
       }
     }
-    tail = n8 * 8;
+    tail = steps * kEncodedRows;
   }
   for (long long i = tail + tid; i < n; i += stride) {
     acc += q6_encoded_row(ship[i], disc_cents[i], qty[i], price_cents[i], lo,
-                          hi);
+                          span);
   }
+  // one partial a block; the last block to take a ticket (after a fence that
+  // publishes its partial) folds them all and puts the ticket back to 0
+  __shared__ bool is_last;
   const long long total = block_sum(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = total;
+    __threadfence();
+    is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  long long sum = 0;
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kThreads) sum += __ldcg(partials + b);
+  sum = block_sum(sum);
+  if (threadIdx.x == 0) {
+    *out = sum;
+    *ticket = 0u;
+  }
 }
 
 }  // namespace
@@ -190,16 +220,26 @@ int q6_scan_f32(const void* ship, const void* disc, const void* qty,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The total over all n rows into *out (int64), in one kernel: `partials`
+// holds `blocks` int64 of scratch, `ticket` a zeroed 32-bit word that the
+// launch leaves at 0 (launches sharing it run one after another).
 int q6_encoded_i64(const void* ship, const void* disc_cents, const void* qty,
                    const void* price_cents, long long n, int lo, int hi,
-                   void* partials, int blocks, void* stream) {
+                   void* partials, void* ticket, void* out, int blocks,
+                   void* stream) {
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned span = hi > lo ? static_cast<unsigned>(hi - lo) : 0u;
   q6_encoded_i64_kernel<<<blocks, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(ship),
       static_cast<const int8_t*>(disc_cents), static_cast<const int8_t*>(qty),
-      static_cast<const int32_t*>(price_cents), n, lo, hi,
-      static_cast<long long*>(partials));
+      static_cast<const int32_t*>(price_cents), n, lo, span,
+      static_cast<long long*>(partials), static_cast<unsigned*>(ticket),
+      static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+
+int q6_encoded_rows_per_step() { return kEncodedRows; }
+int q6_encoded_blocks_per_sm() { return kEncodedBlocksPerSm; }
 
 }  // extern "C"

@@ -24,7 +24,6 @@ from hyrise_tpu_torch.kernels import build
 from hyrise_tpu_torch.kernels.compact import compact_indices
 
 _BLOCKS_PER_SM = 8
-_EMPTY_KEY = -(1 << 63)  # the bit pattern 0x8000000000000000 as an int64
 
 
 def _check(build_keys, build_valid, probe_keys) -> None:
@@ -62,16 +61,31 @@ def lookup_last_eq_plain(build_keys: torch.Tensor, build_valid: torch.Tensor,
     return matched, torch.where(matched, row, 0)
 
 
+def table_slots(nb: int) -> int:
+    """Slots of K8's table for nb build rows: two a row and two more. Even
+    (two 16-byte slots to a 32-byte sector), more than nb (a probe sequence
+    always meets an empty slot) and at a load of at most a half. PERF.md
+    section 6 has the table sizes that were timed before two was chosen."""
+    return 2 * nb + 2
+
+
+def filter_bits(nb: int) -> int:
+    """Bits of the filter in front of K8's table: a power of two, 8 to 16 a
+    build row (at least 32), so that a probe key that is not in the table
+    finds its bit clear at least 7 times in 8 and reads no slot."""
+    return 1 << max(5, (8 * nb - 1).bit_length())
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("hash_lookup")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.hash_build.argtypes = [ptr, i32, ptr, i64, ptr, ptr, i64, i32, ptr]
-    lib.hash_build.restype = i32
-    lib.hash_probe.argtypes = [ptr, i32, i64, ptr, ptr, i64, ptr, ptr, i32, ptr]
-    lib.hash_probe.restype = i32
-    lib.hash_threads_per_block.argtypes = []
-    lib.hash_threads_per_block.restype = i32
+    lib.hash_lookup.argtypes = [ptr, ptr, i64, ptr, i64, i32, ptr, i64, i64, ptr,
+                                ptr, i32, i32, ptr]
+    lib.hash_lookup.restype = i32
+    for shape in (lib.hash_threads_per_block, lib.hash_probe_rows_per_thread):
+        shape.argtypes = []
+        shape.restype = i32
     return lib
 
 
@@ -82,7 +96,7 @@ def lookup_last_eq(build_keys: torch.Tensor, build_valid: torch.Tensor,
     row, the one with the highest id, and 0 where nothing matched. Keys are
     int64 or float64 (both sides alike); an empty build side matches
     nothing. CPU tensors take lookup_last_eq_plain; CUDA tensors launch the
-    K8 kernels (table build, then probe)."""
+    K8 kernels (table clear, build and probe from one C call)."""
     _check(build_keys, build_valid, probe_keys)
     dev = build_keys.device
     if dev.type == "cpu":
@@ -95,26 +109,21 @@ def lookup_last_eq(build_keys: torch.Tensor, build_valid: torch.Tensor,
     if nq == 0:
         return matched, rows
     lib = _library()
-    capacity = 1 << max(1, (2 * nb - 1).bit_length())  # power of two >= 2 * nb
-    slot_keys = torch.full((capacity,), _EMPTY_KEY, dtype=torch.int64, device=dev)
-    slot_rows = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
-    is_float = int(build_keys.is_floating_point())
+    slots, bits = table_slots(nb), filter_bits(nb)
+    # 16 bytes a slot, one slot behind the table, then the filter
+    table = torch.empty(2 * (slots + 1) + -(-bits // 64), dtype=torch.int64, device=dev)
     threads = lib.hash_threads_per_block()
+    build_blocks = build.grid_blocks(nb, threads, _BLOCKS_PER_SM, dev)
+    probe_blocks = build.grid_blocks(-(-nq // lib.hash_probe_rows_per_thread()), threads,
+                                     _BLOCKS_PER_SM, dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if nb:
-            err = lib.hash_build(
-                build_keys.data_ptr(), is_float,
-                build_valid.view(torch.uint8).data_ptr(), nb, slot_keys.data_ptr(),
-                slot_rows.data_ptr(), capacity,
-                build.grid_blocks(nb, threads, _BLOCKS_PER_SM, dev), stream)
-            build.check_launch(err, "hash_build")
-        err = lib.hash_probe(
-            probe_keys.data_ptr(), is_float, nq, slot_keys.data_ptr(),
-            slot_rows.data_ptr(), capacity, matched.view(torch.uint8).data_ptr(),
-            rows.data_ptr(), build.grid_blocks(nq, threads, _BLOCKS_PER_SM, dev),
-            stream)
-    build.check_launch(err, "hash_probe")
+        err = lib.hash_lookup(
+            build_keys.data_ptr(), build_valid.view(torch.uint8).data_ptr(), nb,
+            probe_keys.data_ptr(), nq, int(build_keys.is_floating_point()),
+            table.data_ptr(), slots, bits, matched.view(torch.uint8).data_ptr(),
+            rows.data_ptr(), build_blocks, probe_blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch(err, "hash_lookup")
     lookup_last_eq.launches += 1
     return matched, rows
 

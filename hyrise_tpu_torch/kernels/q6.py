@@ -24,10 +24,9 @@ import torch
 
 from hyrise_tpu_torch.kernels import build
 
-# rows one thread covers per grid-stride step in each kernel
+# K1: rows one thread covers per grid-stride step, and resident 256-thread
+# blocks per SM at full occupancy (2048 threads); K2's come from its source
 _F32_ROWS_PER_STEP = 4
-_ENCODED_ROWS_PER_STEP = 8
-# resident 256-thread blocks per SM at full occupancy (2048 threads)
 _BLOCKS_PER_SM = 8
 
 
@@ -91,11 +90,13 @@ def _library() -> ctypes.CDLL:
     lib.q6_scan_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ptr,
                                 i32, ptr]
     lib.q6_scan_f32.restype = i32
-    lib.q6_encoded_i64.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr, i32,
-                                   ptr]
+    lib.q6_encoded_i64.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr, ptr,
+                                   ptr, i32, ptr]
     lib.q6_encoded_i64.restype = i32
-    lib.q6_threads_per_block.argtypes = []
-    lib.q6_threads_per_block.restype = i32
+    for shape in (lib.q6_threads_per_block, lib.q6_encoded_rows_per_step,
+                  lib.q6_encoded_blocks_per_sm):
+        shape.argtypes = []
+        shape.restype = i32
     return lib
 
 
@@ -118,9 +119,9 @@ def _check_columns(columns, dtypes) -> torch.device:
     return dev
 
 
-def _blocks(n: int, rows_per_step: int, lib: ctypes.CDLL, dev) -> int:
+def _blocks(n: int, rows_per_step: int, blocks_per_sm: int, lib: ctypes.CDLL, dev) -> int:
     return build.grid_blocks(n, lib.q6_threads_per_block() * rows_per_step,
-                             _BLOCKS_PER_SM, dev)
+                             blocks_per_sm, dev)
 
 
 def _check_bounds(date_lo: int, date_hi: int, bits: int) -> None:
@@ -140,7 +141,7 @@ def q6_scan(ship, disc, qty, price, live, date_lo: int, date_hi: int) -> torch.T
         return q6_compute(ship, disc, qty, price, live, date_lo, date_hi)
     lib = _library()
     n = ship.shape[0]
-    blocks = _blocks(n, _F32_ROWS_PER_STEP, lib, dev)
+    blocks = _blocks(n, _F32_ROWS_PER_STEP, _BLOCKS_PER_SM, lib, dev)
     partials = torch.empty(blocks, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -160,7 +161,7 @@ def q6_encoded(ship, disc_cents, qty, price_cents, date_lo: int,
                date_hi: int) -> torch.Tensor:
     """Exact Q6 total over encoded columns (see q6_encoded_reference) as an
     int64 scalar. CPU tensors take q6_encoded_reference; CUDA tensors launch
-    the K2 kernel."""
+    the K2 kernel, one kernel a call (its last block writes the total)."""
     dev = _check_columns((ship, disc_cents, qty, price_cents),
                          (torch.int16, torch.int8, torch.int8, torch.int32))
     _check_bounds(date_lo, date_hi, 16)
@@ -169,17 +170,20 @@ def q6_encoded(ship, disc_cents, qty, price_cents, date_lo: int,
                                     date_lo, date_hi)
     lib = _library()
     n = ship.shape[0]
-    blocks = _blocks(n, _ENCODED_ROWS_PER_STEP, lib, dev)
+    blocks = _blocks(n, lib.q6_encoded_rows_per_step(), lib.q6_encoded_blocks_per_sm(), lib,
+                     dev)
     partials = torch.empty(blocks, dtype=torch.int64, device=dev)
+    out = torch.empty((), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.q6_encoded_i64(ship.data_ptr(), disc_cents.data_ptr(),
                                  qty.data_ptr(), price_cents.data_ptr(), n,
-                                 date_lo, date_hi, partials.data_ptr(), blocks,
-                                 stream)
+                                 date_lo, date_hi, partials.data_ptr(),
+                                 build.ticket(dev, "q6_encoded").data_ptr(),
+                                 out.data_ptr(), blocks, stream)
     build.check_launch(err, "q6_encoded_i64")
     q6_encoded.launches += 1
-    return partials.sum()
+    return out
 
 
 q6_encoded.launches = 0
