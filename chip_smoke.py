@@ -72,7 +72,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              validity column, at about 4 rows a group, at 1,000 groups, as
              one group, with a third of the rows in one group, with every
              boundary on a tile boundary, with runs of empty groups at both
-             ends and on a tile boundary, and with starts[0] > 0; integers
+             ends and on a tile boundary, with starts[0] > 0, and as 32 one-row
+             groups and one long one (every later tile searches 33 groups);
+             integers
              equal, float64 sums within 1e-12 relative (exact binary
              fractions, so any order of summation gives the same sum), and
              the same bits from two launches of every case (no atomics touch
@@ -123,9 +125,34 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              must hold a FusedFilterAggregate that did not fall back, and
              the launch count of each of K6-K9 must have risen.
 
+7. dml     — writes on the card (sql/pipeline.py with MVCC, ops/rw_ops.py,
+             concurrency/transaction.py, storage/load_table.py), with every
+             launch count at 0 again before it. At SF 0.01 (Q20 at 0.05):
+             RF1 and RF2 of TPC-H (clause 2.5) in the port and in sqlite,
+             the 22 texts with MVCC on after each, against sqlite. At SF1,
+             on phase 4's tables: MVCC state on all 8 (its MB printed, its
+             tensors on the card); a snapshot before RF1; RF1 (SF x 1,500
+             orders with 1 to 7 lineitems each, drawn from SEED, half their
+             comments new to the dictionary, written as .tbl files and
+             loaded with load_table) as INSERT INTO ... SELECT in one
+             transaction; Q1, Q3, Q6 and Q18 in the old snapshot equal
+             phase 5's rows; Q1 and Q6 against the numpy oracles over the
+             base rows and RF1's, phase 5's six join queries against CPU
+             copies of the tables and MVCC state; a second RF1 that rolls
+             back; RF2 (DELETE ... WHERE ... IN (SELECT k FROM rf2_keys) on
+             lineitem and orders, in one transaction) and the oracles again;
+             the 22 texts with MVCC on (first run and median of 5, every
+             value finite) beside phase 6's medians; Validate's device ms on
+             lineitem; two transactions deleting one order (the second must
+             raise TransactionConflict); a table that grows past its
+             capacity while a Delete is pending. Each RF statement's host ms,
+             which path each join of Q3 and Q18 took before and after RF1
+             (Join.path) and the launches of the phase are printed; K3-K7
+             and K9 must have launched.
+
 Phases 5 and 6 also print the mean rows per launch of K4, K5, K7 and K9 and
 K5's mean pairs per launch (the wrappers count the rows they are given), so
-their launch counts can be read against sizes. After phase 6 comes the
+their launch counts can be read against sizes. After phase 7 comes the
 script's run time, the build included. The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}} and is printed only when every phase passed.
@@ -150,6 +177,10 @@ KERNEL_SIZES = (1, 1000, 65_543, 6_006_330)
 K3_CELLS = (1, 4, 6, 25, 64)   # 6 and 25: Q1's and Q5's groups on the main path
 QUERY_REPS = 5
 CPU_CHECKED = (3, 5, 9, 10, 14, 18)
+# the kernels phase 7 must launch: group-bys (K3), joins (K4, K5), Q1 and Q6
+# (K6), Q18 and Q21 (K7), every filter and compaction (K9)
+DML_KERNELS = ("segment_reduce_cells", "lookup_last_eq_lut", "expand_pairs",
+               "fused_cells_reduce", "segment_reduce_sorted", "compact_indices")
 # NVIDIA H100 SXM data sheet: device memory rate, and the float64 rate
 # outside the tensor cores (half the 67 TFLOP/s float32 rate)
 PEAK_BYTES_PER_S = 3.35e12
@@ -826,7 +857,7 @@ def time_cells(n: int, device, card: str, time_ms, group_reduce, fused_reduce,
 
 
 K7_SHAPES = ("4 rows a group", "1000 groups", "one group", "skewed", "tile boundaries",
-             "empty runs", "offset start")
+             "empty runs", "offset start", "32 short then one long")
 K7_TIMED = ("4 rows a group", "1000 groups", "skewed")
 
 
@@ -846,7 +877,10 @@ def k7_starts(n: int, shape: str, tile: int, device):
     third of the rows; 'tile boundaries' puts every boundary on a multiple
     of the kernel's tile; 'empty runs' adds runs of 70 empty groups at the
     first position, on the tile boundary nearest the middle and at the last
-    position; 'offset start' begins at n // 3 and ends at n - n // 5."""
+    position; 'offset start' begins at n // 3 and ends at n - n // 5; '32
+    short then one long' is 32 groups of one row and one group of the rest,
+    so every later tile's search for its first group runs over 33 groups and
+    finds none (a search that took 33 steps for 32 probes missed it)."""
     rng = np.random.default_rng(n * 13 + K7_SHAPES.index(shape))
 
     def cut(lo, hi, n_groups):
@@ -870,8 +904,10 @@ def k7_starts(n: int, shape: str, tile: int, device):
         starts = cut(0, n, n // 4 + 1)
         middle = (n // 2) // tile * tile
         starts = np.sort(np.concatenate([starts, np.repeat([0, middle, n], 70)]))
-    else:
+    elif shape == "offset start":
         starts = cut(n // 3, n - n // 5, n // 8 + 1)
+    else:
+        starts = np.append(np.arange(min(33, n)), n)
     return torch.as_tensor(starts.astype(np.int64), device=device)
 
 
@@ -1542,7 +1578,8 @@ def check_finite(rows, what: str) -> None:
 
 
 def cpu_copy(tables):
-    """The same tables as CPU tensors (metadata kept)."""
+    """The same tables as CPU tensors (metadata and MVCC state kept)."""
+    from hyrise_tpu_torch.concurrency.transaction import MvccData
     from hyrise_tpu_torch.storage.column import Column
     from hyrise_tpu_torch.storage.table import Table
     out = {}
@@ -1552,6 +1589,9 @@ def cpu_copy(tables):
                        c.dictionary, unique=c.unique, val_range=c.val_range)
                 for c in t.columns]
         out[name] = Table(cols, t.num_rows, name=name)
+        if t.mvcc is not None:
+            out[name].mvcc = MvccData(*(v[:t.capacity].cpu() for v in (
+                t.mvcc.tids, t.mvcc.begin_cids, t.mvcc.end_cids)))
     return out
 
 
@@ -1653,7 +1693,487 @@ def sql_phase(device, card, cat, hand_rows, hand_wall, wrappers, sql_kernels, ta
     log(f"sql: launches on the SQL path: the corpus {corpus_launches}, with the 22 "
         f"texts at SF{SF} {launches}")
     log(f"sql: mean rows per launch on the SQL path: {rows_per_launch(wrappers)}")
+    return launches, wall
+
+
+# -- 7. writes: MVCC, TPC-H's refresh functions, transactions ----------------------
+
+RF_STREAM = 7                  # np.random.default_rng([SEED, RF_STREAM]) draws RF1 and RF2
+NEW_COMMENT_SHARE = 0.5        # of RF1's comments that are new to their dictionaries
+RF1_STATEMENTS = ("INSERT INTO orders SELECT * FROM rf1_orders",
+                  "INSERT INTO lineitem SELECT * FROM rf1_lineitem")
+RF2_STATEMENTS = ("DELETE FROM lineitem WHERE l_orderkey IN (SELECT k FROM rf2_keys)",
+                  "DELETE FROM orders WHERE o_orderkey IN (SELECT k FROM rf2_keys)")
+SNAPSHOT_CHECKED = (1, 3, 6, 18)
+TBL_TYPES = {"int32": "int", "int64": "long", "float32": "float", "float64": "double",
+             "string": "string"}
+
+
+def spec_payload(specs, table: str, column: str):
+    for name, _, payload in specs[table][0]:
+        if name == column:
+            return payload
+    raise KeyError(f"{table}.{column}")
+
+
+def rf_comments(rng, pool, n: int):
+    """n comments: a share drawn from the stored dictionary, the rest new
+    to it (random words and a word no generated comment holds)."""
+    from hyrise_tpu_torch.tpch import dbgen
+    out = np.asarray(pool, dtype=object)[rng.integers(0, len(pool), n)]
+    new = rng.random(n) < NEW_COMMENT_SHARE
+    words = np.asarray(dbgen.COMMENT_WORDS, dtype=object)
+    for i in np.nonzero(new)[0]:
+        out[i] = " ".join(words[rng.integers(0, len(words), rng.integers(3, 7))]) + \
+            " refreshed"
+    return out
+
+
+def rf1_rows(specs, sf: float, rng):
+    """RF1 of TPC-H (clause 2.5.2): SF x 1,500 new orders, each with 1 to 7
+    lineitems drawn uniformly, as dbgen.py draws its orders. The keys fill
+    gaps of the sparse key space (dbgen.py uses 8 keys of every 32: these
+    are the next 8). Returns ({table: [(column, type, values)]}, lineitem's
+    columns in the code space of the generated ones, for the oracles)."""
+    from hyrise_tpu_torch.tpch import dbgen
+    n_orders = max(int(round(1500 * sf)), 1)
+    C, P, S = specs["customer"][1], specs["part"][1], specs["supplier"][1]
+    retail = spec_payload(specs, "part", "p_retailprice")
+    i = np.arange(n_orders, dtype=np.int64)
+    keys = ((i // 8) * 32 + 8 + i % 8 + 1).astype(np.int32)
+    custkey = dbgen._valid_custkeys(rng, n_orders, C)
+    orderdate = rng.integers(0, dbgen.N_DAYS - 151, n_orders).astype(np.int32)
+    counts = rng.integers(1, 8, n_orders).astype(np.int32)
+    n_lines = int(counts.sum())
+    row = np.repeat(np.arange(n_orders), counts)
+    linenumber = (np.arange(n_lines) - np.repeat(np.cumsum(counts) - counts, counts) + 1
+                  ).astype(np.int32)
+    partkey = rng.integers(1, P + 1, n_lines).astype(np.int32)
+    suppkey = dbgen._ps_suppkey(partkey, rng.integers(0, 4, n_lines), S)
+    qty = rng.integers(1, 51, n_lines).astype(np.float32)
+    price = (qty * retail[partkey - 1]).astype(np.float32)
+    disc = (rng.integers(0, 11, n_lines) / 100.0).astype(np.float32)
+    tax = (rng.integers(0, 9, n_lines) / 100.0).astype(np.float32)
+    last = dbgen.N_DAYS - 1
+    ship_raw = orderdate[row] + rng.integers(1, 122, n_lines)
+    ship = np.minimum(ship_raw, last).astype(np.int32)
+    commit = np.minimum(orderdate[row] + rng.integers(30, 91, n_lines), last).astype(np.int32)
+    receipt = np.minimum(ship_raw + rng.integers(1, 31, n_lines), last).astype(np.int32)
+    returned = receipt <= dbgen.CURRENT_DATE_OFFSET
+    rf_codes = np.where(returned, np.where(rng.random(n_lines) < 0.5, 2, 0), 1)
+    ls_codes = (ship > dbgen.CURRENT_DATE_OFFSET).astype(np.int32)
+    open_lines = np.bincount(row, weights=ls_codes, minlength=n_orders)
+    status = np.where(open_lines == 0, "F", np.where(open_lines == counts, "O", "P"))
+    total = np.bincount(row, weights=price.astype(np.float64) * (1 + tax) * (1 - disc),
+                        minlength=n_orders).astype(np.float32)
+    dates = dbgen.date_pool()
+    _, clerks = spec_payload(specs, "orders", "o_clerk")
+    _, o_comments = spec_payload(specs, "orders", "o_comment")
+    _, l_comments = spec_payload(specs, "lineitem", "l_comment")
+    _, rf_pool = spec_payload(specs, "lineitem", "l_returnflag")
+    _, ls_pool = spec_payload(specs, "lineitem", "l_linestatus")
+    obj = lambda a: np.asarray(a, dtype=object)  # noqa: E731
+    orders = [
+        ("o_orderkey", "int32", keys), ("o_custkey", "int32", custkey),
+        ("o_orderstatus", "string", obj(status)), ("o_totalprice", "float32", total),
+        ("o_orderdate", "string", obj(dates[orderdate])),
+        ("o_orderpriority", "string",
+         obj(np.asarray(dbgen.PRIORITIES)[rng.integers(0, 5, n_orders)])),
+        ("o_clerk", "string", obj(clerks[rng.integers(0, len(clerks), n_orders)])),
+        ("o_shippriority", "int32", np.zeros(n_orders, dtype=np.int32)),
+        ("o_comment", "string", rf_comments(rng, o_comments, n_orders)),
+    ]
+    lineitem = [
+        ("l_orderkey", "int32", keys[row]), ("l_partkey", "int32", partkey),
+        ("l_suppkey", "int32", suppkey), ("l_linenumber", "int32", linenumber),
+        ("l_quantity", "float32", qty), ("l_extendedprice", "float32", price),
+        ("l_discount", "float32", disc), ("l_tax", "float32", tax),
+        ("l_returnflag", "string", obj(rf_pool[rf_codes])),
+        ("l_linestatus", "string", obj(ls_pool[ls_codes])),
+        ("l_shipdate", "string", obj(dates[ship])),
+        ("l_commitdate", "string", obj(dates[commit])),
+        ("l_receiptdate", "string", obj(dates[receipt])),
+        ("l_shipinstruct", "string",
+         obj(np.asarray(dbgen.SHIP_INSTRUCT)[rng.integers(0, 4, n_lines)])),
+        ("l_shipmode", "string", obj(np.asarray(dbgen.SHIP_MODE)[rng.integers(0, 7, n_lines)])),
+        ("l_comment", "string", rf_comments(rng, l_comments, n_lines)),
+    ]
+    li = {"l_orderkey": keys[row], "l_quantity": qty, "l_extendedprice": price,
+          "l_discount": disc, "l_tax": tax, "l_shipdate": (ship, dates),
+          "l_returnflag": (rf_codes.astype(np.int32), rf_pool),
+          "l_linestatus": (ls_codes, ls_pool)}
+    return {"rf1_orders": orders, "rf1_lineitem": lineitem}, li
+
+
+def rf2_keys(specs, sf: float, rng) -> np.ndarray:
+    """RF2 (clause 2.5.3): SF x 1,500 order keys of the loaded population."""
+    keys = spec_payload(specs, "orders", "o_orderkey")
+    return np.sort(rng.choice(keys, max(int(round(1500 * sf)), 1), replace=False))
+
+
+def write_tbl(path, columns) -> None:
+    """A .tbl file (storage/load_table.py): names, types, one row a line."""
+    cells = [np.asarray(values).astype(str) for _, _, values in columns]
+    lines = ["|".join(name for name, _, _ in columns),
+             "|".join(TBL_TYPES[kind] for _, kind, _ in columns)]
+    lines += ["|".join(row) for row in zip(*cells)]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def stage_rf(cat, rf1, keys, directory, device, oracle=None):
+    """RF1's rows written as .tbl files and loaded with load_table, and RF2's
+    keys, as the staging tables rf1_orders, rf1_lineitem and rf2_keys in
+    `cat` (and the sqlite oracle). Every loaded value must equal the drawn
+    one."""
+    import os
+    from hyrise_tpu_torch.storage.load_table import load_table
+    from hyrise_tpu_torch.storage.table import Table, TableColumnDefinition
+    from hyrise_tpu_torch.types import DataType
+    from hyrise_tpu_torch.utils.sqlite_oracle import load_table_into_sqlite
+    staged = {}
+    for name, columns in rf1.items():
+        path = os.path.join(directory, f"{name}.tbl")
+        write_tbl(path, columns)
+        t = load_table(path, name, device=device)
+        for (column, _, values), c in zip(columns, t.columns):
+            if c.name != column or not np.array_equal(c.decode(t.num_rows), values):
+                raise AssertionError(f"{name}.{column}: loaded values differ from the drawn")
+        staged[name] = t
+    staged["rf2_keys"] = Table.from_arrays(
+        "rf2_keys", [TableColumnDefinition("k", DataType.INT32)], [keys], device=device)
+    for name, t in staged.items():
+        if cat.has_table(name):
+            cat.drop_table(name)
+        cat.add_table(name, t)
+        if oracle is not None:
+            load_table_into_sqlite(oracle.conn, name, t)
+
+
+def set_mvcc(tables) -> int:
+    """Every table's rows visible from commit id 0; the bytes of its MVCC
+    tensors."""
+    from hyrise_tpu_torch.concurrency.transaction import MvccData
+    total = 0
+    for t in tables.values():
+        t.mvcc = MvccData.for_new_table(t.num_rows, t.capacity, device=t.device)
+        if t.mvcc.device != t.device:
+            raise AssertionError(f"{t.name}'s MVCC tensors are on {t.mvcc.device}")
+        total += 3 * 8 * t.mvcc.capacity
+    return total
+
+
+def run_statements(statements, cat, context, make_pipeline, device):
+    """Each statement through the SQL pipeline with MVCC on, in `context`;
+    per statement its host ms after the device has finished, and the
+    optimize (table statistics included) and execute ms of its
+    StatementMetrics."""
+    ms = []
+    for sql in statements:
+        t0 = time.perf_counter()
+        pipeline = make_pipeline(sql).with_catalog(cat).with_mvcc(True) \
+            .with_transaction_context(context).create_pipeline()
+        out = pipeline.get_result_table()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        m = pipeline.pipeline_statements[-1].metrics
+        ms.append(((time.perf_counter() - t0) * 1e3, m.optimize_s * 1e3, m.execute_s * 1e3))
+        if out.device != device:
+            raise AssertionError(f"{sql!r} came out on {out.device}")
+    return ms
+
+
+def statement_ms(statements, ms) -> str:
+    return ", ".join(f"{sql!r} {total:.3f} (optimize {optimize:.3f}, execute {execute:.3f})"
+                     for sql, (total, optimize, execute) in zip(statements, ms))
+
+
+def mvcc_rows(sql, cat, make_pipeline, device, context=None):
+    """(rows, plan) of a SELECT with MVCC on, in `context` or a new one."""
+    b = make_pipeline(sql).with_catalog(cat).with_mvcc(True)
+    if context is not None:
+        b = b.with_transaction_context(context)
+    pipeline = b.create_pipeline()
+    out = pipeline.get_result_table()
+    if out.device != device:
+        raise AssertionError(f"{sql[:40]!r}... came out on {out.device}")
+    return out.rows(), pipeline.pipeline_statements[-1].last_plan
+
+
+def visible_count(table: str, cat, make_pipeline, device, context=None) -> int:
+    rows, _ = mvcc_rows(f"SELECT COUNT(*) FROM {table}", cat, make_pipeline, device, context)
+    return int(rows[0][0])
+
+
+def join_paths(plan, join_operator) -> list:
+    """The path each Join of the plan took: "lut" (K4), "lookup" (K8) or
+    "ranges" (K5)."""
+    return sorted(op.path for op in operators_of(plan) if isinstance(op, join_operator))
+
+
+def small_refresh_run(device, sf: float, qids, make_pipeline, oracle_class, tpch_sql,
+                      table_eq, directory) -> str:
+    """At a small scale against sqlite: RF1, the texts with MVCC on, RF2,
+    the texts again; sqlite runs the same statements on the same rows."""
+    from hyrise_tpu_torch.tpch import dbgen
+    specs = dbgen.generate_specs(sf, SEED)
+    small = dbgen.generate_tables(sf, SEED, device=device)
+    oracle = oracle_class(small)
+    for ddl in ("CREATE INDEX idx_l_ok ON lineitem(l_orderkey)",
+                "CREATE INDEX idx_l_pk ON lineitem(l_partkey)",
+                "CREATE INDEX idx_l_ps ON lineitem(l_partkey, l_suppkey)",
+                "CREATE INDEX idx_o_ck ON orders(o_custkey)",
+                "CREATE INDEX idx_o_ok ON orders(o_orderkey)",
+                "CREATE INDEX idx_ps_pk ON partsupp(ps_partkey)"):
+        oracle.conn.execute(ddl)
+    set_mvcc(small)
+    cat = catalog_of(small)
+    rng = np.random.default_rng([SEED, RF_STREAM])
+    rf1, _ = rf1_rows(specs, sf, rng)
+    stage_rf(cat, rf1, rf2_keys(specs, sf, rng), directory, device, oracle)
+    rows = {}
+    for step, statements in (("RF1", RF1_STATEMENTS), ("RF2", RF2_STATEMENTS)):
+        context = cat.transaction_manager.new_transaction_context()
+        run_statements(statements, cat, context, make_pipeline, device)
+        context.commit()
+        for sql in statements:
+            oracle.conn.execute(sql)
+        for qid in qids:
+            got, _ = mvcc_rows(tpch_sql[qid], cat, make_pipeline, device)
+            check_rows(got, oracle.query(tpch_sql[qid]),
+                       f"Q{qid} at SF{sf} with MVCC after {step} vs sqlite", table_eq)
+            rows.setdefault(step, []).append(len(got))
+    oracle.close()
+    return f"SF{sf}: rows after RF1 {rows['RF1']}, after RF2 {rows['RF2']}"
+
+
+def dml_phase(device, card, cat, tables, hand_rows, sql_wall, wrappers, table_eq,
+              make_pipeline, join_operator, oracle_class, tpch_sql, time_ms):
+    """Phase 7: writes on the card. Returns the launch counts of the phase."""
+    import tempfile
+
+    from hyrise_tpu_torch.ops.rw_ops import visible_rows
+    from hyrise_tpu_torch.tpch import dbgen
+    from hyrise_tpu_torch.concurrency.transaction import TransactionConflict
+
+    reset_counts(wrappers)
+    started = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        # 7a. small scale against sqlite
+        t0 = time.perf_counter()
+        for sf in sorted({SMALL_SF, *SMALL_SF_OF.values()}):
+            qids = [q for q in sorted(tpch_sql) if SMALL_SF_OF.get(q, SMALL_SF) == sf]
+            log("dml: " + small_refresh_run(device, sf, qids, make_pipeline, oracle_class,
+                                            tpch_sql, table_eq, directory))
+        log(f"dml: RF1, the 22 texts with MVCC on, RF2 and the 22 again on {device} match "
+            f"sqlite running the same statements at SF{SMALL_SF} (Q20 at "
+            f"SF{SMALL_SF_OF[20]}): ints and strings equal, floats within 1e-6 relative; "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # 7b. SF1: every table under MVCC
+        specs = dbgen.generate_specs(SF, SEED)
+        mvcc_bytes = set_mvcc(tables)
+        for name, t in tables.items():
+            if t.mvcc.device != device:
+                raise AssertionError(f"{name}'s MVCC tensors are on {t.mvcc.device}")
+        log(f"dml: MVCC tensors of all {len(tables)} tables on {device}: "
+            f"{mvcc_bytes / 1e6:.1f} MB (lineitem {3 * 8 * tables['lineitem'].capacity / 1e6:.1f}"
+            f" MB for {tables['lineitem'].num_rows} rows)")
+        tm = cat.transaction_manager
+        before = tm.new_transaction_context()
+        paths = {}
+        for qid in SNAPSHOT_CHECKED:
+            rows, plan = mvcc_rows(tpch_sql[qid], cat, make_pipeline, device, before)
+            check_rows(rows, hand_rows[qid], f"Q{qid} with MVCC before RF1 vs phase 5", table_eq)
+            paths[f"Q{qid} before RF1"] = join_paths(plan, join_operator)
+
+        rng = np.random.default_rng([SEED, RF_STREAM])
+        rf1, rf1_li = rf1_rows(specs, SF, rng)
+        keys = rf2_keys(specs, SF, rng)
+        t0 = time.perf_counter()
+        stage_rf(cat, rf1, keys, directory, device)
+        stage_s = time.perf_counter() - t0
+        counts = {name: visible_count(name, cat, make_pipeline, device)
+                  for name in ("orders", "lineitem")}
+        old_dictionary = tables["lineitem"].column("l_comment").dictionary
+        context = tm.new_transaction_context()
+        rf1_ms = run_statements(RF1_STATEMENTS, cat, context, make_pipeline, device)
+        context.commit()
+        n_orders, n_lines = (cat.get_table(n).num_rows for n in ("rf1_orders", "rf1_lineitem"))
+        grown = len(cat.get_table("lineitem").column("l_comment").dictionary) - \
+            len(old_dictionary)
+        if grown <= 0:
+            raise AssertionError("RF1 added no string to l_comment's dictionary")
+        after = {name: visible_count(name, cat, make_pipeline, device)
+                 for name in ("orders", "lineitem")}
+        if after != {"orders": counts["orders"] + n_orders,
+                     "lineitem": counts["lineitem"] + n_lines}:
+            raise AssertionError(f"visible rows after RF1 {after}, before {counts}")
+        log(f"dml: RF1 staged from .tbl files by load_table in {stage_s:.2f} s; {n_orders} "
+            f"orders and {n_lines} lineitems inserted in one transaction; l_comment's "
+            f"dictionary grew by {grown} strings, so its {tables['lineitem'].num_rows} codes "
+            f"were rewritten on the card; ms (host clock after synchronize) {card}: "
+            + statement_ms(RF1_STATEMENTS, rf1_ms))
+
+        # snapshot isolation: the snapshot taken before RF1 reads phase 5's rows
+        for qid in SNAPSHOT_CHECKED:
+            rows, plan = mvcc_rows(tpch_sql[qid], cat, make_pipeline, device, before)
+            check_rows(rows, hand_rows[qid], f"Q{qid} in the snapshot before RF1", table_eq)
+            paths[f"Q{qid} after RF1"] = join_paths(plan, join_operator)
+        log(f"dml: Q{', Q'.join(map(str, SNAPSHOT_CHECKED))} in a snapshot taken before "
+            f"RF1 equal phase 5's rows after RF1 committed")
+
+        # after RF1: the oracles over base + RF1, and the card against the CPU
+        li = {name: payload for name, _, payload in specs["lineitem"][0]}
+        pool = dbgen.date_pool()
+        base_rf1 = {}
+        for name, payload in rf1_li.items():
+            if isinstance(payload, tuple):
+                base_rf1[name] = (np.concatenate([li[name][0], payload[0]]), payload[1])
+            else:
+                base_rf1[name] = np.concatenate([li[name], payload])
+        check_oracles(cat, make_pipeline, device, tpch_sql, base_rf1, pool, "after RF1")
+        context = tm.new_transaction_context()
+        cpu_cat = catalog_of(cpu_copy({name: cat.get_table(name) for name in tables}))
+        t0 = time.perf_counter()
+        for qid in CPU_CHECKED:
+            rows, _ = mvcc_rows(tpch_sql[qid], cat, make_pipeline, device, context)
+            want, _ = mvcc_rows(tpch_sql[qid], cpu_cat, make_pipeline, torch.device("cpu"),
+                                context)
+            check_rows(rows, want, f"Q{qid} with MVCC after RF1, card vs CPU", table_eq)
+        log(f"dml: Q{', Q'.join(map(str, CPU_CHECKED))} with MVCC after RF1 equal the same "
+            f"texts over CPU copies of the tables and MVCC state "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # a second RF1 that rolls back leaves the visible rows as they were
+        context = tm.new_transaction_context()
+        run_statements(RF1_STATEMENTS, cat, context, make_pipeline, device)
+        inside = visible_count("lineitem", cat, make_pipeline, device, context)
+        context.rollback()
+        if inside != after["lineitem"] + n_lines or {
+                name: visible_count(name, cat, make_pipeline, device)
+                for name in ("orders", "lineitem")} != after:
+            raise AssertionError("a rolled-back RF1 changed the visible rows")
+        log(f"dml: a second RF1 saw its own {n_lines} lineitems, rolled back and left "
+            f"{after} visible")
+
+        # RF2
+        context = tm.new_transaction_context()
+        rf2_ms = run_statements(RF2_STATEMENTS, cat, context, make_pipeline, device)
+        context.commit()
+        gone = np.isin(base_rf1["l_orderkey"], keys)
+        left = {"orders": after["orders"] - len(keys),
+                "lineitem": after["lineitem"] - int(gone.sum())}
+        seen = {name: visible_count(name, cat, make_pipeline, device)
+                for name in ("orders", "lineitem")}
+        if seen != left:
+            raise AssertionError(f"visible rows after RF2 {seen}, expected {left}")
+        log(f"dml: RF2 deleted {len(keys)} orders and {int(gone.sum())} lineitems in one "
+            f"transaction; ms {card}: " + statement_ms(RF2_STATEMENTS, rf2_ms))
+        base_rf1_rf2 = {name: ((p[0][~gone], p[1]) if isinstance(p, tuple) else p[~gone])
+                        for name, p in base_rf1.items()}
+        check_oracles(cat, make_pipeline, device, tpch_sql, base_rf1_rf2, pool, "after RF2")
+
+        # the 22 texts with MVCC on: first run and median, every value finite
+        wall = {}
+        for qid in sorted(tpch_sql):
+            first, median, rows = timed_query(
+                lambda: mvcc_rows(tpch_sql[qid], cat, make_pipeline, device)[0])
+            check_finite(rows, f"Q{qid} with MVCC after RF2")
+            wall[qid] = (first, median)
+        log(f"dml: SF{SF} wall ms with MVCC on after RF1 and RF2 (host clock, to rows on "
+            f"the host; first run, then median of {QUERY_REPS}; phase 6's median with MVCC "
+            f"off beside it) {card}: "
+            + "; ".join(f"Q{q} {wall[q][0]:.3f} / {wall[q][1]:.3f} ({sql_wall[q][1]:.3f})"
+                        for q in sorted(wall)))
+        log(f"dml: sum of medians with MVCC {sum(m for _, m in wall.values()):.3f} ms, "
+            f"without (phase 6) {sum(m for _, m in sql_wall.values()):.3f} ms {card}")
+
+        lineitem = cat.get_table("lineitem")
+        context = tm.new_transaction_context()
+        validate_ms = time_ms(lambda i: visible_rows(lineitem.mvcc, lineitem.capacity,
+                                                     context), device)
+        bound = lineitem.capacity * (3 * 8 + 1) / PEAK_BYTES_PER_S * 1e3
+        log(f"dml: Validate's mask on lineitem ({lineitem.capacity} rows of capacity, "
+            f"{lineitem.num_rows} stored) {validate_ms:.4f} device ms (CUDA events), bound "
+            f"{bound:.4f} (3 int64 reads and a bool write a row) {card}")
+
+        # two transactions delete the same order: the second conflicts
+        key = int(np.setdiff1d(spec_payload(specs, "orders", "o_orderkey")[:100], keys)[0])
+        c1, c2 = tm.new_transaction_context(), tm.new_transaction_context()
+        run_statements([f"DELETE FROM orders WHERE o_orderkey = {key}"], cat, c1,
+                       make_pipeline, device)
+        try:
+            run_statements([f"DELETE FROM orders WHERE o_orderkey = {key}"], cat, c2,
+                           make_pipeline, device)
+        except TransactionConflict:
+            pass
+        else:
+            raise AssertionError("a second delete of a locked row did not conflict")
+        c2.rollback()
+        c1.commit()
+        if visible_count("orders", cat, make_pipeline, device) != left["orders"] - 1:
+            raise AssertionError("the first delete of the conflict did not commit")
+        log(f"dml: two transactions deleted order {key}: the second raised "
+            f"TransactionConflict and rolled back, the first committed")
+
+        # growth past capacity while a Delete is pending
+        suppliers = tables["supplier"].num_rows
+        context = tm.new_transaction_context()
+        run_statements(["CREATE TABLE growth (k int, name string, bal float)",
+                        "INSERT INTO growth SELECT s_suppkey, s_name, s_acctbal FROM supplier"],
+                       cat, context, make_pipeline, device)
+        context.commit()
+        capacity = cat.get_table("growth").capacity
+        context = tm.new_transaction_context()
+        run_statements(["DELETE FROM growth WHERE k <= 10"], cat, context, make_pipeline,
+                       device)
+        inserts = 0
+        while cat.get_table("growth").capacity == capacity:  # one at SF1
+            inserts += 1
+            run_statements([f"INSERT INTO growth SELECT s_suppkey + {inserts * 1_000_000}, "
+                            "s_name, s_acctbal FROM supplier"], cat, context,
+                           make_pipeline, device)
+        grown_table = cat.get_table("growth")
+        context.commit()
+        if grown_table.mvcc.device != device:
+            raise AssertionError(f"growth: MVCC tensors on {grown_table.mvcc.device}")
+        rows, _ = mvcc_rows("SELECT COUNT(*), SUM(CASE WHEN k <= 10 THEN 1 ELSE 0 END) "
+                            "FROM growth", cat, make_pipeline, device)
+        if [tuple(int(v) for v in r) for r in rows] != [((1 + inserts) * suppliers - 10, 0)]:
+            raise AssertionError(f"growth with a pending delete: {rows}")
+        log(f"dml: a table grew from {capacity} to {grown_table.capacity} rows of capacity "
+            f"while a Delete was pending; both the Delete and the Insert committed")
+
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"dml: join paths (Join.path) {paths}")
+    log(f"dml: launches in phase 7 {launches}")
+    log(f"dml: phase 7 took {time.perf_counter() - started:.1f} s")
     return launches
+
+
+def ran_fused(plan) -> bool:
+    """Whether the plan holds one FusedFilterAggregate and it did not fall
+    back to a scan and an aggregate."""
+    from hyrise_tpu_torch.kernels.fused import FusedFilterAggregate
+    fused = [op for op in operators_of(plan) if isinstance(op, FusedFilterAggregate)]
+    return len(fused) == 1 and fused[0].fell_back is False
+
+
+def check_oracles(cat, make_pipeline, device, tpch_sql, li, pool, when: str) -> None:
+    """Q6 and Q1 with MVCC on against the numpy oracles over `li`; both plans
+    must run their FusedFilterAggregate over Validate's output."""
+    rows, plan6 = mvcc_rows(tpch_sql[6], cat, make_pipeline, device)
+    got, want = float(rows[0][0]), q6_oracle(li, pool)
+    if rel_diff(got, want) > 1e-6:
+        raise AssertionError(f"Q6 with MVCC {when}: {got} vs numpy oracle {want}")
+    rows, plan1 = mvcc_rows(tpch_sql[1], cat, make_pipeline, device)
+    worst = check_q1(rows, q1_oracle(li, pool))
+    if not (ran_fused(plan6) and ran_fused(plan1)):
+        raise AssertionError(f"Q1 or Q6 with MVCC {when}: no FusedFilterAggregate ran fused")
+    log(f"dml: Q6 with MVCC {when} {got!r} vs oracle {want!r} (rel "
+        f"{rel_diff(got, want):.3e}); Q1's groups equal the oracle's (floats within "
+        f"{worst:.3e}); both ran a FusedFilterAggregate over Validate's output")
 
 
 def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None:
@@ -1737,6 +2257,7 @@ def main() -> None:
     from hyrise_tpu_torch.kernels import (build, compact, fused_reduce, group_reduce,
                                           hash_lookup, join_probe, q6, segment_reduce)
     from hyrise_tpu_torch.kernels.fused import FusedFilterAggregate
+    from hyrise_tpu_torch.ops.join import Join
     from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
     from hyrise_tpu_torch.tpch import dbgen
     from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, TPCH_SQL, run_query
@@ -2000,10 +2521,18 @@ def main() -> None:
     log(f"main: mean rows per launch on the main path: {rows_per_launch(wrappers)}")
 
     # -- 6. the SQL entry point ----------------------------------------------
-    sql_launches = sql_phase(device, card, cat, results, wall, wrappers, sql_kernels,
-                             table_eq, SQLPipelineBuilder, FusedFilterAggregate,
-                             SqliteOracle, TPCH_SQL)
+    sql_launches, sql_wall = sql_phase(device, card, cat, results, wall, wrappers,
+                                       sql_kernels, table_eq, SQLPipelineBuilder,
+                                       FusedFilterAggregate, SqliteOracle, TPCH_SQL)
     launches.update({name: sql_launches[name] for name in sql_kernels})
+
+    # -- 7. writes: MVCC, RF1 and RF2, transactions ----------------------------
+    dml_launches = dml_phase(device, card, cat, tables, results, sql_wall, wrappers,
+                             table_eq, SQLPipelineBuilder, Join, SqliteOracle, TPCH_SQL,
+                             bench_q6.time_ms)
+    for name in DML_KERNELS:
+        if dml_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in phase 7")
 
     csrc = "hyrise_tpu_torch/kernels/csrc/"
 

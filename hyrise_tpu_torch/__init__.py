@@ -7,6 +7,9 @@ A second package beside the JAX one, with the same module paths:
 - Operators: scan / projection / aggregate / sort over (values, validity)
   tensors, in plain torch; the TPU's Pallas kernels become hand-written
   CUDA kernels for sm_90a (kernels/csrc), built on first use.
+- Transactions: MVCC state as tensors beside each table's columns
+  (concurrency/), Validate and the read-write operators (ops/rw_ops.py),
+  DML through the SQL pipeline.
 
 It imports torch and numpy, never jax and nothing of hyrise_tpu; the
 tests/test_torch_*.py files hold it against the JAX package.

@@ -169,7 +169,9 @@ tile_kernel(const T* __restrict__ values, const long long* __restrict__ rows,
       const long long probe = a + (lane + 1) * step - 1;
       const bool below = probe < b && starts[probe] < key;
       const int n_below = __popc(__ballot_sync(kFullWarp, below));
-      b = min(b, a + (n_below + 1) * step - 1);
+      // probe n_below, the first not below, bounds the answer; when all 32
+      // are below there is no such probe and b stays (b - a may be 33 steps)
+      if (n_below < 32) b = min(b, a + (n_below + 1) * step - 1);
       a += n_below * step;
     }
     if (lane == 0) group_range[warp] = a;

@@ -7,3 +7,5 @@ from hyrise_tpu_torch.ops.sort import Sort  # noqa: F401
 from hyrise_tpu_torch.ops.join import (Join, JoinHash, JoinMPSM,  # noqa: F401
                                        JoinNestedLoop, JoinSortMerge, Product)
 from hyrise_tpu_torch.ops.misc import Alias, Limit, UnionAll  # noqa: F401
+from hyrise_tpu_torch.ops.misc import AddRowIds, with_row_ids  # noqa: F401
+from hyrise_tpu_torch.ops.rw_ops import Delete, Insert, Update, Validate  # noqa: F401

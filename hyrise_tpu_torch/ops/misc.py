@@ -62,7 +62,9 @@ class Alias(AbstractOperator):
         else:
             cols = [t.column(s).with_name(n)
                     for s, n in zip(self.sources, self.names)]
-        return Table(cols, t.num_rows, name=t.name, live=t.live)
+        out = Table(cols, t.num_rows, name=t.name, live=t.live)
+        out.mvcc = t.mvcc  # same rows in the same positions
+        return out
 
 
 def _align_columns(a: Column, b: Column):
@@ -150,18 +152,25 @@ class Difference(AbstractOperator):
         return filter_table(lt, ~matched)
 
 
+def with_row_ids(t: Table) -> Table:
+    """`t` with `row_id` appended, each row's position in it: the handle by
+    which Delete and Update address the stored table's rows, and by which a
+    decorrelated subquery's result is joined back to its outer row."""
+    ids = Column("row_id", DataType.INT32,
+                 torch.arange(t.capacity, dtype=torch.int32, device=t.device),
+                 unique=True, val_range=(0, max(t.capacity - 1, 0)))
+    out = Table(list(t.columns) + [ids], t.num_rows, name=t.name, live=t.live)
+    out.mvcc = t.mvcc
+    return out
+
+
 class AddRowIds(AbstractOperator):
-    """Appends `row_id`, each row's position in the input: the handle by
-    which a decorrelated subquery's result is joined back to its outer row."""
+    """Operator form of with_row_ids."""
 
     name = "AddRowIds"
 
     def _on_execute(self, context) -> Table:
-        t = self.input_table(0)
-        ids = Column("row_id", DataType.INT32,
-                     torch.arange(t.capacity, dtype=torch.int32, device=t.device),
-                     unique=True, val_range=(0, max(t.capacity - 1, 0)))
-        return Table(list(t.columns) + [ids], t.num_rows, name=t.name, live=t.live)
+        return with_row_ids(self.input_table(0))
 
 
 _NULL_HASH = 0x9E3779B97F4A7C15 - (1 << 64)  # as a signed 64-bit value

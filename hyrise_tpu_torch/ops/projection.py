@@ -50,4 +50,6 @@ class Projection(AbstractOperator):
                 data = data.to(torch.int32)  # SQL exposes predicates as 0/1
             cols.append(Column(name=name, dtype=ce.dtype, data=data,
                                validity=validity, dictionary=ce.dictionary))
-        return Table(cols, table.num_rows, name=table.name, live=table.live)
+        out = Table(cols, table.num_rows, name=table.name, live=table.live)
+        out.mvcc = table.mvcc  # same rows in the same positions
+        return out

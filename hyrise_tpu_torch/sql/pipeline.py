@@ -1,10 +1,18 @@
 """SQL pipeline: parse -> translate -> optimize -> physical plan -> execute.
 
-Port of hyrise_tpu/sql/pipeline.py for read-only statements. Not carried
-over: whole-plan compiled execution and its capacity seeds (the port runs
-eagerly), distributed execution (a later slice), transactions and MVCC
-(with_mvcc(True) raises until the DML/MVCC slice). There is no default
-catalog: create_pipeline() without with_catalog() raises. Reference: src/lib/sql/ —
+Port of hyrise_tpu/sql/pipeline.py. Not carried over: whole-plan compiled
+execution and its capacity seeds (the port runs eagerly) and distributed
+execution (a later slice). There is no default catalog: create_pipeline()
+without with_catalog() raises, and the catalog's own TransactionManager
+serves its transactions unless with_transaction_manager() names another.
+
+Transactions: with_mvcc(True) puts a Validate over every stored MVCC table
+of a statement's plan (its scalar subqueries' too) and runs the statement
+in a transaction: the one with_transaction_context() gives, else a new one.
+INSERT, UPDATE and DELETE always run in one, and a new one commits when the
+statement succeeds and rolls back when it raises (auto-commit).
+
+Reference: src/lib/sql/ —
 - SQLPipelineBuilder (sql_pipeline_builder.*): fluent config (disable MVCC,
   custom optimizer, plan cache).
 - SQLPipeline / SQLPipelineStatement (sql_pipeline_statement.cpp:49-283):
@@ -147,10 +155,14 @@ def _ok_table(device) -> Table:
         [np.array([], dtype=np.int32)], device=device)
 
 
+_DML = (P.InsertStmt, P.UpdateStmt, P.DeleteStmt)
+
+
 class SQLPipelineStatement:
     def __init__(self, stmt, sql_text: str, catalog: Catalog,
                  optimizer: Optional[Optimizer], use_cache: bool,
-                 params: Optional[List[object]] = None, position: int = 0):
+                 params: Optional[List[object]] = None, position: int = 0,
+                 use_mvcc: bool = False, transaction_manager=None, context=None):
         self.stmt = stmt
         self.sql_text = sql_text
         self.position = position  # of the statement within sql_text
@@ -158,6 +170,9 @@ class SQLPipelineStatement:
         self.optimizer = optimizer or Optimizer()
         self.use_cache = use_cache
         self.params = params
+        self.use_mvcc = use_mvcc
+        self.tm = transaction_manager or catalog.transaction_manager
+        self.context = context
         self.metrics = StatementMetrics()
 
     # -- stages --------------------------------------------------------------
@@ -166,8 +181,34 @@ class SQLPipelineStatement:
         t0 = time.perf_counter()
         tr = SQLToLQPTranslator(self.catalog, params=self.params)
         lqp = tr.translate(self.stmt)
+        if self.use_mvcc:
+            lqp = self._insert_validates(lqp)
         self.metrics.translate_s = time.perf_counter() - t0
         return lqp
+
+    def _insert_validates(self, root: L.LQPNode) -> L.LQPNode:
+        """A ValidateNode over every stored MVCC table (the reference's SQL
+        translator adds one to each table reference when MVCC is on): the
+        source of an INSERT ... SELECT and the subqueries of a DELETE or
+        UPDATE too, but not the rows a DELETE or UPDATE changes, which the
+        translator already reads through a Validate with their row ids."""
+        own_validate = set()
+        if isinstance(root, (L.DeleteNode, L.UpdateNode)):
+            def mark(n: L.LQPNode) -> L.LQPNode:
+                if isinstance(n, L.AddRowIdsNode) and \
+                        isinstance(n.children[0], L.StoredTableNode):
+                    own_validate.add(id(n.children[0]))
+                return n
+            L.map_lqp(root, mark)
+
+        def visit(n: L.LQPNode) -> L.LQPNode:
+            if isinstance(n, L.StoredTableNode) and id(n) not in own_validate and \
+                    self.catalog.has_table(n.table_name) and \
+                    self.catalog.get_table(n.table_name).mvcc is not None:
+                return L.ValidateNode(n)
+            return n
+
+        return L.map_lqp(root, visit)
 
     def get_optimized_lqp(self) -> L.LQPNode:
         lqp = self.get_lqp()
@@ -178,15 +219,22 @@ class SQLPipelineStatement:
         self.metrics.optimize_s = time.perf_counter() - t0
         return out
 
-    def _resolve_scalar_subqueries(self, lqp: L.LQPNode) -> None:
+    def _resolve_scalar_subqueries(self, lqp: L.LQPNode, context) -> bool:
         """Execute ScalarSubquery placeholders, substitute literals
-        (the reference's uncorrelated PQPSelectExpression evaluation)."""
+        (the reference's uncorrelated PQPSelectExpression evaluation).
+        Under MVCC a subquery validates its tables too. Returns whether
+        there was one."""
+        found = [False]
 
         def fix_expr(e: ast.Expr) -> ast.Expr:
             if isinstance(e, ScalarSubquery):
+                found[0] = True
+                sub = e.lqp
+                if self.use_mvcc:
+                    sub = self._insert_validates(sub)
                 sub_plan = translate_lqp(
-                    self.optimizer.optimize(e.lqp, self.catalog), self.catalog)
-                t = execute_plan(sub_plan)
+                    self.optimizer.optimize(sub, self.catalog), self.catalog)
+                t = execute_plan(sub_plan, context)
                 if t.num_rows == 0:
                     # SQL: an empty scalar subquery evaluates to NULL
                     return ast.lit(None)
@@ -209,37 +257,48 @@ class SQLPipelineStatement:
             return n
 
         L.map_lqp(lqp, visit)
+        return found[0]
 
-    def get_physical_plan(self):
+    def get_physical_plan(self, context=None):
         # The key carries the statement's position (sql_text is the whole
         # pipeline's text: without it every statement of one text would
-        # share the first one's plan) and the catalog's id; the entry holds
-        # a weak reference to the catalog itself: cached operators read that
-        # catalog, and an id can be reused once its catalog is gone.
-        cache_key = (self.sql_text, self.position, id(self.catalog))
-        cacheable = self.use_cache and self.params is None
+        # share the first one's plan), whether MVCC is on (a plan without
+        # Validate shows rows a transaction must not see) and the catalog's
+        # id; the entry holds a weak reference to the catalog itself: cached
+        # operators read that catalog, and an id can be reused once its
+        # catalog is gone. A plan whose scalar subqueries were resolved into
+        # literals also keeps what they read: the catalog's version and the
+        # snapshot. DML is never cached.
+        cache_key = (self.sql_text, self.position, self.use_mvcc, id(self.catalog))
+        cacheable = self.use_cache and self.params is None and \
+            not isinstance(self.stmt, _DML)
+        read_at = (self.catalog.version,
+                   None if context is None else context.snapshot_commit_id)
         if cacheable:
             cached = _plan_cache.get(cache_key)
-            if cached is not None and cached[0]() is self.catalog:
+            if cached is not None and cached[0]() is self.catalog and \
+                    cached[2] in (None, read_at):
                 self.metrics.cache_hit = True
                 # plans cache their outputs -> clear before reuse (the
                 # reference deep-copies cached PQPs instead)
                 _clear_plan_outputs(cached[1])
                 return cached[1]
         lqp = self.get_optimized_lqp()
-        self._resolve_scalar_subqueries(lqp)
+        resolved = self._resolve_scalar_subqueries(lqp, context)
         t0 = time.perf_counter()
         plan = translate_lqp(lqp, self.catalog)
         self.metrics.compile_s = time.perf_counter() - t0
         if cacheable:
-            _plan_cache.put(cache_key, (weakref.ref(self.catalog), plan))
+            _plan_cache.put(cache_key, (weakref.ref(self.catalog), plan,
+                                        read_at if resolved else None))
         return plan
 
     def execute(self) -> Table:
         if isinstance(self.stmt, P.ExplainStmt):
             inner = SQLPipelineStatement(
                 self.stmt.stmt, self.sql_text, self.catalog, self.optimizer,
-                use_cache=False, params=self.params)
+                use_cache=False, params=self.params, use_mvcc=self.use_mvcc,
+                transaction_manager=self.tm, context=self.context)
             lqp = inner.get_optimized_lqp()
             lines = np.array(lqp.describe().split("\n"), dtype=object)
             return Table.from_arrays(
@@ -265,18 +324,33 @@ class SQLPipelineStatement:
                     raise SQLTranslationError("EXECUTE params must be literals")
             sub = SQLPipelineStatement(
                 inner, self.sql_text + repr(vals), self.catalog,
-                self.optimizer, use_cache=False, params=vals)
+                self.optimizer, use_cache=False, params=vals,
+                use_mvcc=self.use_mvcc, transaction_manager=self.tm,
+                context=self.context)
             out = sub.execute()
             self.metrics = sub.metrics
             return out
 
-        plan = self.get_physical_plan()
-        self.last_plan = plan  # retained for profiling / visualization
-        t0 = time.perf_counter()
-        result = execute_plan(plan)
-        if result.device.type == "cuda":
-            torch.cuda.synchronize(result.device)
+        is_dml = isinstance(self.stmt, _DML)
+        context = self.context
+        auto_commit = False
+        if context is None and (is_dml or self.use_mvcc):
+            context = self.tm.new_transaction_context()
+            auto_commit = is_dml
+        try:
+            plan = self.get_physical_plan(context)
+            self.last_plan = plan  # retained for profiling / visualization
+            t0 = time.perf_counter()
+            result = execute_plan(plan, context)
+            if result.device.type == "cuda":
+                torch.cuda.synchronize(result.device)
+        except BaseException:
+            if auto_commit:
+                context.rollback()
+            raise
         self.metrics.execute_s = time.perf_counter() - t0
+        if auto_commit:
+            context.commit()
         return result
 
 
@@ -299,12 +373,16 @@ class SQLPipeline:
 
     def __init__(self, sql: str, catalog: Catalog,
                  optimizer: Optional[Optimizer], use_cache: bool,
-                 params: Optional[List[object]] = None):
+                 params: Optional[List[object]] = None, use_mvcc: bool = False,
+                 transaction_manager=None, context=None):
         t0 = time.perf_counter()
         self.statements = P.parse_sql(sql)
         self.parse_s = time.perf_counter() - t0
         self._sql = sql
         self._args = (catalog, optimizer, use_cache, params)
+        self._transactions = dict(use_mvcc=use_mvcc,
+                                  transaction_manager=transaction_manager,
+                                  context=context)
         self.pipeline_statements: List[SQLPipelineStatement] = []
 
     def get_result_table(self) -> Table:
@@ -312,7 +390,8 @@ class SQLPipeline:
         result: Optional[Table] = None
         for position, stmt in enumerate(self.statements):
             ps = SQLPipelineStatement(stmt, self._sql, catalog, optimizer,
-                                      use_cache, params=params, position=position)
+                                      use_cache, params=params, position=position,
+                                      **self._transactions)
             ps.metrics.parse_s = self.parse_s / max(len(self.statements), 1)
             self.pipeline_statements.append(ps)
             result = ps.execute()
@@ -330,19 +409,30 @@ class SQLPipelineBuilder:
         self._optimizer: Optional[Optimizer] = None
         self._use_cache = True
         self._params: Optional[List[object]] = None
+        self._use_mvcc = False
+        self._tm = None
+        self._context = None
 
     def with_catalog(self, catalog: Catalog) -> "SQLPipelineBuilder":
         self._catalog = catalog
         return self
 
     def with_mvcc(self, enabled: bool = True) -> "SQLPipelineBuilder":
-        if enabled:
-            raise NotImplementedError(
-                "MVCC arrives with the DML/MVCC slice (ops/rw_ops.py, "
-                "concurrency/transaction.py)")
+        self._use_mvcc = enabled
         return self
 
     def disable_mvcc(self) -> "SQLPipelineBuilder":
+        self._use_mvcc = False
+        return self
+
+    def with_transaction_manager(self, tm) -> "SQLPipelineBuilder":
+        self._tm = tm
+        return self
+
+    def with_transaction_context(self, context) -> "SQLPipelineBuilder":
+        """Run every statement in `context`, which the caller commits or
+        rolls back (no auto-commit)."""
+        self._context = context
         return self
 
     def with_optimizer(self, optimizer: Optimizer) -> "SQLPipelineBuilder":
@@ -366,9 +456,13 @@ class SQLPipelineBuilder:
             raise ValueError("the pipeline needs a catalog: call "
                              "with_catalog() before create_pipeline()")
         return SQLPipeline(self.sql, self._catalog, self._optimizer,
-                           self._use_cache, params=self._params)
+                           self._use_cache, params=self._params,
+                           use_mvcc=self._use_mvcc, transaction_manager=self._tm,
+                           context=self._context)
 
 
-def run_sql(sql: str, catalog: Catalog) -> Table:
-    return SQLPipelineBuilder(sql).with_catalog(catalog) \
-        .create_pipeline().get_result_table()
+def run_sql(sql: str, catalog: Catalog, context=None, use_mvcc: bool = False) -> Table:
+    b = SQLPipelineBuilder(sql).with_catalog(catalog).with_mvcc(use_mvcc)
+    if context is not None:
+        b.with_transaction_context(context)
+    return b.create_pipeline().get_result_table()

@@ -1,8 +1,6 @@
 """SQL parse tree -> LQP.
 
-Copy of hyrise_tpu/sql/translator.py for everything SELECT needs. INSERT,
-UPDATE, DELETE and CREATE TABLE raise SQLTranslationError: they wait for
-the slice that ports ops/rw_ops.py and concurrency/transaction.py.
+Copy of hyrise_tpu/sql/translator.py, DML and CREATE TABLE included.
 
 Role of the reference's SQLTranslator (src/lib/sql/sql_translator.cpp, 1292
 LoC): identifier resolution with scopes, FROM/JOIN trees, WHERE/HAVING,
@@ -131,10 +129,6 @@ _TYPE_NAMES = {
 }
 
 
-_LATER_STATEMENTS = {P.InsertStmt: "INSERT", P.DeleteStmt: "DELETE",
-                     P.UpdateStmt: "UPDATE", P.CreateTableStmt: "CREATE TABLE"}
-
-
 class SQLToLQPTranslator:
     def __init__(self, catalog=None, params: Optional[List[object]] = None):
         self.catalog = catalog
@@ -148,23 +142,105 @@ class SQLToLQPTranslator:
             return node
         if isinstance(stmt, P.SetOpStmt):
             return self._set_op(stmt)
-        if isinstance(stmt, (P.InsertStmt, P.DeleteStmt, P.UpdateStmt,
-                             P.CreateTableStmt)):
-            raise SQLTranslationError(
-                f"{_LATER_STATEMENTS[type(stmt)]} is not supported yet: it "
-                "arrives with the DML/MVCC slice (ops/rw_ops.py, "
-                "concurrency/transaction.py)")
+        if isinstance(stmt, P.InsertStmt):
+            return self._insert(stmt)
+        if isinstance(stmt, P.DeleteStmt):
+            return self._delete(stmt)
+        if isinstance(stmt, P.UpdateStmt):
+            return self._update(stmt)
         if isinstance(stmt, P.CreateViewStmt):
             inner, _ = self._select(stmt.select, Scope())
             return L.CreateViewNode(stmt.name, inner)
         if isinstance(stmt, P.DropViewStmt):
             return L.DropViewNode(stmt.name)
+        if isinstance(stmt, P.CreateTableStmt):
+            from hyrise_tpu_torch.storage.table import TableColumnDefinition
+            defs = []
+            for name, type_name, nullable in stmt.columns:
+                if type_name not in _TYPE_NAMES:
+                    raise SQLTranslationError(f"unknown type {type_name!r}")
+                defs.append(TableColumnDefinition(name, _TYPE_NAMES[type_name],
+                                                  nullable))
+            return L.CreateTableNode(stmt.name, defs)
         if isinstance(stmt, P.DropTableStmt):
             return L.DropTableNode(stmt.name)
         if isinstance(stmt, P.ShowStmt):
             return (L.ShowTablesNode() if stmt.what == "tables"
                     else L.ShowColumnsNode(stmt.table))
         raise SQLTranslationError(f"cannot translate {type(stmt).__name__}")
+
+    # -- DML -------------------------------------------------------------------
+
+    def _insert(self, stmt: P.InsertStmt) -> L.LQPNode:
+        target = self.catalog.get_table(stmt.table)
+        if stmt.select is not None:
+            values_node, _ = self._select(stmt.select, Scope())
+            return L.InsertNode(stmt.table, values_node)
+        # literal VALUES -> a static table of the target's schema; columns the
+        # statement leaves out are NULL
+        import numpy as np
+        from hyrise_tpu_torch.storage.column import Column
+        from hyrise_tpu_torch.storage.table import Table
+
+        col_order = stmt.columns or target.column_names
+        rows = stmt.values
+        given = {}
+        for j, cname in enumerate(col_order):
+            vals = []
+            for row in rows:
+                cell = row[j]
+                if isinstance(cell, P.ELiteral):
+                    vals.append(cell.value)
+                elif isinstance(cell, P.EUnary) and cell.op == "-" and \
+                        isinstance(cell.value, P.ELiteral):
+                    vals.append(-cell.value.value)
+                else:
+                    raise SQLTranslationError("INSERT VALUES must be literals")
+            given[cname] = vals
+        n = len(rows)
+        cols = []
+        for c in target.columns:
+            if c.name in given:
+                vals = given[c.name]
+                valid = np.array([v is not None for v in vals], dtype=bool)
+                validity = None if valid.all() else valid
+                if c.dtype is DataType.STRING:
+                    data = np.array(vals, dtype=object)
+                else:
+                    data = np.array([0 if v is None else v for v in vals],
+                                    dtype=c.dtype.numpy_dtype)
+            else:
+                validity = np.zeros(n, dtype=bool)
+                data = (np.array([""] * n, dtype=object) if c.dtype is DataType.STRING
+                        else np.zeros(n, dtype=c.dtype.numpy_dtype))
+            cols.append(Column.from_numpy(c.name, c.dtype, data, validity,
+                                          device=target.device))
+        return L.InsertNode(stmt.table, L.StaticTableNode(Table(cols, n, name="values")))
+
+    def _rows_to_change(self, table: str, where) -> Tuple[L.LQPNode, Scope, List[str]]:
+        """Validate over the table's rows with their `row_id`, filtered by
+        WHERE: the rows a DELETE or UPDATE changes."""
+        scope = Scope()
+        cols = self.catalog.get_table(table).column_names
+        scope.add_table(table, cols)
+        base = L.AliasNode([f"{table}.{c}" for c in cols] + ["row_id"],
+                           L.AddRowIdsNode(L.StoredTableNode(table)),
+                           sources=cols + ["row_id"])
+        node = L.ValidateNode(base)
+        if where is not None:
+            node = self._where(where, node, scope)
+        return node, scope, cols
+
+    def _delete(self, stmt: P.DeleteStmt) -> L.LQPNode:
+        node, _, _ = self._rows_to_change(stmt.table, stmt.where)
+        return L.DeleteNode(stmt.table, node)
+
+    def _update(self, stmt: P.UpdateStmt) -> L.LQPNode:
+        node, scope, cols = self._rows_to_change(stmt.table, stmt.where)
+        assigned = {cname: self._expr(e, scope) for cname, e in stmt.assignments}
+        outputs = [(c, assigned[c] if c in assigned
+                    else ast.col(scope.resolve(None, c))) for c in cols]
+        return L.UpdateNode(stmt.table, node, L.ProjectionNode(outputs, node))
 
     def _select_any(self, stmt, scope: Scope
                     ) -> Tuple[L.LQPNode, List[str]]:

@@ -3,7 +3,9 @@
 Port of hyrise_tpu/storage/catalog.py (reference:
 src/lib/storage/storage_manager.hpp:19-66): a name→Table map plus LQP
 views. Callers create a Catalog and pass it to the operators that read it;
-there is no process-wide default instance.
+there is no process-wide default instance. Each catalog owns the
+TransactionManager of its tables' transactions (the reference keeps one
+beside its StorageManager).
 """
 
 from __future__ import annotations
@@ -16,9 +18,17 @@ from hyrise_tpu_torch.storage.table import Table
 
 
 class Catalog:
-    def __init__(self) -> None:
+    def __init__(self, device=None) -> None:
         self._tables: Dict[str, Table] = {}
         self._views: Dict[str, object] = {}  # name -> LQP
+        self._device = None if device is None else torch.device(device)
+        self._transaction_manager = None
+        # counts writes: tables added, replaced or dropped, rows inserted or
+        # deleted (the plan cache re-resolves scalar subqueries after one)
+        self.version = 0
+
+    def mark_changed(self) -> None:
+        self.version += 1
 
     # Tables
     def add_table(self, name: str, table: Table) -> None:
@@ -26,11 +36,13 @@ class Catalog:
             raise ValueError(f"table or view {name!r} already exists")
         table.name = name
         self._tables[name] = table
+        self.mark_changed()
 
     def drop_table(self, name: str) -> None:
         if name not in self._tables:
             raise KeyError(f"no such table {name!r}")
         del self._tables[name]
+        self.mark_changed()
 
     def get_table(self, name: str) -> Table:
         if name not in self._tables:
@@ -46,6 +58,7 @@ class Catalog:
     def replace_table(self, name: str, table: Table) -> None:
         table.name = name
         self._tables[name] = table
+        self.mark_changed()
 
     # Views (reference: StorageManager::add_lqp_view)
     def add_view(self, name: str, lqp) -> None:
@@ -67,11 +80,23 @@ class Catalog:
 
     @property
     def device(self) -> torch.device:
-        """The device the tables live on (the CPU for an empty catalog):
-        where the SQL path puts the small tables it makes itself."""
+        """Where the SQL path puts the tables it makes itself (CREATE TABLE,
+        SHOW, EXPLAIN, SELECT without FROM): the device the catalog was
+        created with, else the one its tables live on, else the card."""
+        if self._device is not None:
+            return self._device
         for t in self._tables.values():
             return t.device
-        return torch.device("cpu")
+        return torch.device("cuda")
+
+    @property
+    def transaction_manager(self):
+        """The TransactionManager of this catalog's tables, made on first
+        use."""
+        if self._transaction_manager is None:
+            from hyrise_tpu_torch.concurrency.transaction import TransactionManager
+            self._transaction_manager = TransactionManager()
+        return self._transaction_manager
 
     def table_statistics(self, name: str):
         """TableStatistics of a table, generated on first use and cached on
@@ -92,3 +117,4 @@ class Catalog:
     def reset(self) -> None:
         self._tables.clear()
         self._views.clear()
+        self.mark_changed()

@@ -13,6 +13,7 @@ from typing import Collection, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hyrise_tpu_torch.concurrency.transaction import MvccData
 from hyrise_tpu_torch.storage.column import Column
 from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.types import DataType
@@ -26,7 +27,8 @@ ColumnExport = Tuple[str, str, np.ndarray, Optional[np.ndarray],
 def table_from_numpy(name: str, columns: Sequence[ColumnExport], num_rows: int,
                      live: Optional[np.ndarray] = None, *, device,
                      unique: Collection[str] = (),
-                     val_ranges: Optional[Mapping[str, Optional[Tuple[int, int]]]] = None
+                     val_ranges: Optional[Mapping[str, Optional[Tuple[int, int]]]] = None,
+                     mvcc: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
                      ) -> Table:
     """A Table over `columns` on `device`. Every data array has the same
     length (the capacity); rows past `num_rows` are dead unless `live`
@@ -36,7 +38,11 @@ def table_from_numpy(name: str, columns: Sequence[ColumnExport], num_rows: int,
     pairwise distinct. `val_ranges` carries the exporter's (min, max) per
     integer column, None for a column without one; when it is not given,
     each integer column's range is taken over its whole array, dead rows
-    included (wider, and still a valid bound)."""
+    included (wider, and still a valid bound).
+
+    `mvcc` is the exporter's MVCC state as (tids, begin cids, end cids),
+    int64 arrays at least as long as the capacity: it becomes the table's
+    MvccData on `device`, cut to the capacity."""
     cols = []
     for col_name, dtype_value, data, validity, dictionary in columns:
         dtype = DataType(dtype_value)
@@ -51,4 +57,10 @@ def table_from_numpy(name: str, columns: Sequence[ColumnExport], num_rows: int,
     live_t = None
     if live is not None:
         live_t = torch.tensor(np.asarray(live, dtype=bool), device=device)
-    return Table(cols, num_rows, name=name, live=live_t)
+    table = Table(cols, num_rows, name=name, live=live_t)
+    if mvcc is not None:
+        cap = table.capacity
+        tids, begin, end = (torch.tensor(np.asarray(a, dtype=np.int64)[:cap], device=device)
+                            for a in mvcc)
+        table.mvcc = MvccData(tids, begin, end)
+    return table

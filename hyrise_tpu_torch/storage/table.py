@@ -1,8 +1,9 @@
 """Tables.
 
 Port of hyrise_tpu/storage/table.py: a named set of equally long columns on
-one device plus a host-known live row count. A base table's capacity equals
-its row count.
+one device plus a host-known live row count. A base table's capacity is its
+row count, except for a table that rows were inserted into
+(ops/rw_ops.py): it keeps headroom past `num_rows` for the next inserts.
 
 Row layouts: by default rows [0, num_rows) are live (PREFIX layout). A table
 may instead carry an explicit `live` bool mask (MASKED layout); operators
@@ -45,6 +46,7 @@ class Table:
         self.num_rows = int(num_rows)
         self.live = live  # None = prefix layout
         self.name = name
+        self.mvcc = None  # concurrency.transaction.MvccData of an MVCC table
         # Duplicate names can occur after joins (both sides kept, like the
         # reference); lookup resolves to the FIRST occurrence.
         self._by_name: Dict[str, int] = {}

@@ -8,13 +8,18 @@ For every statement of tests/sql_corpus.sql and each of the 22 TPC-H texts:
 (c) the port's pipeline returns the JAX pipeline's rows and sqlite's:
     integers and strings equal, floats within 1e-6 relative (sums are taken
     in another order), compared as row sets like tests/test_sql_corpus.py
-    and tests/test_tpch_sql.py, at their scale factors.
+    and tests/test_tpch_sql.py, at their scale factors;
+(e) with MVCC on, the 22 TPC-H texts and the DML statements of
+    tests/test_torch_sql_dml.py over the corpus tables print the same
+    optimized LQP (Validate nodes included) in both packages; and the plan
+    cache keeps plans with and without MVCC apart and never caches DML.
 
 The corpus tables are made with numpy from a seed, built as JAX tables and
 carried across with storage/interop.table_from_numpy, capacity padding and
 all; the TPC-H tables come from each package's copy of the same numpy
 generator."""
 
+import copy
 import dataclasses
 import itertools
 import os
@@ -25,22 +30,27 @@ import pytest
 import torch
 
 from hyrise_tpu.plan import cost_model as jax_cost_model
+from hyrise_tpu.plan import lqp as jax_lqp
 from hyrise_tpu.plan.optimizer import Optimizer as JaxOptimizer
 from hyrise_tpu.plan.statistics import \
     generate_table_statistics as jax_generate_table_statistics
 from hyrise_tpu.sql import parser as jax_parser
 from hyrise_tpu.sql import translator as jax_translator
+from hyrise_tpu.concurrency.transaction import MvccData as JaxMvccData
 from hyrise_tpu.sql.pipeline import SQLPipelineBuilder as JaxPipelineBuilder
+from hyrise_tpu.sql.pipeline import SQLPipelineStatement as JaxPipelineStatement
 from hyrise_tpu.storage.catalog import Catalog as JaxCatalog
 from hyrise_tpu.storage.table import Table as JaxTable
 from hyrise_tpu.tpch.dbgen import generate_tables as jax_generate_tables
 from hyrise_tpu.utils.sqlite_oracle import SqliteOracle
 from hyrise_tpu.utils.table_eq import assert_tables_equal
+from hyrise_tpu_torch.concurrency.transaction import MvccData
 from hyrise_tpu_torch.plan import cost_model
 from hyrise_tpu_torch.plan.optimizer import Optimizer
 from hyrise_tpu_torch.plan.statistics import generate_table_statistics
 from hyrise_tpu_torch.sql import parser, translator
-from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
+from hyrise_tpu_torch.sql import pipeline
+from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder, SQLPipelineStatement, run_sql
 from hyrise_tpu_torch.storage.catalog import Catalog
 from hyrise_tpu_torch.storage.interop import table_from_numpy
 from hyrise_tpu_torch.tpch.dbgen import generate_tables
@@ -261,3 +271,155 @@ def test_tpch_order_by_rows_in_order_match_jax(qid):
     got, want = _run_both(TPCH_SQL[qid], jcat, cat)
     assert got.column_names == want.column_names
     assert_tables_equal(got.rows(), want.rows(), ordered=True, rel_tol=1e-6, abs_tol=0.0)
+
+
+# -- (e) MVCC -------------------------------------------------------------------
+
+
+def _with_mvcc(jcat, cat):
+    """Catalogs over copies of the tables of (jcat, cat), each with MVCC
+    state: every row visible from commit id 0, carried into the port."""
+    jm, m = JaxCatalog(), Catalog()
+    for name in jcat.table_names():
+        jt = copy.copy(jcat.get_table(name))
+        jt.mvcc = JaxMvccData.for_new_table(jt.num_rows, jt.capacity)
+        jm.add_table(name, jt)
+        t = copy.copy(cat.get_table(name))
+        t.mvcc = MvccData(*(torch.tensor(a[:t.capacity]) for a in (
+            jt.mvcc.tids, jt.mvcc.begin_cids, jt.mvcc.end_cids)))
+        m.add_table(name, t)
+    return jm, m
+
+
+def _jax_dml_validates(root, jcat):
+    """The port's Validate nodes of a DML plan, put into the JAX package's
+    (ROADMAP C12: the JAX pipeline leaves the other tables a DML statement
+    reads unvalidated). The rows the statement changes keep their own
+    Validate, over their row ids."""
+    own = set()
+
+    def mark(n):
+        if isinstance(n, jax_lqp.AddRowIdsNode):
+            own.add(id(n.children[0]))
+        return n
+
+    def validate(n):
+        if isinstance(n, jax_lqp.StoredTableNode) and id(n) not in own and \
+                jcat.get_table(n.table_name).mvcc is not None:
+            return jax_lqp.ValidateNode(n)
+        return n
+
+    jax_lqp.map_lqp(root, mark)
+    return jax_lqp.map_lqp(root, validate)
+
+
+def _mvcc_plan_texts(sql, jcat, cat):
+    """The optimized LQP of the pipelines' statements with MVCC on."""
+    jax_translator._uniq = itertools.count()
+    translator._uniq = itertools.count()
+    jstmt = JaxPipelineStatement(jax_parser.parse_sql(sql)[0], sql, jcat, None, True,
+                                 JaxOptimizer(jcat.all_statistics()), False)
+    if isinstance(jstmt.stmt, (jax_parser.InsertStmt, jax_parser.DeleteStmt,
+                               jax_parser.UpdateStmt)):
+        lqp = _jax_dml_validates(jstmt.get_lqp(), jcat)
+        want = jstmt.optimizer.optimize(lqp, jcat).describe()
+    else:
+        want = jstmt.get_optimized_lqp().describe()
+    stmt = SQLPipelineStatement(parser.parse_sql(sql)[0], sql, cat,
+                                Optimizer(cat.all_statistics()), False, use_mvcc=True)
+    return stmt.get_optimized_lqp().describe(), want
+
+
+@pytest.mark.parametrize("qid", sorted(TPCH_SQL))
+def test_tpch_lqp_text_with_mvcc_matches_jax(qid):
+    jcat, cat = _with_mvcc(*_tpch_setup(QUERY_SF.get(qid, SF))[:2])
+    got, want = _mvcc_plan_texts(TPCH_SQL[qid], jcat, cat)
+    assert got == want
+    assert "[Validate]" in got
+
+
+DML_STATEMENTS = [
+    "INSERT INTO mixed VALUES (11, 1.5, 'teal')",
+    "INSERT INTO mixed (a) VALUES (12)",
+    "INSERT INTO mixed SELECT a + 10, b, s FROM mixed WHERE a <= 2",
+    "INSERT INTO lookup SELECT * FROM lookup",
+    "DELETE FROM mixed WHERE a = 2",
+    "DELETE FROM mixed WHERE a IN (SELECT k FROM lookup)",
+    "DELETE FROM lookup",
+    "UPDATE mixed SET a = a + 100 WHERE s = 'red'",
+    "UPDATE lookup SET k = 500, v = 'x' WHERE k = 2",
+    "CREATE TABLE nt (x int, y string)",
+    "SELECT s, COUNT(*) FROM mixed WHERE a > (SELECT AVG(k) FROM lookup) GROUP BY s",
+]
+
+
+@pytest.mark.parametrize("sql", DML_STATEMENTS)
+def test_dml_lqp_text_with_mvcc_matches_jax(sql):
+    jcat, cat = _with_mvcc(*_corpus_setup()[:2])
+    got, want = _mvcc_plan_texts(sql, jcat, cat)
+    assert got == want
+
+
+# -- the plan cache (repair: MVCC is part of its key; DML is never cached) --------
+
+
+def _small_mvcc_catalog():
+    """t(a, s) of three rows with MVCC state, on the CPU."""
+    t = table_from_numpy("t", [("a", "int32", np.array([1, 2, 3], dtype=np.int32), None,
+                                None),
+                               ("s", "string", np.array([0, 1, 2], dtype=np.int32), None,
+                                np.array(["x", "y", "z"]))], 3, device="cpu")
+    t.mvcc = MvccData.for_new_table(3, 3, device="cpu")
+    cat = Catalog(device="cpu")
+    cat.add_table("t", t)
+    return cat
+
+
+def _rows(table):
+    return [tuple(v.item() if hasattr(v, "item") else v for v in r) for r in table.rows()]
+
+
+def test_the_same_select_without_and_with_mvcc_after_a_committed_delete():
+    """A plan cached without MVCC holds no Validate: the same text with MVCC
+    on must not take it, or it shows the deleted row."""
+    cat = _small_mvcc_catalog()
+    pipeline._plan_cache.clear()
+    sql = "SELECT a FROM t"
+
+    def rows(mvcc):
+        p = SQLPipelineBuilder(sql).with_catalog(cat).with_mvcc(mvcc).create_pipeline()
+        return sorted(_rows(p.get_result_table())), p.pipeline_statements[0].metrics.cache_hit
+
+    assert rows(False) == ([(1,), (2,), (3,)], False)
+    run_sql("DELETE FROM t WHERE a = 2", cat, use_mvcc=True)
+    assert rows(True) == ([(1,), (3,)], False)
+    assert rows(True) == ([(1,), (3,)], True)
+    # without MVCC no row is hidden: the deleted row is still stored
+    assert rows(False) == ([(1,), (2,), (3,)], True)
+
+
+def test_dml_is_never_cached():
+    cat = _small_mvcc_catalog()
+    pipeline._plan_cache.clear()
+    for _ in range(2):
+        p = SQLPipelineBuilder("INSERT INTO t VALUES (8, 'e')").with_catalog(cat) \
+            .create_pipeline()
+        p.get_result_table()
+        assert not p.pipeline_statements[0].metrics.cache_hit
+    assert len(pipeline._plan_cache._d) == 0
+    assert sorted(_rows(run_sql("SELECT a FROM t WHERE a = 8", cat, use_mvcc=True))) == [
+        (8,), (8,)]
+
+
+def test_create_table_lands_on_the_catalogs_device():
+    """CREATE TABLE in an empty catalog: the table and its MVCC tensors go to
+    the device the catalog names; an empty catalog without one names the
+    card."""
+    cat = Catalog(device="cpu")
+    run_sql("CREATE TABLE nt (x int, y string)", cat)
+    t = cat.get_table("nt")
+    assert t.device == t.mvcc.device == torch.device("cpu")
+    assert Catalog().device == torch.device("cuda")
+    filled = Catalog()
+    filled.add_table("t", _small_mvcc_catalog().get_table("t"))
+    assert filled.device == torch.device("cpu")

@@ -1,8 +1,9 @@
 """The port's SQL pipeline (hyrise_tpu_torch.sql.pipeline) on the CPU: the
 plan cache and its five eviction policies (held against the JAX package's
 cache on the same access sequence), PREPARE/EXECUTE, `?` parameters, EXPLAIN,
-views, SHOW, set operations, statement metrics, and the errors raised by what
-this slice leaves to later ones (DML, MVCC) and by a missing catalog."""
+views, SHOW, set operations, statement metrics, DML, CREATE TABLE and the
+MVCC switch against the JAX package, and the errors raised by what later
+slices bring (index scans) and by a missing catalog."""
 
 import random
 
@@ -251,32 +252,124 @@ def test_correlated_subquery_adds_row_ids():
     assert got == [i for i in range(1, 40) if b[i] > b[:i].mean()]
 
 
-# -- what later slices bring -----------------------------------------------------
+# -- DML, CREATE TABLE and MVCC against the JAX package -----------------------------
 
 
-@pytest.mark.parametrize("sql,word", [
-    ("INSERT INTO u VALUES (7, 'seven')", "INSERT"),
-    ("UPDATE u SET k = 1 WHERE k = 2", "UPDATE"),
-    ("DELETE FROM u WHERE k = 2", "DELETE"),
-    ("CREATE TABLE n (x int)", "CREATE TABLE"),
-])
-def test_dml_raises_naming_its_slice(sql, word):
+def _dml_catalogs():
+    """(port catalog, JAX catalog) over _catalog()'s tables, with MVCC on u
+    in both."""
+    from hyrise_tpu.concurrency.transaction import MvccData as JaxMvccData
+    from hyrise_tpu.concurrency.transaction import reset_default_transaction_manager
+    from hyrise_tpu.storage.catalog import Catalog as JaxCatalog
+    from hyrise_tpu.storage.table import Table as JaxTable
+    from hyrise_tpu.storage.table import TableColumnDefinition as JaxDef
+    from hyrise_tpu.types import DataType as JaxType
+    from hyrise_tpu_torch.concurrency.transaction import MvccData
+
+    reset_default_transaction_manager()
     cat = _catalog()
-    with pytest.raises(SQLTranslationError, match=f"{word} is not supported yet.*DML/MVCC"):
-        run_sql(sql, cat)
-    assert cat.table_names() == ["t", "u"]
-    assert cat.get_table("u").num_rows == 4
+    jcat = JaxCatalog()
+    for name in cat.table_names():
+        t = cat.get_table(name)
+        jt = JaxTable.from_arrays(
+            name, [JaxDef(c.name, JaxType(c.dtype.value)) for c in t.columns],
+            [c.decode(t.num_rows) if c.dtype is DataType.STRING else c.data.numpy()
+             for c in t.columns])
+        if name == "u":
+            jt.mvcc = JaxMvccData.for_new_table(jt.num_rows, jt.capacity)
+            t.mvcc = MvccData.for_new_table(t.num_rows, t.capacity, device="cpu")
+        jcat.add_table(name, jt)
+    return cat, jcat
 
 
-@pytest.mark.parametrize("node", [
-    L.ValidateNode(L.StoredTableNode("t")),
-    L.InsertNode("t", L.StoredTableNode("t")),
-    L.DeleteNode("t", L.StoredTableNode("t")),
-    L.CreateTableNode("n", []),
-], ids=lambda n: type(n).__name__)
-def test_dml_nodes_raise_in_the_physical_translator(node):
-    with pytest.raises(NotImplementedError, match="DML/MVCC"):
-        translate_lqp(node, _catalog())
+def _u_rows(run, cat):
+    return sorted(tuple(v.item() if hasattr(v, "item") else v for v in r)
+                  for r in run("SELECT k, w FROM u", cat, use_mvcc=True).rows())
+
+
+@pytest.mark.parametrize("sql", [
+    "INSERT INTO u VALUES (7, 'seven')",
+    "UPDATE u SET k = 1 WHERE k = 2",
+    "DELETE FROM u WHERE k = 2",
+    "CREATE TABLE n (x int)",
+])
+def test_dml_runs_like_jax(sql):
+    from hyrise_tpu.sql.pipeline import run_sql as jax_run_sql
+    cat, jcat = _dml_catalogs()
+    run_sql(sql, cat)
+    jax_run_sql(sql, jcat)
+    assert cat.table_names() == jcat.table_names()
+    assert _u_rows(run_sql, cat) == _u_rows(jax_run_sql, jcat)
+
+
+def _validate_u(pkg):
+    return pkg.L.ValidateNode(pkg.L.StoredTableNode("u"))
+
+
+def _insert_u(pkg):
+    return pkg.L.InsertNode("u", pkg.L.StoredTableNode("u"))
+
+
+def _delete_u(pkg):
+    L = pkg.L
+    return L.DeleteNode("u", L.PredicateNode(
+        pkg.ast.col("k") > pkg.ast.lit(1),
+        L.ValidateNode(L.AddRowIdsNode(L.StoredTableNode("u")))))
+
+
+def _create_n(pkg):
+    return pkg.L.CreateTableNode("n", [pkg.Def("x", pkg.DataType.INT32)])
+
+
+@pytest.mark.parametrize("make", [_validate_u, _insert_u, _delete_u, _create_n],
+                         ids=lambda f: f.__name__)
+def test_dml_nodes_translate_and_run_like_jax(make):
+    """The same node in both physical translators: the same operator, run
+    in one transaction, leaves the same visible rows of u."""
+    from types import SimpleNamespace
+
+    from hyrise_tpu import types as jax_types
+    from hyrise_tpu.concurrency.transaction import TransactionManager as JaxTM
+    from hyrise_tpu.expression import ast as jax_ast
+    from hyrise_tpu.ops.base import execute_plan as jax_execute_plan
+    from hyrise_tpu.plan import lqp as JaxL
+    from hyrise_tpu.plan.translator import translate_lqp as jax_translate_lqp
+    from hyrise_tpu.sql.pipeline import run_sql as jax_run_sql
+    from hyrise_tpu.storage.table import TableColumnDefinition as JaxDef
+    from hyrise_tpu_torch.concurrency.transaction import TransactionManager
+    from hyrise_tpu_torch.expression import ast
+    from hyrise_tpu_torch.ops.base import execute_plan
+
+    port = SimpleNamespace(L=L, ast=ast, Def=TableColumnDefinition, DataType=DataType)
+    jax = SimpleNamespace(L=JaxL, ast=jax_ast, Def=JaxDef, DataType=jax_types.DataType)
+    cat, jcat = _dml_catalogs()
+    got, want = [], []
+    for pkg, run, c, translate, execute, tm, out in (
+            (port, run_sql, cat, translate_lqp, execute_plan, TransactionManager(), got),
+            (jax, jax_run_sql, jcat, jax_translate_lqp, jax_execute_plan, JaxTM(), want)):
+        op = translate(make(pkg), c)
+        ctx = tm.new_transaction_context()
+        result = execute(op, ctx)
+        ctx.commit()
+        out.extend([op.name, result.num_rows, c.table_names(), _u_rows(run, c)])
+    assert got == want
+
+
+@pytest.mark.parametrize("mvcc", ["on", "off"])
+def test_mvcc_switch_matches_jax(mvcc):
+    """with_mvcc(True) validates u's rows; with_mvcc(False) and disable_mvcc()
+    read every stored row, a deleted one included."""
+    from hyrise_tpu.sql.pipeline import SQLPipelineBuilder as JaxBuilder
+    from hyrise_tpu.sql.pipeline import run_sql as jax_run_sql
+    cat, jcat = _dml_catalogs()
+    run_sql("DELETE FROM u WHERE k = 2", cat)
+    jax_run_sql("DELETE FROM u WHERE k = 2", jcat)
+    rows = []
+    for builder, c in ((SQLPipelineBuilder, cat), (JaxBuilder, jcat)):
+        b = builder("SELECT k FROM u ORDER BY k").with_catalog(c)
+        b = b.with_mvcc(True) if mvcc == "on" else b.with_mvcc(False).disable_mvcc()
+        rows.append([int(r[0]) for r in b.create_pipeline().get_result_table().rows()])
+    assert rows[0] == rows[1] == ([1, 3, 50] if mvcc == "on" else [1, 2, 3, 50])
 
 
 def test_index_marked_predicate_raises_in_the_physical_translator():
@@ -287,18 +380,12 @@ def test_index_marked_predicate_raises_in_the_physical_translator():
         translate_lqp(node, _catalog())
 
 
-def test_mvcc_raises_until_the_transaction_slice():
-    with pytest.raises(NotImplementedError, match="DML/MVCC"):
-        SQLPipelineBuilder("SELECT 1").with_mvcc(True)
-    b = SQLPipelineBuilder("SELECT a FROM t WHERE a = 1").with_mvcc(False).disable_mvcc()
-    assert b.with_catalog(_catalog()).create_pipeline().get_result_table().rows() == [(1,)]
-
-
 def test_missing_catalog_raises():
     with pytest.raises(ValueError, match="with_catalog"):
         SQLPipelineBuilder("SELECT 1").create_pipeline()
 
 
 def test_catalog_device_is_where_its_tables_live():
-    assert Catalog().device == torch.device("cpu")
+    assert Catalog(device="cpu").device == torch.device("cpu")
+    assert Catalog().device == torch.device("cuda")  # the card, if nothing says else
     assert _catalog().device == torch.device("cpu")
