@@ -149,10 +149,38 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              which path each join of Q3 and Q18 took before and after RF1
              (Join.path) and the launches of the phase are printed; K3-K7
              and K9 must have launched.
+8. physical — the physical design layer on the card (storage/encoding.py,
+             tasks.py, storage/block_statistics.py, storage/index.py,
+             ops/index_scan.py, JoinIndex), with every launch count at 0
+             again before it, on copies of phase 4's SF1 tables in catalogs
+             of their own (phases 5-7 see what they saw before). All 8
+             tables encoded DICTIONARY, then RUN_LENGTH, then
+             FRAME_OF_REFERENCE: at-rest MB beside dense MB, the device ms of
+             RLE's decode of l_orderkey and FoR's of l_orderkey and
+             l_partkey beside their bounds, and the 22 texts over each equal
+             to phase 6's rows (first run and median of 3). RF1 into
+             DICTIONARY tables under MVCC: the appended columns come out
+             dense, ChunkCompressionTask encodes them again, Q1, Q3 and Q6
+             give the same rows before and after, Q1 and Q6 equal the numpy
+             oracles over base + RF1. Block statistics on all 8 tables
+             (generate's ms, lineitem's device ms and bound), the 22 texts,
+             two predicates no block can hold pruned to an empty table, one
+             near the largest key kept, and ROADMAP C13, C14 and C15 on
+             small tables on the card. Indexes on the 12 columns the texts
+             scan and two composite keys (build ms, one build's device ms
+             and bound): the 22 texts equal to phase 6's rows with the
+             IndexScans of each plan (at least one in all), one IndexScan's
+             gather timed against its bound, 1,000 point lookups on
+             o_orderkey (100 absent) and 100 on (l_orderkey, l_linenumber)
+             (10 absent) through SQL equal to the same statements without
+             indexes, host ms a lookup for IndexScan and TableScan, and
+             JoinIndex of orders with lineitem in INNER, LEFT, SEMI and
+             ANTI equal to Join row for row with index_used, both timed. K5
+             and K9 must have launched.
 
 Phases 5 and 6 also print the mean rows per launch of K4, K5, K7 and K9 and
 K5's mean pairs per launch (the wrappers count the rows they are given), so
-their launch counts can be read against sizes. After phase 7 comes the
+their launch counts can be read against sizes. After phase 8 comes the
 script's run time, the build included. The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}} and is printed only when every phase passed.
@@ -2152,6 +2180,474 @@ def dml_phase(device, card, cat, tables, hand_rows, sql_wall, wrappers, table_eq
     return launches
 
 
+# -- 8. physical design: encodings, block statistics, indexes ----------------------
+
+PHYSICAL_ENCODINGS = ("DICTIONARY", "RUN_LENGTH", "FRAME_OF_REFERENCE")
+PHYSICAL_REPS = 3              # median of 3 after the first run
+# the stored columns the 22 texts scan, and the two composite keys
+INDEXED = (("orders", "o_orderdate"), ("lineitem", "l_shipdate"),
+           ("customer", "c_mktsegment"), ("part", "p_size"), ("part", "p_brand"),
+           ("part", "p_type"), ("nation", "n_name"), ("region", "r_name"),
+           ("supplier", "s_suppkey"), ("customer", "c_custkey"), ("orders", "o_orderkey"),
+           ("part", "p_partkey"), ("lineitem", ("l_orderkey", "l_linenumber")),
+           ("partsupp", ("ps_partkey", "ps_suppkey")))
+LOOKUP_STREAM = 8              # np.random.default_rng([SEED, LOOKUP_STREAM]) draws the keys
+POINT_LOOKUPS = 1000
+ABSENT_LOOKUPS = 100           # of the point lookups, keys no order has
+COMPOSITE_LOOKUPS = 100
+ABSENT_COMPOSITE = 10
+JOIN_INDEX_MODES = ("INNER", "LEFT", "SEMI", "ANTI")
+# the kernels phase 8 must launch: every compaction (K9), JoinIndex's pairs (K5)
+PHYSICAL_KERNELS = ("compact_indices", "expand_pairs")
+
+
+def plain_copies(tables):
+    """Phase 4's tables as new Table objects over the same column tensors,
+    without the MVCC state phase 7 left on them (and without statistics or
+    indexes)."""
+    from hyrise_tpu_torch.storage.table import Table
+    return {name: Table(t.columns, t.num_rows, name=name) for name, t in tables.items()}
+
+
+def distinct_operators(plan, cls) -> list:
+    return [op for op in operators_of(plan) if isinstance(op, cls)]
+
+
+def physical_texts(cat, make_pipeline, tpch_sql, hand_rows, table_eq, what: str,
+                   reps: int = PHYSICAL_REPS):
+    """The 22 texts over `cat`, each equal as a row set to phase 6's rows
+    (those of the hand plans, which phase 6 matched): per text (first run
+    ms, median ms of `reps` more with the plan cached, the plan)."""
+    out = {}
+    for qid in sorted(tpch_sql):
+        rows, _, plan, first = run_sql_text(tpch_sql[qid], cat, make_pipeline)
+        check_rows(rows, hand_rows[qid], f"{what}: SQL Q{qid} vs phase 6", table_eq)
+        times = []
+        for _ in range(reps):
+            rows, _, plan, ms = run_sql_text(tpch_sql[qid], cat, make_pipeline)
+            times.append(ms)
+        if reps:
+            check_rows(rows, hand_rows[qid], f"{what}: SQL Q{qid}, cached plan", table_eq)
+        out[qid] = (first, statistics.median(times) if times else first, plan)
+    return out
+
+
+def texts_ms(runs) -> str:
+    return "; ".join(f"Q{q} {first:.3f} / {median:.3f}"
+                     for q, (first, median, _) in sorted(runs.items()))
+
+
+def payload_tensors(payload):
+    import dataclasses
+    return [getattr(payload, f.name) for f in dataclasses.fields(payload)
+            if isinstance(getattr(payload, f.name), torch.Tensor)]
+
+
+def held_mb(tables) -> float:
+    """MB the tables' columns hold on the device now, each storage once: an
+    encoded column its payload and, once a read has decoded it (the decode
+    is cached on the column), its dense form too."""
+    storages = {}
+    for t in tables.values():
+        for c in t.columns:
+            tensors = [] if c.encoded is None else payload_tensors(c.encoded)
+            tensors += [x for x in (c._data, c._validity) if isinstance(x, torch.Tensor)]
+            for x in tensors:
+                storages[x.untyped_storage().data_ptr()] = x.untyped_storage().nbytes()
+    return sum(storages.values()) / 1e6
+
+
+def bound_ms(n_bytes: int) -> float:
+    return n_bytes / PEAK_BYTES_PER_S * 1e3
+
+
+def decode_timing(table, column: str, device, time_ms) -> str:
+    """Device ms of one column's decode (CUDA events, L2 flushed) beside its
+    bound: the payload read once and the dense column written once."""
+    from hyrise_tpu_torch.storage.encoding import encoded_memory_bytes
+    c = table.column(column)
+    dtype = c.dtype.torch_dtype
+    ms = time_ms(lambda i: c.encoded.decode(dtype), device)
+    out_bytes = c.capacity * torch.tensor([], dtype=dtype).element_size()
+    bound = bound_ms(encoded_memory_bytes(c) + out_bytes)
+    return (f"{column} ({type(c.encoded).__name__}, {encoded_memory_bytes(c) / 1e6:.2f} MB "
+            f"at rest) {ms:.4f} ms, bound {bound:.4f}")
+
+
+def same_table(got, want, columns, what: str) -> None:
+    """The same rows in the same order: the named columns' tensors equal on
+    the device, validity included."""
+    from hyrise_tpu_torch.ops.materialize import ensure_prefix
+    got, want = ensure_prefix(got), ensure_prefix(want)
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: {got.num_rows} rows vs {want.num_rows}")
+    for name in columns:
+        a, b = got.column(name), want.column(name)
+        n = got.num_rows
+        if not torch.equal(a.data[:n], b.data[:n]):
+            raise AssertionError(f"{what}: column {name} differs")
+        va = torch.ones(n, dtype=torch.bool, device=a.device) if a.validity is None \
+            else a.validity[:n]
+        vb = torch.ones(n, dtype=torch.bool, device=b.device) if b.validity is None \
+            else b.validity[:n]
+        if not torch.equal(va, vb):
+            raise AssertionError(f"{what}: column {name}'s NULLs differ")
+
+
+def host_ms(run, device, reps: int = 1):
+    """Median host ms of run() over `reps` calls, each ending in a
+    synchronize, and the last result."""
+    times, out = [], None
+    for _ in range(reps):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = run()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def small_fault_checks(device) -> str:
+    """ROADMAP C13 (INT64 above 2^53), C14 (NaN in a block) and C15 (NULL
+    and NaN rows against an index) on small tables on the device: the rows
+    of the same scan without statistics or index, and the rows expected."""
+    from hyrise_tpu_torch.expression import ast
+    from hyrise_tpu_torch.ops import IndexScan, TableScan, TableWrapper, execute_plan
+    from hyrise_tpu_torch.storage.block_statistics import attach_block_statistics
+    from hyrise_tpu_torch.storage.index import create_index
+    from hyrise_tpu_torch.storage.interop import table_from_numpy
+    from hyrise_tpu_torch.types import PredicateCondition as P
+
+    def scans(t, pred):
+        plain = execute_plan(TableScan(TableWrapper(t), pred)).rows()
+        attach_block_statistics(t, 64)
+        pruned = execute_plan(TableScan(TableWrapper(t), pred)).rows()
+        t.block_stats = None
+        return pruned, plain
+
+    v = 2**53 + 3
+    t = table_from_numpy("c13", [("a", "int64", np.array([v]), None, None)], 1, device=device)
+    pruned, plain = scans(t, ast.col("a") < ast.lit(v + 1))
+    if [tuple(int(x) for x in r) for r in pruned] != [(v,)] or pruned != plain:
+        raise AssertionError(f"C13: {pruned} with statistics, {plain} without")
+    t = table_from_numpy("c14", [("a", "float64", np.array([1.0, np.nan]), None, None)], 2,
+                         device=device)
+    pruned, plain = scans(t, ast.col("a") == ast.lit(1.0))
+    if [float(r[0]) for r in pruned] != [1.0] or len(plain) != 1:
+        raise AssertionError(f"C14: {pruned} with statistics, {plain} without")
+    t = table_from_numpy("c15", [
+        ("a", "float64", np.array([1.0, np.nan, 7.0, 0.0]),
+         np.array([True, True, True, False]), None),
+        ("r", "int32", np.arange(4, dtype=np.int32), None, None)], 4, device=device)
+    create_index(t, "a")
+    for cond, value in ((P.GREATER_THAN, 5.0), (P.GREATER_THAN_EQUALS, 1.0),
+                        (P.LESS_THAN, float("inf")), (P.EQUALS, float("nan"))):
+        got = execute_plan(IndexScan(TableWrapper(t), "a", cond, value)).rows()
+        want = execute_plan(TableScan(TableWrapper(t), ast.Comparison(
+            cond, ast.col("a"), ast.lit(value)))).rows()
+        if sorted(int(r[1]) for r in got) != sorted(int(r[1]) for r in want):
+            raise AssertionError(f"C15: IndexScan a {cond.value} {value}: {got} vs {want}")
+    return ("C13 (INT64 2^53 + 3 against 2^53 + 4), C14 ([1.0, NaN] = 1.0) and C15 "
+            "([1.0, NaN, 7.0, NULL] > 5, >= 1, < inf, = NaN through an index) on "
+            f"{device} give the rows of the same scans without statistics or index")
+
+
+def physical_phase(device, card, tables, hand_rows, wrappers, table_eq, make_pipeline,
+                   tpch_sql, time_ms):
+    """Phase 8: physical design on the card. Returns the launch counts of
+    the phase."""
+    import tempfile
+
+    from hyrise_tpu_torch.expression import ast
+    from hyrise_tpu_torch.ops import (GetTable, IndexScan, Join, JoinIndex, TableScan,
+                                      execute_plan)
+    from hyrise_tpu_torch.storage.block_statistics import attach_block_statistics
+    from hyrise_tpu_torch.storage.encoding import (ChunkEncoder, EncodingType,
+                                                   encoded_memory_bytes)
+    from hyrise_tpu_torch.storage.index import create_index
+    from hyrise_tpu_torch.tasks import ChunkCompressionTask
+    from hyrise_tpu_torch.tpch import dbgen
+    from hyrise_tpu_torch.types import JoinMode, PredicateCondition
+
+    reset_counts(wrappers)
+    started = time.perf_counter()
+    plain = plain_copies(tables)
+    dense_mb = {name: sum(encoded_memory_bytes(c) for c in t.columns) / 1e6
+                for name, t in plain.items()}
+
+    # 8a. encodings: every table three times, the 22 texts over each
+    for enc_name in PHYSICAL_ENCODINGS:
+        enc = EncodingType[enc_name]
+        encode_s, encoded = host_ms(lambda: {name: ChunkEncoder.encode_table(t, enc)
+                                             for name, t in plain_copies(tables).items()},
+                                    device)
+        n_encoded = 0
+        for name, t in encoded.items():
+            for c in t.columns:
+                if c.encoded is None:
+                    continue
+                n_encoded += 1
+                if any(p.device != device for p in payload_tensors(c.encoded)):
+                    raise AssertionError(f"{enc_name} {name}.{c.name}: payload off {device}")
+        log(f"physical: {enc_name}: {n_encoded} columns of {len(encoded)} tables encoded on "
+            f"{device} in {encode_s:.1f} ms (host clock after synchronize) {card}; at-rest "
+            "MB / dense MB: " + ", ".join(
+                f"{name} {sum(encoded_memory_bytes(c) for c in t.columns) / 1e6:.1f} / "
+                f"{dense_mb[name]:.1f}" for name, t in sorted(encoded.items())))
+        if enc is EncodingType.RUN_LENGTH:
+            log(f"physical: decode device ms (CUDA events, L2 flushed) {card}: "
+                + decode_timing(encoded["lineitem"], "l_orderkey", device, time_ms))
+        if enc is EncodingType.FRAME_OF_REFERENCE:
+            log(f"physical: decode device ms (CUDA events, L2 flushed) {card}: "
+                + "; ".join(decode_timing(encoded["lineitem"], column, device, time_ms)
+                            for column in ("l_orderkey", "l_partkey")))
+        held_before = held_mb(encoded)
+        runs = physical_texts(catalog_of(encoded), make_pipeline, tpch_sql, hand_rows,
+                              table_eq, enc_name)
+        log(f"physical: {enc_name}: the 22 texts equal phase 6's rows (as sets, floats within "
+            f"1e-6 relative); wall ms (host clock, first run / median of {PHYSICAL_REPS}, "
+            f"the first decodes what it reads) {card}: {texts_ms(runs)}; sum of medians "
+            f"{sum(m for _, m, _ in runs.values()):.3f}; the 8 tables hold {held_before:.1f} MB "
+            f"on the card before the texts and {held_mb(encoded):.1f} after (decodes are "
+            f"cached on the columns; dense {held_mb(plain):.1f})")
+        del encoded, runs
+
+    # 8b. compression after writes: RF1 into a DICTIONARY catalog under MVCC
+    encoded = {name: ChunkEncoder.encode_table(t, EncodingType.DICTIONARY)
+               for name, t in plain_copies(tables).items()}
+    set_mvcc(encoded)
+    cat = catalog_of(encoded)
+    specs = dbgen.generate_specs(SF, SEED)
+    rng = np.random.default_rng([SEED, RF_STREAM])
+    rf1, rf1_li = rf1_rows(specs, SF, rng)
+    with tempfile.TemporaryDirectory() as directory:
+        stage_rf(cat, rf1, rf2_keys(specs, SF, rng), directory, device)
+    context = cat.transaction_manager.new_transaction_context()
+    rf1_ms = run_statements(RF1_STATEMENTS, cat, context, make_pipeline, device)
+    context.commit()
+    checked = (1, 3, 6)
+    for name in ("orders", "lineitem"):
+        t = cat.get_table(name)
+        if any(c.encoded is not None for c in t.columns) or \
+                t.encoding_spec is not EncodingType.DICTIONARY:
+            raise AssertionError(f"{name} after RF1: an appended column is still encoded")
+    before = {qid: mvcc_rows(tpch_sql[qid], cat, make_pipeline, device)[0] for qid in checked}
+    task_ms = {}
+    for name in ("orders", "lineitem"):
+        task_ms[name], out = host_ms(lambda: ChunkCompressionTask(name, cat).run(), device)
+        if cat.get_table(name) is not out or any(c.encoded is None for c in out.columns):
+            raise AssertionError(f"{name}: ChunkCompressionTask left a column dense")
+    for qid in checked:
+        rows, _ = mvcc_rows(tpch_sql[qid], cat, make_pipeline, device)
+        check_rows(rows, before[qid], f"Q{qid} after ChunkCompressionTask vs before", table_eq)
+    li = {name: payload for name, _, payload in specs["lineitem"][0]}
+    base_rf1 = {name: ((np.concatenate([li[name][0], p[0]]), p[1]) if isinstance(p, tuple)
+                       else np.concatenate([li[name], p])) for name, p in rf1_li.items()}
+    check_oracles(cat, make_pipeline, device, tpch_sql, base_rf1, dbgen.date_pool(),
+                  "after RF1 into DICTIONARY tables and ChunkCompressionTask", tag="physical")
+    log(f"physical: RF1 into DICTIONARY-encoded tables under MVCC ("
+        + statement_ms(RF1_STATEMENTS, rf1_ms) + f" ms) left orders' and lineitem's columns "
+        f"dense; ChunkCompressionTask encoded them again in {task_ms['orders']:.1f} / "
+        f"{task_ms['lineitem']:.1f} ms (host clock after synchronize) {card}; "
+        f"Q{', Q'.join(map(str, checked))} give the same rows before and after the task")
+    del encoded, cat, before
+
+    # 8c. block statistics and scan pruning
+    stats_tables = plain_copies(tables)
+    generate_ms = {}
+    for name, t in stats_tables.items():
+        generate_ms[name], _ = host_ms(lambda: attach_block_statistics(t), device)
+    li_stats = stats_tables["lineitem"]
+    li_bytes = sum(c.data.numel() * c.data.element_size() for c in li_stats.columns)
+    from hyrise_tpu_torch.storage.block_statistics import BlockStatistics
+    generate_dev = time_ms(lambda i: BlockStatistics.generate(li_stats), device)
+    cat = catalog_of(stats_tables)
+    physical_texts(cat, make_pipeline, tpch_sql, hand_rows, table_eq, "block statistics",
+                   reps=0)
+    pruned = []
+    for pred, text in ((ast.col("l_shipdate") > ast.lit("1998-12-31"),
+                        "l_shipdate > '1998-12-31'"),
+                       (ast.col("l_orderkey") > ast.lit(6_000_000), "l_orderkey > 6000000")):
+        scan = TableScan(GetTable("lineitem", cat), pred)
+        ms, out = host_ms(lambda: execute_plan(scan), device)
+        full = TableScan(GetTable("lineitem", catalog_of(plain_copies(tables))), pred)
+        full_ms, full_out = host_ms(lambda: execute_plan(full), device)
+        if scan.performance_data.extra.get("pruned_all_blocks") is not True or \
+                out.num_rows != 0 or full_out.num_rows != 0 or out.rows() != []:
+            raise AssertionError(f"{text}: not pruned to an empty table")
+        pruned.append(f"{text} pruned all {li_stats.block_stats.n_blocks} blocks in "
+                      f"{ms:.3f} ms (scanned without statistics: {full_ms:.3f} ms)")
+    near = int(spec_payload(specs, "orders", "o_orderkey").max()) - 1000
+    scan = TableScan(GetTable("lineitem", cat), ast.col("l_orderkey") > ast.lit(near))
+    kept = execute_plan(scan)
+    if "pruned_all_blocks" in scan.performance_data.extra or kept.num_rows == 0:
+        raise AssertionError(f"l_orderkey > {near} was pruned")
+    # the same through SQL, whose scans read the stored table through an
+    # Alias and a column-pruning Projection
+    sql_pruned = []
+    for sql, want_pruned in (
+            ("SELECT l_orderkey, l_quantity FROM lineitem WHERE l_shipdate > '1998-12-31'",
+             True),
+            ("SELECT l.l_partkey FROM lineitem AS l WHERE l.l_orderkey > 6000000", True),
+            (f"SELECT l_orderkey FROM lineitem WHERE l_orderkey > {near}", False)):
+        rows, _, plan, ms = run_sql_text(sql, cat, make_pipeline)
+        flags = [op.performance_data.extra.get("pruned_all_blocks", False)
+                 for op in distinct_operators(plan, TableScan)]
+        if not flags or any(flags) is not want_pruned or \
+                (len(rows) == 0) is not want_pruned or \
+                (not want_pruned and len(rows) != kept.num_rows):
+            raise AssertionError(f"SQL {sql!r}: pruned {flags}, {len(rows)} rows")
+        sql_pruned.append(f"{sql!r} {'pruned every block' if want_pruned else 'kept'} "
+                          f"({len(rows)} rows, {ms:.3f} ms)")
+    log(f"physical: block statistics of all {len(stats_tables)} tables on the card; generate "
+        f"(host clock after synchronize, the host copy included) "
+        f"ms {card}: " + ", ".join(f"{n} {ms:.2f}" for n, ms in sorted(generate_ms.items()))
+        + f"; lineitem's device ms (CUDA events, L2 flushed) {generate_dev:.4f}, bound "
+        f"{bound_ms(li_bytes):.4f} ({li_bytes / 1e6:.1f} MB read); the 22 texts equal phase "
+        f"6's rows; " + "; ".join(pruned) + f"; l_orderkey > {near} kept {kept.num_rows} "
+        f"rows; through SQL (host clock, plan cache on): " + "; ".join(sql_pruned))
+    log("physical: " + small_fault_checks(device))
+    del stats_tables, cat
+
+    # 8d. indexes
+    idx_tables = plain_copies(tables)
+    builds = []
+    for name, column in INDEXED:
+        ms, idx = host_ms(lambda: create_index(idx_tables[name], column), device)
+        builds.append(f"{name}.{column if isinstance(column, str) else '+'.join(column)} "
+                      f"{ms:.2f}")
+    build_dev = time_ms(lambda i: create_index(plain_copies(tables)["lineitem"], "l_shipdate"),
+                        device)
+    n_li = idx_tables["lineitem"].num_rows
+    build_bound = bound_ms(n_li * (4 + 4 + 8))  # codes in; codes and rows out
+    cat = catalog_of(idx_tables)
+    runs = physical_texts(cat, make_pipeline, tpch_sql, hand_rows, table_eq, "indexes")
+    scans = {qid: len(distinct_operators(plan, IndexScan)) for qid, (_, _, plan) in runs.items()}
+    if sum(scans.values()) <= 0:
+        raise AssertionError("no IndexScan ran in the 22 texts with indexes")
+    log(f"physical: indexes built (host clock after synchronize, ms) {card}: "
+        + ", ".join(builds) + f"; lineitem.l_shipdate's build {build_dev:.4f} device ms "
+        f"(CUDA events, L2 flushed), bound {build_bound:.4f}")
+    log(f"physical: indexes: the 22 texts equal phase 6's rows; IndexScans a plan {scans} "
+        f"({sum(scans.values())} in all); wall ms (first / median of {PHYSICAL_REPS}) "
+        f"{card}: {texts_ms(runs)}; sum of medians {sum(m for _, m, _ in runs.values()):.3f}")
+
+    # one IndexScan's gather at SF1: a year of o_orderdate, every orders column
+    year = IndexScan(GetTable("orders", cat), "o_orderdate", PredicateCondition.BETWEEN,
+                     "1995-01-01", "1995-12-31")
+    out = execute_plan(year)
+    row_bytes = sum(c.data.element_size() for c in idx_tables["orders"].columns)
+    start, end = year.performance_data.extra["index_range"]
+    perm = idx_tables["orders"].indexes["o_orderdate"].perm[start:end]
+    gather_ms = time_ms(lambda i: [c.data.index_select(0, perm)
+                                   for c in idx_tables["orders"].columns], device)
+    gather_bound = bound_ms(perm.numel() * (8 + 2 * row_bytes))
+    log(f"physical: IndexScan o_orderdate BETWEEN '1995-01-01' AND '1995-12-31': "
+        f"{out.num_rows} rows; its gather of all {len(idx_tables['orders'].columns)} columns "
+        f"{gather_ms:.4f} device ms (CUDA events, L2 flushed), bound {gather_bound:.4f} {card}")
+
+    # point lookups through SQL, with and without the index
+    lookup_rng = np.random.default_rng([SEED, LOOKUP_STREAM])
+    keys = spec_payload(specs, "orders", "o_orderkey")
+    present = lookup_rng.choice(keys, POINT_LOOKUPS - ABSENT_LOOKUPS, replace=False)
+    gaps = lookup_rng.integers(0, len(keys), ABSENT_LOOKUPS)
+    absent = ((gaps // 8) * 32 + 8 + gaps % 8 + 1).astype(np.int64)  # RF1's key gaps
+    absent[:2] = (keys.max() + 1, -1)
+    lookups = lookup_rng.permutation(np.concatenate([present, absent]))
+    if np.isin(absent, keys).any():
+        raise AssertionError("an absent lookup key is an order's")
+    no_index = catalog_of(plain_copies(tables))
+    sql = "SELECT o_orderkey, o_custkey, o_totalprice, o_orderdate FROM orders " \
+          "WHERE o_orderkey = {}"
+    results = {}
+    for which, c in (("index", cat), ("scan", no_index)):
+        t0 = time.perf_counter()
+        rows = [run_sql_text(sql.format(k), c, make_pipeline) for k in lookups]
+        results[which] = ((time.perf_counter() - t0) * 1e3 / len(lookups), rows)
+    found = 0
+    for k, (got, _, plan, _), (want, _, wplan, _) in zip(lookups, results["index"][1],
+                                                         results["scan"][1]):
+        check_rows(got, want, f"point lookup o_orderkey = {k}", table_eq)
+        found += len(got) > 0
+        if not distinct_operators(plan, IndexScan) or distinct_operators(wplan, IndexScan):
+            raise AssertionError(f"o_orderkey = {k}: the IndexScan is not where it belongs")
+    if found != POINT_LOOKUPS - ABSENT_LOOKUPS:
+        raise AssertionError(f"{found} point lookups found their order")
+    composite = []
+    li_keys = spec_payload(specs, "lineitem", "l_orderkey")
+    li_lines = spec_payload(specs, "lineitem", "l_linenumber")
+    picks = lookup_rng.choice(len(li_keys), COMPOSITE_LOOKUPS, replace=False)
+    pairs = [(int(li_keys[p]), int(li_lines[p])) for p in picks]
+    pairs[:ABSENT_COMPOSITE] = [(k, 8) for k, _ in pairs[:ABSENT_COMPOSITE]]  # 1 to 7 lines
+    csql = "SELECT l_orderkey, l_linenumber, l_quantity, l_extendedprice FROM lineitem " \
+           "WHERE l_orderkey = {} AND l_linenumber = {}"
+    t0 = time.perf_counter()
+    for k, n in pairs:
+        got, _, plan, _ = run_sql_text(csql.format(k, n), cat, make_pipeline)
+        want, _, _, _ = run_sql_text(csql.format(k, n), no_index, make_pipeline)
+        check_rows(got, want, f"composite lookup ({k}, {n})", table_eq)
+        composite.append(len(got))
+        if not any(op.performance_data.extra.get("composite_index")
+                   for op in distinct_operators(plan, IndexScan)):
+            raise AssertionError(f"({k}, {n}): no composite IndexScan")
+    if composite[:ABSENT_COMPOSITE] != [0] * ABSENT_COMPOSITE or \
+            0 in composite[ABSENT_COMPOSITE:]:
+        raise AssertionError(f"composite lookups found {composite}")
+    composite_s = time.perf_counter() - t0
+    orders = idx_tables["orders"]
+    op_ms = {}
+    for which, make in (
+            ("IndexScan", lambda k: IndexScan(GetTable("orders", cat), "o_orderkey",
+                                              PredicateCondition.EQUALS, int(k))),
+            ("TableScan", lambda k: TableScan(GetTable("orders", no_index),
+                                              ast.col("o_orderkey") == ast.lit(int(k))))):
+        t0 = time.perf_counter()
+        for k in lookups:
+            execute_plan(make(k)).rows()
+        op_ms[which] = (time.perf_counter() - t0) * 1e3 / len(lookups)
+    log(f"physical: {POINT_LOOKUPS} point lookups on o_orderkey ({ABSENT_LOOKUPS} absent keys) "
+        f"through SQL equal the same statements without indexes; host ms a lookup (to rows on "
+        f"the host, the plan cache missing on every new text) {card}: IndexScan "
+        f"{results['index'][0]:.3f}, TableScan {results['scan'][0]:.3f}; the operators alone: "
+        f"IndexScan {op_ms['IndexScan']:.3f}, TableScan {op_ms['TableScan']:.3f} over "
+        f"{orders.num_rows} rows; {COMPOSITE_LOOKUPS} composite lookups on (l_orderkey, "
+        f"l_linenumber) ({ABSENT_COMPOSITE} absent) through SQL equal the same without "
+        f"indexes, both in {composite_s:.1f} s")
+
+    # JoinIndex: orders probing lineitem's index on l_orderkey, against Join
+    ms, _ = host_ms(lambda: create_index(idx_tables["lineitem"], "l_orderkey"), device)
+    joined = []
+    for mode in JOIN_INDEX_MODES:
+        pair = ("o_orderkey", "l_orderkey")
+        make_ji = lambda: JoinIndex(GetTable("orders", cat), GetTable("lineitem", cat),  # noqa
+                                    JoinMode[mode], pair)
+        make_j = lambda: Join(GetTable("orders", cat), GetTable("lineitem", cat),  # noqa
+                              JoinMode[mode], pair)
+        ji = make_ji()
+        ji_out = execute_plan(ji)
+        j = make_j()
+        j_out = execute_plan(j)
+        columns = ["o_orderkey", "o_custkey"] + (
+            [] if mode in ("SEMI", "ANTI") else ["l_orderkey", "l_linenumber", "l_quantity"])
+        same_table(ji_out, j_out, columns, f"JoinIndex {mode}")
+        if ji.performance_data.extra.get("index_used") is not True or ji.path != "ranges":
+            raise AssertionError(f"JoinIndex {mode}: the index did not serve")
+        ji_ms, _ = host_ms(lambda: execute_plan(make_ji()).num_rows, device, PHYSICAL_REPS)
+        j_ms, _ = host_ms(lambda: execute_plan(make_j()).num_rows, device, PHYSICAL_REPS)
+        joined.append(f"{mode} {ji_out.num_rows} rows, JoinIndex {ji_ms:.3f} ms, Join "
+                      f"{j_ms:.3f} ms ({j.path})")
+    log(f"physical: JoinIndex of orders with lineitem on the order key (lineitem's index "
+        f"built in {ms:.2f} ms) equals Join, rows in order, with index_used; host ms after "
+        f"synchronize, median of {PHYSICAL_REPS} {card}: " + "; ".join(joined))
+
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"physical: launches in phase 8 {launches}")
+    log(f"physical: phase 8 took {time.perf_counter() - started:.1f} s")
+    return launches
+
+
 def ran_fused(plan) -> bool:
     """Whether the plan holds one FusedFilterAggregate and it did not fall
     back to a scan and an aggregate."""
@@ -2160,9 +2656,11 @@ def ran_fused(plan) -> bool:
     return len(fused) == 1 and fused[0].fell_back is False
 
 
-def check_oracles(cat, make_pipeline, device, tpch_sql, li, pool, when: str) -> None:
+def check_oracles(cat, make_pipeline, device, tpch_sql, li, pool, when: str,
+                  tag: str = "dml") -> None:
     """Q6 and Q1 with MVCC on against the numpy oracles over `li`; both plans
-    must run their FusedFilterAggregate over Validate's output."""
+    must run their FusedFilterAggregate over Validate's output. `tag` starts
+    the line it prints."""
     rows, plan6 = mvcc_rows(tpch_sql[6], cat, make_pipeline, device)
     got, want = float(rows[0][0]), q6_oracle(li, pool)
     if rel_diff(got, want) > 1e-6:
@@ -2171,7 +2669,7 @@ def check_oracles(cat, make_pipeline, device, tpch_sql, li, pool, when: str) -> 
     worst = check_q1(rows, q1_oracle(li, pool))
     if not (ran_fused(plan6) and ran_fused(plan1)):
         raise AssertionError(f"Q1 or Q6 with MVCC {when}: no FusedFilterAggregate ran fused")
-    log(f"dml: Q6 with MVCC {when} {got!r} vs oracle {want!r} (rel "
+    log(f"{tag}: Q6 with MVCC {when} {got!r} vs oracle {want!r} (rel "
         f"{rel_diff(got, want):.3e}); Q1's groups equal the oracle's (floats within "
         f"{worst:.3e}); both ran a FusedFilterAggregate over Validate's output")
 
@@ -2533,6 +3031,13 @@ def main() -> None:
     for name in DML_KERNELS:
         if dml_launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in phase 7")
+
+    # -- 8. physical design: encodings, block statistics, indexes -------------
+    physical_launches = physical_phase(device, card, tables, results, wrappers, table_eq,
+                                       SQLPipelineBuilder, TPCH_SQL, bench_q6.time_ms)
+    for name in PHYSICAL_KERNELS:
+        if physical_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in phase 8")
 
     csrc = "hyrise_tpu_torch/kernels/csrc/"
 

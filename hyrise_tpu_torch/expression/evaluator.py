@@ -25,8 +25,9 @@ NULL are NULL, IS NULL inspects validity.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -239,12 +240,20 @@ class _Compiler:
 
             return _C(BOOL, None, null_fn)
 
-        # Column vs literal: cast the literal to the column dtype (the
-        # reference casts the scan value to the column type).
+        # Column vs literal: an integral column compares with the literal
+        # exactly (integral_comparison); any other column casts the literal
+        # to its own type (the reference casts the scan value to the column
+        # type; float32 columns rely on it, as Q6's l_discount does).
         if isinstance(e.left, ast.ColumnRef) and isinstance(e.right, ast.Literal):
             cmp_dt = lc.dtype
+            if cmp_dt.is_integral:
+                return self._rule_comparison(
+                    lc, integral_comparison(cond, e.right.value, cmp_dt))
         elif isinstance(e.right, ast.ColumnRef) and isinstance(e.left, ast.Literal):
             cmp_dt = rc.dtype
+            if cmp_dt.is_integral:
+                return self._rule_comparison(
+                    rc, integral_comparison(cond.flipped(), e.left.value, cmp_dt))
         else:
             cmp_dt = common_numeric_type(lc.dtype, rc.dtype)
 
@@ -252,6 +261,24 @@ class _Compiler:
             (ld, lv), (rd, rv) = lc.fn(env), rc.fn(env)
             ld, rd = _cast_to(ld, cmp_dt), _cast_to(rd, cmp_dt)
             return _apply_cmp(cond, ld, rd), _and_validity(lv, rv)
+
+        return _C(BOOL, None, fn)
+
+    def _rule_comparison(self, col_c: _C, rule) -> _C:
+        """A column against a literal rewritten by integral_comparison or
+        code_comparison: a constant over the non-NULL rows, or one
+        comparison with a value of the column's own type."""
+        if isinstance(rule, bool):
+            def const_fn(env: Env) -> Value:
+                data, v = col_c.fn(env)
+                return torch.full_like(data, rule, dtype=torch.bool), v
+
+            return _C(BOOL, None, const_fn)
+        cond, value = rule
+
+        def fn(env: Env) -> Value:
+            data, v = col_c.fn(env)
+            return _apply_cmp(cond, data, value), v
 
         return _C(BOOL, None, fn)
 
@@ -275,30 +302,7 @@ class _Compiler:
             col_c = rc if l_lit else lc
             value = e.left.value if l_lit else e.right.value
             c = cond.flipped() if l_lit else cond
-            d = col_c.dictionary
-            lo = int(np.searchsorted(d, value, side="left"))
-            hi = int(np.searchsorted(d, value, side="right"))
-            exists = lo < hi
-
-            def fn(env: Env) -> Value:
-                codes, v = col_c.fn(env)
-                if c is PredicateCondition.EQUALS:
-                    data = (codes == lo) if exists else torch.zeros_like(codes, dtype=torch.bool)
-                elif c is PredicateCondition.NOT_EQUALS:
-                    data = (codes != lo) if exists else torch.ones_like(codes, dtype=torch.bool)
-                elif c is PredicateCondition.LESS_THAN:
-                    data = codes < lo
-                elif c is PredicateCondition.LESS_THAN_EQUALS:
-                    data = codes < hi
-                elif c is PredicateCondition.GREATER_THAN:
-                    data = codes >= hi
-                elif c is PredicateCondition.GREATER_THAN_EQUALS:
-                    data = codes >= lo
-                else:
-                    raise ValueError(c)
-                return data, v
-
-            return _C(BOOL, None, fn)
+            return self._rule_comparison(col_c, code_comparison(c, value, col_c.dictionary))
 
         # column vs column: align dictionaries.
         same = (lc.dictionary is rc.dictionary) or (
@@ -625,6 +629,71 @@ _NUMPY_DTYPES = {
 
 def _numpy_dtype(dtype: torch.dtype):
     return _NUMPY_DTYPES[dtype]
+
+
+_ORDERED = (PredicateCondition.EQUALS, PredicateCondition.NOT_EQUALS,
+            PredicateCondition.LESS_THAN, PredicateCondition.LESS_THAN_EQUALS,
+            PredicateCondition.GREATER_THAN, PredicateCondition.GREATER_THAN_EQUALS)
+
+# what `column cond literal` becomes: a bool that holds for every non-NULL
+# row (True) or for none (False), or (cond', v) with v a value of the
+# column's own type
+Rule = Union[bool, Tuple[PredicateCondition, object]]
+
+
+def integral_comparison(cond: PredicateCondition, value, dtype: DataType) -> Rule:
+    """`column cond value` over an integral column of `dtype`, exactly, as
+    sqlite compares an INTEGER with a REAL. A fractional value turns < and
+    <= into <= floor(v) and > and >= into >= ceil(v); = then matches no
+    row and != every row. A value outside the type's range gives every row
+    or none. TableScan, IndexScan and block pruning all use this rule, so
+    the three give one answer."""
+    if cond not in _ORDERED:
+        raise ValueError(cond)
+    P = PredicateCondition
+    info = torch.iinfo(dtype.torch_dtype)
+    if value != value:  # NaN
+        return cond is P.NOT_EQUALS
+    if value > info.max:
+        return cond in (P.LESS_THAN, P.LESS_THAN_EQUALS, P.NOT_EQUALS)
+    if value < info.min:
+        return cond in (P.GREATER_THAN, P.GREATER_THAN_EQUALS, P.NOT_EQUALS)
+    if isinstance(value, float) and not value.is_integer():
+        if cond in (P.EQUALS, P.NOT_EQUALS):
+            return cond is P.NOT_EQUALS
+        if cond in (P.LESS_THAN, P.LESS_THAN_EQUALS):
+            return P.LESS_THAN_EQUALS, math.floor(value)
+        return P.GREATER_THAN_EQUALS, math.ceil(value)
+    return cond, int(value)
+
+
+def code_comparison(cond: PredicateCondition, value: str, dictionary: np.ndarray) -> Rule:
+    """`column cond value` over a string column, rewritten into its
+    dictionary's code space (the reference's ValueID scan): the codes are
+    order-preserving, so every condition is one comparison of codes."""
+    if cond not in _ORDERED:
+        raise ValueError(cond)
+    P = PredicateCondition
+    lo = int(np.searchsorted(dictionary, value, side="left"))
+    hi = int(np.searchsorted(dictionary, value, side="right"))
+    if cond in (P.EQUALS, P.NOT_EQUALS):
+        return (cond, lo) if lo < hi else cond is P.NOT_EQUALS
+    return {P.LESS_THAN: (P.LESS_THAN, lo), P.LESS_THAN_EQUALS: (P.LESS_THAN, hi),
+            P.GREATER_THAN: (P.GREATER_THAN_EQUALS, hi),
+            P.GREATER_THAN_EQUALS: (P.GREATER_THAN_EQUALS, lo)}[cond]
+
+
+def comparison_rule(column: Column, cond: PredicateCondition, value) -> Rule:
+    """`column cond value` as TableScan evaluates it, for IndexScan and
+    block pruning: strings in code space, integral columns exactly, and a
+    float column against the literal cast to its type (NaN matches only
+    !=)."""
+    if column.dtype is DataType.STRING:
+        return code_comparison(cond, value, column.dictionary)
+    if column.dtype.is_integral:
+        return integral_comparison(cond, value, column.dtype)
+    v = column.dtype.numpy_dtype.type(value)
+    return cond is PredicateCondition.NOT_EQUALS if np.isnan(v) else (cond, v)
 
 
 def _apply_cmp(cond: PredicateCondition, a, b):

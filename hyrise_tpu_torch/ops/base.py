@@ -21,6 +21,10 @@ class OperatorPerformanceData:
 
     def __init__(self) -> None:
         self.walltime_s: float = 0.0
+        # what an operator reports of its run: pruned_all_blocks
+        # (TableScan), index_range and index_fallback (IndexScan),
+        # index_used (JoinIndex)
+        self.extra: dict = {}
 
     def __repr__(self) -> str:
         return f"{self.walltime_s * 1e3:.3f}ms"

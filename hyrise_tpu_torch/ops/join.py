@@ -2,8 +2,8 @@
 
 Port of hyrise_tpu/ops/join.py. Reference operators covered: JoinHash
 (src/lib/operators/join_hash.cpp), JoinSortMerge (join_sort_merge.cpp),
-JoinMPSM, JoinNestedLoop (join_nested_loop.cpp) and Product (product.cpp).
-JoinIndex waits for storage/index.py.
+JoinMPSM, JoinNestedLoop (join_nested_loop.cpp), Product (product.cpp)
+and JoinIndex (join_index.cpp), whose build side is a table's index.
 
 One engine, two paths:
 
@@ -50,6 +50,7 @@ from hyrise_tpu_torch.ops.base import AbstractOperator
 from hyrise_tpu_torch.ops.materialize import (ensure_prefix, filter_table,
                                               gather_columns_at)
 from hyrise_tpu_torch.storage.column import merge_dictionaries
+from hyrise_tpu_torch.storage.index import SortedIndex, get_index
 from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.types import (EXISTENCE_MODES, DataType, JoinMode,
                                     PredicateCondition)
@@ -244,21 +245,27 @@ class Join(AbstractOperator):
 
     # -- sorted-range path -------------------------------------------------------
 
-    @staticmethod
-    def _probe(probe_t: Table, build_t: Table, probe_col: str, build_col: str,
+    def _probe(self, probe_t: Table, build_t: Table, probe_col: str, build_col: str,
                cond: PredicateCondition):
         """(ranges, build_perm, probe_valid): per probe row the match ranges
         over the build side's valid rows in sorted order, and that order as
         original build rows."""
-        lk, lv, rk, rv, _ = _join_key_arrays(probe_t, build_t, probe_col, build_col)
+        lk, lv, rk, rv, remap_len = _join_key_arrays(probe_t, build_t, probe_col,
+                                                     build_col)
         probe_valid = _valid_rows(probe_t, lv)
-        sorted_keys, perm = sort_valid_keys(rk, _valid_rows(build_t, rv))
+        sorted_keys, perm = self._sorted_build(build_t, build_col, rk, rv, remap_len)
         if cond is PredicateCondition.NOT_EQUALS:
             conds = (PredicateCondition.GREATER_THAN, PredicateCondition.LESS_THAN)
         else:
             conds = (cond,)
         ranges = [_probe_ranges(sorted_keys, lk, probe_valid, c) for c in conds]
         return ranges, perm, probe_valid
+
+    def _sorted_build(self, build_t: Table, build_col: str, rk: torch.Tensor,
+                      rv: Optional[torch.Tensor], remap_len: Optional[int]):
+        """The build side's valid rows in ascending (key, row) order: (sorted
+        keys, their rows)."""
+        return sort_valid_keys(rk, _valid_rows(build_t, rv))
 
     @staticmethod
     def _emit(probe_t: Table, build_t: Table, build_col: str, ranges: Ranges,
@@ -349,6 +356,36 @@ class JoinMPSM(Join):
     is part of the distribution work (parallel/), not ported yet."""
 
     name = "JoinMPSM"
+
+
+class JoinIndex(Join):
+    """Reference JoinIndex (join_index.cpp: the probe side walks the build
+    side's index instead of building a hash table). When the build input is
+    the very table that carries an index on the join column, the index's
+    sorted values and permutation are the sorted build side, in the order
+    sort_valid_keys gives, so the result equals Join's, row for row. Only
+    the sorted-range path runs (searchsorted and expand_pairs, K5): the
+    lookup paths would not read the index. performance_data.extra
+    ["index_used"] says whether the index served; it does not where the
+    keys are promoted across kinds (int against float), where string
+    dictionaries differ, or where the build input was compacted into a new
+    table (its rows are not the index's)."""
+
+    name = "JoinIndex"
+
+    @staticmethod
+    def _lookup_applicable(build_t, build_col, mode, cond) -> bool:
+        return False
+
+    def _sorted_build(self, build_t, build_col, rk, rv, remap_len):
+        idx = get_index(build_t, build_col)
+        values = None if idx is None else idx.sorted_values
+        used = (isinstance(idx, SortedIndex) and remap_len is None
+                and values.is_floating_point() == rk.is_floating_point())
+        self.performance_data.extra["index_used"] = used
+        if not used:
+            return super()._sorted_build(build_t, build_col, rk, rv, remap_len)
+        return values.to(rk.dtype), idx.perm
 
 
 class JoinNestedLoop(AbstractOperator):

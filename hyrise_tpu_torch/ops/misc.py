@@ -59,11 +59,17 @@ class Alias(AbstractOperator):
             if len(self.names) != len(t.columns):
                 raise ValueError(f"{len(self.names)} names for {len(t.columns)} columns")
             cols = [c.with_name(n) for c, n in zip(t.columns, self.names)]
+            # a column whose name an earlier one shadows has no statistics
+            renames = [(c.name if t.column(c.name) is c else None, n)
+                       for c, n in zip(t.columns, self.names)]
         else:
             cols = [t.column(s).with_name(n)
                     for s, n in zip(self.sources, self.names)]
+            renames = list(zip(self.sources, self.names))
         out = Table(cols, t.num_rows, name=t.name, live=t.live)
         out.mvcc = t.mvcc  # same rows in the same positions
+        if t.block_stats is not None:
+            out.block_stats = t.block_stats.renamed(renames)
         return out
 
 

@@ -3,12 +3,12 @@
 Port of hyrise_tpu/ops/projection.py (reference:
 src/lib/operators/projection.cpp:52-80): evaluate each output expression
 over the input's tensors; a bare ColumnRef forwards the input column without
-copying.
+copying, and its block statistics with it (storage/block_statistics.py).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -33,9 +33,11 @@ class Projection(AbstractOperator):
     def _on_execute(self, context) -> Table:
         table = self.input_table(0)
         cols: List[Column] = []
+        sources: List[Optional[str]] = []  # per output, the input column it forwards
         for spec in self.outputs:
             if isinstance(spec, str):
                 cols.append(table.column(spec))
+                sources.append(spec)
                 continue
             if isinstance(spec, tuple):
                 name, expr = spec
@@ -43,7 +45,9 @@ class Projection(AbstractOperator):
                 name, expr = repr(spec), spec
             if isinstance(expr, ColumnRef):
                 cols.append(table.column(expr.name).with_name(name))
+                sources.append(expr.name)
                 continue
+            sources.append(None)
             ce = compile_expression(expr, table)
             data, validity = ce.fn(make_env(table, ce.required))
             if ce.is_bool:
@@ -52,4 +56,7 @@ class Projection(AbstractOperator):
                                validity=validity, dictionary=ce.dictionary))
         out = Table(cols, table.num_rows, name=table.name, live=table.live)
         out.mvcc = table.mvcc  # same rows in the same positions
+        if table.block_stats is not None:
+            out.block_stats = table.block_stats.renamed(
+                zip(sources, (c.name for c in cols)))
         return out

@@ -10,6 +10,8 @@ insert.cpp, delete.cpp, update.cpp):
   prefix compact it themselves (materialize.ensure_prefix, kernel K9).
 - Insert writes the new rows into the table's headroom on its device and
   marks them with the inserting transaction; commit sets their begin cid.
+  An encoded column comes out dense (tasks.ChunkCompressionTask encodes
+  it again).
   When the headroom runs out the table grows by half its capacity, so a
   stream of small inserts copies a large table only now and then.
 - Delete locks its rows through their tids (one host read checks for a
@@ -161,10 +163,13 @@ def append_rows(target: Table, values: Table, catalog: Catalog) -> Table:
             if validity is None:
                 validity = torch.ones(c.capacity, dtype=torch.bool, device=c.device)
             new_valid = (vc.validity[:n_new] if vc.validity is not None else True)
-        if data.shape[0] < capacity:
+        if data.shape[0] < capacity or c.encoded is not None:
+            # an encoded column becomes dense in a tensor of its own: its
+            # decode is cached on the older table's column and may even be
+            # the payload itself (int32 codes)
             data = _grown(data, capacity)
-            if validity is not None:
-                validity = _grown(validity, capacity)
+        if validity is not None and validity.shape[0] < capacity:
+            validity = _grown(validity, capacity)
         # rows [n_old, need) are headroom: no table over these tensors has
         # them among its rows yet, so writing in place is safe
         data[n_old:need] = new_data
@@ -175,6 +180,10 @@ def append_rows(target: Table, values: Table, catalog: Catalog) -> Table:
                            val_range=val_range))
     out = Table(cols, need, name=target.name)
     out.mvcc = target.mvcc
+    # the appended columns are dense; ChunkCompressionTask (tasks.py)
+    # re-encodes them to this spec. Block statistics and indexes would be
+    # stale and are not carried.
+    out.encoding_spec = target.encoding_spec
     catalog.replace_table(target.name, out)
     return out
 

@@ -10,6 +10,8 @@ Port of hyrise_tpu/storage/column.py:
 - Late materialization: `data` and `validity` may be zero-argument thunks
   that run on first access (ops/materialize.py gathers lazily, so operators
   pay only for the columns they read).
+- At-rest encodings (storage/encoding.py): an encoded column keeps its
+  payload in `encoded` and its `data` is a thunk that decodes it.
 
 There is no capacity padding: a base column holds exactly its rows. Tables
 with a live mask (storage/table.py) may still carry dead rows.
@@ -78,16 +80,20 @@ class Column:
                 direct-address table without a device read; it is
                 conservative, so any row subset keeps it and any value
                 transformation drops it.
+    encoded:    the at-rest payload of an encoded column, whose `data` is
+                then a thunk that decodes it (storage/encoding.py), else
+                None. Encodings are lossless, so `unique` and `val_range`
+                hold for both forms.
     """
 
     __slots__ = ("name", "dtype", "_data", "_validity", "dictionary",
-                 "device", "_capacity", "unique", "val_range")
+                 "device", "_capacity", "unique", "val_range", "encoded")
 
     def __init__(self, name: str, dtype: DataType, data, validity=None,
                  dictionary: Optional[np.ndarray] = None,
                  device: Optional[torch.device] = None,
                  capacity: Optional[int] = None, unique: bool = False,
-                 val_range: Optional[Tuple[int, int]] = None):
+                 val_range: Optional[Tuple[int, int]] = None, encoded=None):
         self.name = name
         self.dtype = dtype
         self._data = data
@@ -95,6 +101,7 @@ class Column:
         self.dictionary = dictionary
         self.unique = unique
         self.val_range = val_range
+        self.encoded = encoded
         if callable(data):
             if device is None or capacity is None:
                 raise ValueError("a lazy column needs its device and capacity")
@@ -183,7 +190,7 @@ class Column:
         # transforms values, so the value metadata survives
         return Column(name, self.dtype, self._data, self._validity,
                       self.dictionary, self.device, self._capacity,
-                      self.unique, self.val_range)
+                      self.unique, self.val_range, self.encoded)
 
     def code_for(self, value: str) -> Optional[int]:
         """Exact dictionary code of a string value, or None if absent."""

@@ -47,6 +47,15 @@ class Table:
         self.live = live  # None = prefix layout
         self.name = name
         self.mvcc = None  # concurrency.transaction.MvccData of an MVCC table
+        # physical design of a stored table (storage/encoding.py,
+        # block_statistics.py, index.py). A table derived from this one
+        # starts without them: statistics and indexes would be stale, and
+        # only ChunkEncoder and Insert carry the encoding spec on. Alias and
+        # a forwarding Projection keep every row in its place and carry the
+        # statistics on.
+        self.encoding_spec = None
+        self.block_stats = None
+        self.indexes: Dict[object, object] = {}
         # Duplicate names can occur after joins (both sides kept, like the
         # reference); lookup resolves to the FIRST occurrence.
         self._by_name: Dict[str, int] = {}

@@ -139,6 +139,13 @@ CORPUS = {
 }
 
 
+# ROADMAP C16: the JAX package casts a fractional literal to an integral
+# column's type (`a = 2.5` becomes `a = 2`); the port compares exactly, as
+# sqlite does, so these cases are held against numpy's exact comparison of
+# the same column instead.
+C16_EXACT = {"eq_int_float_lit": lambda jt: np.asarray(jt.column("a").data)[:N] == 2.5}
+
+
 def _same(got, want, floating: bool) -> bool:
     if want is None or got is None:
         return got is None and want is None
@@ -163,6 +170,8 @@ def test_expression_matches_jax(name):
     if jc.dictionary is not None:
         np.testing.assert_array_equal(pc.dictionary, jc.dictionary)
     got, want = pc.decode(N), jc.decode(N)
+    if name in C16_EXACT:
+        want = C16_EXACT[name](jt)
     floating = pc.dtype.is_floating
     bad = [(i, g, w) for i, (g, w) in enumerate(zip(got, want))
            if not _same(g, w, floating)]

@@ -41,11 +41,13 @@ from hyrise_tpu.sql.pipeline import SQLPipelineBuilder as JaxPipelineBuilder
 from hyrise_tpu.sql.pipeline import SQLPipelineStatement as JaxPipelineStatement
 from hyrise_tpu.storage.catalog import Catalog as JaxCatalog
 from hyrise_tpu.storage.table import Table as JaxTable
+from hyrise_tpu.plan.optimizer import IndexScanRule as JaxIndexScanRule
 from hyrise_tpu.tpch.dbgen import generate_tables as jax_generate_tables
 from hyrise_tpu.utils.sqlite_oracle import SqliteOracle
 from hyrise_tpu.utils.table_eq import assert_tables_equal
 from hyrise_tpu_torch.concurrency.transaction import MvccData
 from hyrise_tpu_torch.plan import cost_model
+from hyrise_tpu_torch.plan import lqp as L
 from hyrise_tpu_torch.plan.optimizer import Optimizer
 from hyrise_tpu_torch.plan.statistics import generate_table_statistics
 from hyrise_tpu_torch.sql import parser, translator
@@ -55,6 +57,7 @@ from hyrise_tpu_torch.storage.catalog import Catalog
 from hyrise_tpu_torch.storage.interop import table_from_numpy
 from hyrise_tpu_torch.tpch.dbgen import generate_tables
 from hyrise_tpu_torch.tpch.queries import TPCH_SQL
+from hyrise_tpu_torch.utils.sqlite_oracle import SqliteOracle as PortSqliteOracle
 
 torch.set_num_threads(1)
 
@@ -423,3 +426,266 @@ def test_create_table_lands_on_the_catalogs_device():
     filled = Catalog()
     filled.add_table("t", _small_mvcc_catalog().get_table("t"))
     assert filled.device == torch.device("cpu")
+
+
+# -- (f) catalogs with indexes -------------------------------------------------------
+
+# the stored columns the 22 texts scan (chip_smoke.py phase 8 indexes the same)
+TPCH_INDEXES = [("orders", "o_orderdate"), ("lineitem", "l_shipdate"),
+                ("customer", "c_mktsegment"), ("part", "p_size"), ("part", "p_brand"),
+                ("part", "p_type"), ("nation", "n_name"), ("region", "r_name"),
+                ("supplier", "s_suppkey"), ("customer", "c_custkey"),
+                ("orders", "o_orderkey"), ("part", "p_partkey"),
+                ("lineitem", ("l_orderkey", "l_linenumber")),
+                ("partsupp", ("ps_partkey", "ps_suppkey"))]
+CORPUS_INDEXES = [("mixed", "a"), ("mixed", "s"), ("lookup", "k"), ("nullnum", "i"),
+                  ("nullnum", "f"), ("lookup", ("k", "v")), ("nullnum", ("g", "i"))]
+
+
+def _with_indexes(jcat, cat, indexes):
+    """Catalogs over copies of the tables of (jcat, cat), with the same
+    indexes built in both packages."""
+    from hyrise_tpu.storage.index import create_index as jax_create_index
+    from hyrise_tpu_torch.storage.index import create_index
+    key = ("indexed", id(jcat))
+    if key not in _state:
+        ji, pi = JaxCatalog(), Catalog()
+        for name in jcat.table_names():
+            ji.add_table(name, copy.copy(jcat.get_table(name)))
+            pi.add_table(name, copy.copy(cat.get_table(name)))
+        for name, column in indexes:
+            jax_create_index(ji.get_table(name), column)
+            create_index(pi.get_table(name), column)
+        _state[key] = (ji, pi)
+    return _state[key]
+
+
+def _optimized(sql, jcat, cat):
+    jax_translator._uniq = itertools.count()
+    translator._uniq = itertools.count()
+    jroot = JaxOptimizer(jcat.all_statistics()).optimize(
+        jax_translator.SQLToLQPTranslator(jcat).translate(jax_parser.parse_sql(sql)[0]), jcat)
+    root = Optimizer(cat.all_statistics()).optimize(
+        translator.SQLToLQPTranslator(cat).translate(parser.parse_sql(sql)[0]), cat)
+    return root, jroot
+
+
+def _normal(mark):
+    """A mark with enums as their values and lists as tuples."""
+    if isinstance(mark, (list, tuple)):
+        return tuple(_normal(m) for m in mark)
+    return getattr(mark, "value", mark)
+
+
+def _stripped_chain(chain, jcat):
+    """The JAX predicate chain `chain` (top first) copied over its stored
+    table with the leaf's alias taken out and its names resolved; None when
+    the chain does not end in an alias of a stored table."""
+    from hyrise_tpu.expression import ast as jax_ast
+    leaf = chain[-1].children[0]
+    if not (isinstance(leaf, jax_lqp.AliasNode)
+            and isinstance(leaf.children[0], jax_lqp.StoredTableNode)):
+        return None
+    stored = leaf.children[0]
+    sources = leaf.sources if leaf.sources is not None else \
+        (stored.pruned_columns or jcat.get_table(stored.table_name).column_names)
+    names = dict(zip(leaf.names, sources))
+
+    def rename(e):
+        if isinstance(e, jax_ast.ColumnRef) and e.name in names:
+            return jax_ast.ColumnRef(names[e.name])
+        if isinstance(e, (jax_ast.Comparison, jax_ast.Between)):
+            fields = {f.name: rename(getattr(e, f.name))
+                      for f in dataclasses.fields(e) if isinstance(getattr(e, f.name),
+                                                                   jax_ast.Expr)}
+            return dataclasses.replace(e, **fields)
+        return e
+
+    node = jax_lqp.StoredTableNode(stored.table_name)
+    copies = []
+    for p in reversed(chain):
+        node = jax_lqp.PredicateNode(rename(p.predicate), node)
+        copies.append(node)
+    return list(reversed(copies))
+
+
+def _marks_through_aliases(root, jroot, jcat):
+    """For every predicate of the port's plan: (its marks, the marks the JAX
+    IndexScanRule gives the same predicate chain once the SQL translator's
+    alias is taken out from under it)."""
+    pairs, seen, done = [], set(), set()
+
+    def walk(n, jn):
+        if id(n) in seen:
+            return
+        seen.add(id(n))
+        assert type(n).__name__ == type(jn).__name__
+        if isinstance(n, L.PredicateNode) and id(n) not in done:
+            chain, jchain = [n], [jn]
+            while isinstance(chain[-1].children[0], L.PredicateNode):
+                chain.append(chain[-1].children[0])
+                jchain.append(jchain[-1].children[0])
+            done.update(id(c) for c in chain)
+            stripped = _stripped_chain(jchain, jcat)
+            if stripped is not None:
+                JaxIndexScanRule().apply(stripped[0], jcat)
+            for i, c in enumerate(chain):
+                want = (None, None) if stripped is None else \
+                    (getattr(stripped[i], "use_index", None),
+                     getattr(stripped[i], "use_index_composite", None))
+                got = (getattr(c, "use_index", None), getattr(c, "use_index_composite", None))
+                pairs.append((_normal(got), _normal(want)))
+        for c, jc in zip(n.children, jn.children):
+            walk(c, jc)
+
+    walk(root, jroot)
+    return pairs
+
+
+def _index_scans(plan) -> int:
+    """The IndexScan operators of a physical plan (a shared one once)."""
+    from hyrise_tpu_torch.ops.index_scan import IndexScan
+    seen = {}
+
+    def walk(op):
+        if id(op) not in seen:
+            seen[id(op)] = op
+            for i in op.inputs:
+                walk(i)
+
+    walk(plan)
+    return sum(isinstance(op, IndexScan) for op in seen.values())
+
+
+@pytest.mark.parametrize("qid", sorted(TPCH_SQL))
+def test_tpch_lqp_and_index_marks_with_indexes_match_jax(qid):
+    """The same optimized LQP text with indexes as without; the JAX package
+    marks no predicate (its rule cannot see through the SQL translator's
+    AliasNode, ROADMAP C17); the port marks exactly the predicates the JAX
+    rule marks once that alias is taken out."""
+    jcat, cat = _with_indexes(*_tpch_setup(QUERY_SF.get(qid, SF))[:2], TPCH_INDEXES)
+    root, jroot = _optimized(TPCH_SQL[qid], jcat, cat)
+    assert root.describe() == jroot.describe()
+    assert root.describe() == _plan_texts(TPCH_SQL[qid], *_tpch_setup(
+        QUERY_SF.get(qid, SF))[:2])[0]
+    pairs = _marks_through_aliases(root, jroot, jcat)
+    for got, want in pairs:
+        assert got == want
+    jax_marks = []
+    jax_lqp.map_lqp(jroot, lambda n: jax_marks.append(
+        getattr(n, "use_index", None) or getattr(n, "use_index_composite", None)) or n)
+    assert not any(jax_marks)
+
+
+@pytest.mark.parametrize("idx,sql", list(enumerate(_corpus_queries())))
+def test_corpus_index_marks_match_jax(idx, sql):
+    jcat, cat = _with_indexes(*_corpus_setup()[:2], CORPUS_INDEXES)
+    root, jroot = _optimized(sql, jcat, cat)
+    assert root.describe() == jroot.describe()
+    for got, want in _marks_through_aliases(root, jroot, jcat):
+        assert got == want
+
+
+@pytest.mark.parametrize("qid", sorted(TPCH_SQL))
+def test_tpch_rows_with_indexes_match_jax_and_sqlite(qid):
+    """IndexScans run in the port's plans, and the rows stay the JAX
+    pipeline's and sqlite's."""
+    sf = QUERY_SF.get(qid, SF)
+    _, _, oracle = _tpch_setup(sf)
+    jcat, cat = _with_indexes(*_tpch_setup(sf)[:2], TPCH_INDEXES)
+    p = SQLPipelineBuilder(TPCH_SQL[qid]).with_catalog(cat).dont_cache_query_plans() \
+        .create_pipeline()
+    got = p.get_result_table()
+    want = (JaxPipelineBuilder(TPCH_SQL[qid]).with_catalog(jcat).dont_cache_query_plans()
+            .create_pipeline().get_result_table())
+    assert got.column_names == want.column_names
+    assert_tables_equal(got.rows(), want.rows(), ordered=False, rel_tol=1e-6, abs_tol=0.0)
+    assert_tables_equal(got.rows(), oracle.query(TPCH_SQL[qid]), ordered=False,
+                        rel_tol=1e-6, abs_tol=0.0)
+    root, jroot = _optimized(TPCH_SQL[qid], jcat, cat)
+    marked = sum(1 for got_mark, _ in _marks_through_aliases(root, jroot, jcat)
+                 if got_mark != (None, None))
+    # every IndexScan comes from a mark; a marked chain under an aggregate
+    # is fused into FusedFilterAggregate instead, as in the JAX translator
+    assert _index_scans(p.pipeline_statements[-1].last_plan) <= marked
+
+
+def test_tpch_texts_with_indexes_plan_index_scans():
+    from hyrise_tpu_torch.plan.translator import translate_lqp
+    jcat, cat = _with_indexes(*_tpch_setup(SF)[:2], TPCH_INDEXES)
+    counts = {qid: _index_scans(translate_lqp(_optimized(TPCH_SQL[qid], jcat, cat)[0], cat))
+              for qid in sorted(TPCH_SQL) if QUERY_SF.get(qid, SF) == SF}
+    assert sum(counts.values()) > 0
+    assert counts[3] >= 1  # c_mktsegment = 'BUILDING' over customer
+
+
+@pytest.mark.parametrize("qid", [3, 5, 10])
+def test_no_index_marks_under_mvcc(qid):
+    """With MVCC on, a ValidateNode stands between every predicate and its
+    stored table, and pushdown does not cross it: the rule marks nothing in
+    either package."""
+    jcat, cat = _with_mvcc(*_with_indexes(*_tpch_setup(SF)[:2], TPCH_INDEXES))
+    for name in cat.table_names():
+        assert cat.get_table(name).indexes  # copy.copy keeps them
+    stmt = SQLPipelineStatement(parser.parse_sql(TPCH_SQL[qid])[0], TPCH_SQL[qid], cat,
+                                Optimizer(cat.all_statistics()), False, use_mvcc=True)
+    root = stmt.get_optimized_lqp()
+    assert "[Validate]" in root.describe()
+    marks = []
+    L.map_lqp(root, lambda n: marks.append(getattr(n, "use_index", None) or
+                                           getattr(n, "use_index_composite", None)) or n)
+    assert not any(marks)
+
+
+# -- (g) ROADMAP C16: integral columns against numeric literals, exactly ----------------
+
+
+def _c16_catalog():
+    if "c16" not in _state:
+        values = np.array([1, 5, 9, -7, 2147483647, -2147483648, 0], dtype=np.int64)
+        t = table_from_numpy("t", [
+            ("a", "int32", values.astype(np.int32), None, None),
+            ("b", "int64", values * 4096 + 3, None, None),
+            ("f", "float32", (values % 11 / 4).astype(np.float32), None, None)],
+            len(values), device="cpu")
+        cat = Catalog(device="cpu")
+        cat.add_table("t", t)
+        oracle = PortSqliteOracle({"t": t})
+        _state["c16"] = (cat, oracle)
+    return _state["c16"]
+
+
+def test_c16_statements_against_sqlite():
+    """An INT32 column [1, 5, 9, 2147483647]: `a < 5.5` holds for 1 and 5,
+    and `a < 1099511627776` for all four (the literal wrapped to 0 in int32
+    before)."""
+    t = table_from_numpy("t", [("a", "int32", np.array([1, 5, 9, 2147483647],
+                                                       dtype=np.int32), None, None)],
+                         4, device="cpu")
+    cat = Catalog(device="cpu")
+    cat.add_table("t", t)
+    for sql, want in [("SELECT a FROM t WHERE a < 5.5", [1, 5]),
+                      ("SELECT a FROM t WHERE a < 1099511627776", [1, 5, 9, 2147483647])]:
+        rows = SQLPipelineBuilder(sql).with_catalog(cat).create_pipeline() \
+            .get_result_table().rows()
+        assert sorted(int(r[0]) for r in rows) == want
+
+
+C16_CONDS = ["=", "<>", "<", "<=", ">", ">="]
+C16_LITERALS = ["5.5", "5.0", "-0.5", "-7.25", "2147483647.5", "2147483648", "-2147483649",
+                "1099511627776", "-1099511627776", "9223372036854775807", "100000000000000000000000.0",
+                "-100000000000000000000000.0",
+                "0.75"]
+
+
+@pytest.mark.parametrize("column", ["a", "b", "f"])
+@pytest.mark.parametrize("cond", C16_CONDS)
+def test_c16_comparisons_match_sqlite(column, cond):
+    cat, oracle = _c16_catalog()
+    for lit in C16_LITERALS:
+        for sql in (f"SELECT a, b FROM t WHERE {column} {cond} {lit}",
+                    f"SELECT a, b FROM t WHERE {lit} {cond} {column}",
+                    f"SELECT a, b FROM t WHERE {column} BETWEEN {lit} AND 9.5"):
+            got = SQLPipelineBuilder(sql).with_catalog(cat).dont_cache_query_plans() \
+                .create_pipeline().get_result_table().rows()
+            assert_tables_equal(got, oracle.query(sql), ordered=False, rel_tol=0, abs_tol=0)

@@ -2,8 +2,8 @@
 plan cache and its five eviction policies (held against the JAX package's
 cache on the same access sequence), PREPARE/EXECUTE, `?` parameters, EXPLAIN,
 views, SHOW, set operations, statement metrics, DML, CREATE TABLE and the
-MVCC switch against the JAX package, and the errors raised by what later
-slices bring (index scans) and by a missing catalog."""
+MVCC switch against the JAX package, the lowering of an index-marked
+predicate, and the error raised by a missing catalog."""
 
 import random
 
@@ -373,11 +373,27 @@ def test_mvcc_switch_matches_jax(mvcc):
 
 
 def test_index_marked_predicate_raises_in_the_physical_translator():
+    """A marked predicate no longer raises: it becomes an IndexScan of the
+    stored table (storage/index.py, ops/index_scan.py), which answers it
+    through the index when there is one and as a TableScan when there is
+    none. The test keeps the name it had while the translator raised."""
     from hyrise_tpu_torch.expression import ast
-    node = L.PredicateNode(ast.col("a") > ast.lit(1), L.StoredTableNode("t"))
-    node.use_index = ("a", None, 1, None)
-    with pytest.raises(NotImplementedError, match="index"):
-        translate_lqp(node, _catalog())
+    from hyrise_tpu_torch.ops.base import execute_plan
+    from hyrise_tpu_torch.ops.index_scan import IndexScan
+    from hyrise_tpu_torch.storage.index import create_index
+    from hyrise_tpu_torch.types import PredicateCondition
+    cat = _catalog()
+    for indexed in (False, True):
+        if indexed:
+            create_index(cat.get_table("t"), "a")
+        node = L.PredicateNode(ast.col("a") > ast.lit(1), L.StoredTableNode("t"))
+        node.use_index = ("a", PredicateCondition.GREATER_THAN, 1, None)
+        op = translate_lqp(node, cat)
+        assert isinstance(op, IndexScan)
+        want = execute_plan(translate_lqp(
+            L.PredicateNode(ast.col("a") > ast.lit(1), L.StoredTableNode("t")), cat))
+        assert sorted(execute_plan(op).rows()) == sorted(want.rows())
+        assert op.performance_data.extra.get("index_fallback", False) is not indexed
 
 
 def test_missing_catalog_raises():
