@@ -177,10 +177,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              JoinIndex of orders with lineitem in INNER, LEFT, SEMI and
              ANTI equal to Join row for row with index_used, both timed. K5
              and K9 must have launched.
+9. frontend — the front ends on the card (server.py, parallel/scheduler.py,
+             console.py, tpcc/generator.py), with every launch count at 0
+             again before it, on copies of phase 4's SF1 tables in a catalog
+             of their own. The PostgreSQL wire server on 127.0.0.1 (a free
+             port, a background thread); TPC-H's streams 1 and 2 (Appendix
+             A's orders of the 22 texts) sent as SimpleQuery on two
+             sessions at the same moment, each of the 44 answers parsed from
+             its DataRows and equal to phase 6's rows (ints and strings
+             exactly, floats within 1e-6 relative, in order under ORDER BY);
+             each stream's wall, the throughput (44 queries over the elapsed
+             seconds) and stream 1 alone through the server. Q6 through
+             Parse / Bind / Describe / Execute / Sync with its five
+             parameters bound as text, equal to phase 6's; ROADMAP C2's
+             cases (Bind to an unknown statement, the skip to Sync after an
+             error, Describe of a statement, the command tags of writes on
+             a table made on the card). The 22 hand plans through
+             schedule_plan with PoolScheduler(workers=4), equal to phase 5's
+             rows in order, their walls beside phase 5's medians. The
+             console's `generate tpcc 10` on the card and a script (the nine
+             tables' row counts, a join, a group-by, an ORDER BY ... LIMIT)
+             whose output equals the same script over CPU copies of the
+             tables. K3-K7 and K9 must have launched; the phase's launches
+             are added to the kernels line's.
 
 Phases 5 and 6 also print the mean rows per launch of K4, K5, K7 and K9 and
 K5's mean pairs per launch (the wrappers count the rows they are given), so
-their launch counts can be read against sizes. After phase 8 comes the
+their launch counts can be read against sizes. After phase 9 comes the
 script's run time, the build included. The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}} and is printed only when every phase passed.
@@ -189,6 +212,7 @@ script's run time, the build included. The line before the last is
 import json
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -1647,8 +1671,10 @@ def sql_phase(device, card, cat, hand_rows, hand_wall, wrappers, sql_kernels, ta
     """Phase 6 after its TPC-H part at the small scale: the corpus against
     sqlite, then the 22 texts at SF1 against the hand plans' rows, with every
     launch count set to 0 before the two. Returns the launch counts read
-    after them. (The corpus' EXCEPT and INTERSECT reach K8 through Difference;
-    no join of the 22 optimized TPC-H plans takes the general lookup.)"""
+    after them, the wall ms of the 22 texts and their rows (of the last
+    cached run, in the text's order). (The corpus' EXCEPT and INTERSECT reach
+    K8 through Difference; no join of the 22 optimized TPC-H plans takes the
+    general lookup.)"""
     reset_counts(wrappers)
     # 6b. the corpus
     tables = corpus_tables(device)
@@ -1679,7 +1705,7 @@ def sql_phase(device, card, cat, hand_rows, hand_wall, wrappers, sql_kernels, ta
 
     corpus_launches = {name: w.launches for name, w in wrappers.items()}
     # 6c. the 22 texts at SF1
-    wall, stages = {}, {}
+    wall, stages, sql_rows = {}, {}, {}
     for qid in sorted(tpch_sql):
         rows, first_metrics, plan, first_ms = run_sql_text(tpch_sql[qid], cat, make_pipeline)
         if first_metrics.cache_hit:
@@ -1694,6 +1720,7 @@ def sql_phase(device, card, cat, hand_rows, hand_wall, wrappers, sql_kernels, ta
             times.append(ms)
             execute.append(metrics.execute_s * 1e3)
         check_rows(rows, hand_rows[qid], f"SQL Q{qid} at SF{SF}, cached plan", table_eq)
+        sql_rows[qid] = rows
         wall[qid] = (first_ms, statistics.median(times))
         stages[qid] = (first_metrics, statistics.median(execute))
         if qid in (1, 6):
@@ -1721,7 +1748,7 @@ def sql_phase(device, card, cat, hand_rows, hand_wall, wrappers, sql_kernels, ta
     log(f"sql: launches on the SQL path: the corpus {corpus_launches}, with the 22 "
         f"texts at SF{SF} {launches}")
     log(f"sql: mean rows per launch on the SQL path: {rows_per_launch(wrappers)}")
-    return launches, wall
+    return launches, wall, sql_rows
 
 
 # -- 7. writes: MVCC, TPC-H's refresh functions, transactions ----------------------
@@ -2674,6 +2701,261 @@ def check_oracles(cat, make_pipeline, device, tpch_sql, li, pool, when: str,
         f"{worst:.3e}); both ran a FusedFilterAggregate over Validate's output")
 
 
+# -- 9. front ends: the wire server, the scheduler, the console ----------------------
+
+# TPC-H's throughput test at SF1 runs at least two query streams at once
+# (clause 5.3.4); the orders of streams 1 and 2 (Appendix A)
+STREAM_1 = (21, 3, 18, 5, 11, 7, 6, 20, 17, 12, 16, 15, 13, 10, 2, 8, 14, 19, 9, 22, 1, 4)
+STREAM_2 = (6, 17, 14, 16, 19, 10, 9, 2, 15, 8, 5, 22, 12, 7, 13, 18, 1, 4, 20, 3, 11, 21)
+# Q6's text with its five substitution parameters as placeholders, bound as
+# text to the values of TPCH_SQL[6]
+Q6_TEMPLATE = ("SELECT sum(l_extendedprice*l_discount) AS revenue FROM lineitem "
+               "WHERE l_shipdate >= ? AND l_shipdate < ? "
+               "AND l_discount BETWEEN ? - 0.01 AND ? + 0.01001 AND l_quantity < ?")
+Q6_PARAMETERS = ("1994-01-01", "1995-01-01", ".06", ".06", "24")
+SCHEDULER_WORKERS = 4
+TPCC_WAREHOUSES = 10
+TPCC_TABLES = ("item", "warehouse", "district", "customer", "history", "stock",
+               "tpcc_order", "order_line", "new_order")
+CONSOLE_SCRIPT = tuple(f"SELECT COUNT(*) FROM {name}" for name in TPCC_TABLES) + (
+    "SELECT ol_w_id, COUNT(*) AS lines, SUM(ol_quantity) AS quantity FROM order_line "
+    "JOIN item ON ol_i_id = i_id WHERE i_price > 90 GROUP BY ol_w_id ORDER BY ol_w_id",
+    "SELECT ol_w_id, COUNT(*) AS n, SUM(ol_quantity) AS quantity, MAX(ol_number) AS most "
+    "FROM order_line GROUP BY ol_w_id ORDER BY ol_w_id",
+    "SELECT i_id, i_name, i_price FROM item ORDER BY i_price DESC, i_id LIMIT 10",
+)
+# the kernels phase 9 must launch: the SQL path's group-bys (K3), joins (K4,
+# K5), Q1 and Q6 (K6), Q18 and Q21 (K7), every filter and compaction (K9)
+FRONT_END_KERNELS = DML_KERNELS
+def session(port: int):
+    """A client session of the port's PostgreSQL client, started."""
+    from hyrise_tpu_torch.pg_client import PgClient
+    c = PgClient(port, timeout=600)
+    c.startup()
+    return c
+
+
+def check_answer(msgs, want, what: str, ordered: bool, table_eq) -> None:
+    """One statement's answer: RowDescription, DataRows, CommandComplete
+    SELECT n, ReadyForQuery; rows equal to `want`, ints and strings exactly,
+    floats within 1e-6 relative, in order where `ordered`."""
+    from hyrise_tpu_torch.pg_client import command_tags, tags as wire_tags, typed_rows
+    tags = wire_tags(msgs)
+    if tags[0] != b"T" or tags[-2:] != [b"C", b"Z"] or set(tags[1:-2]) - {b"D"}:
+        raise AssertionError(f"{what}: answered {tags[:3]}...{tags[-3:]}: {msgs[:2]}")
+    if command_tags(msgs) != [f"SELECT {len(want)}"]:
+        raise AssertionError(f"{what}: command tag {command_tags(msgs)}")
+    ok, msg = table_eq.tables_equal(typed_rows(msgs), want, ordered=ordered, rel_tol=1e-6,
+                                    abs_tol=0.0)
+    if not ok:
+        raise AssertionError(f"{what}: {msg}")
+
+
+def run_stream(port: int, order, tpch_sql, start):
+    """One query stream on a session of its own: the answer and the wall ms
+    of each query, and the stream's wall s from `start` (a Barrier) on."""
+    c = session(port)
+    answers, ms = {}, {}
+    start.wait()
+    t0 = time.perf_counter()
+    for qid in order:
+        q0 = time.perf_counter()
+        answers[qid] = c.query(tpch_sql[qid])
+        ms[qid] = (time.perf_counter() - q0) * 1e3
+    wall = time.perf_counter() - t0
+    c.close()
+    return answers, ms, wall
+
+
+def extended_checks(port: int, sql_rows, table_eq) -> str:
+    """Q6 through Parse / Bind / Describe / Execute / Sync with its five
+    parameters bound as text, and the answers of ROADMAP C2's cases."""
+    from hyrise_tpu_torch.pg_client import (command_tags, row_description, tags as wire_tags,
+                                            typed_rows)
+    s = session(port)
+    s.parse(Q6_TEMPLATE)
+    s.bind(Q6_PARAMETERS)
+    s.describe(b"P")
+    s.execute()
+    msgs = s.sync()
+    if wire_tags(msgs)[:3] != [b"1", b"2", b"T"]:
+        raise AssertionError(f"extended Q6: answered {msgs}")
+    check_answer(msgs[2:], sql_rows[6], "extended Q6 vs phase 6", True, table_eq)
+    q6 = typed_rows(msgs[2:])[0][0]
+    # C2: Bind to a statement never parsed is an error, and what follows it
+    # up to Sync is skipped
+    s.bind(("1",), statement=b"never_parsed")
+    s.describe(b"P")
+    s.execute()
+    if wire_tags(s.sync()) != [b"E", b"Z"]:
+        raise AssertionError("Bind to an unknown statement: not one ErrorResponse")
+    s.parse("SELECT FROM WHERE")  # a syntax error at Parse
+    s.bind(())
+    s.execute()
+    if wire_tags(s.sync()) != [b"E", b"Z"]:
+        raise AssertionError("after an error the messages up to Sync were not skipped")
+    # C2: Describe of a statement gives its parameters' and its rows' types
+    s.parse(Q6_TEMPLATE, (25, 25, 701, 701, 23), name=b"q6")
+    s.describe(b"S", b"q6")
+    msgs = s.sync()
+    if wire_tags(msgs) != [b"1", b"t", b"T", b"Z"] or \
+            row_description(msgs[2:]) != [("revenue", 701)] or \
+            struct.unpack("!H5I", msgs[1][1]) != (5, 25, 25, 701, 701, 23):
+        raise AssertionError(f"Describe of Q6's statement: {msgs}")
+    # C2: CommandComplete tags of writes, on a table made on the card
+    tags = []
+    for sql in ("CREATE TABLE smoke (a INT, b DOUBLE)",
+                "INSERT INTO smoke VALUES (1, 0.5), (2, 1.5), (3, 2.5)",
+                "UPDATE smoke SET b = b + 1.0 WHERE a > 1",
+                "DELETE FROM smoke WHERE a = 3", "SELECT a, b FROM smoke ORDER BY a"):
+        msgs = s.query(sql)
+        if b"E" in wire_tags(msgs):
+            raise AssertionError(f"{sql}: {msgs}")
+        tags += command_tags(msgs)
+    if tags != ["CREATE TABLE", "INSERT 0 3", "UPDATE 2", "DELETE 1", "SELECT 2"] or \
+            typed_rows(msgs) != [(1, 0.5), (2, 2.5)]:
+        raise AssertionError(f"writes through the server: {tags}, {typed_rows(msgs)}")
+    s.close()
+    return (f"Q6 through Parse / Bind / Describe / Execute / Sync with its 5 parameters "
+            f"as text {q6!r} equal to phase 6's; Bind to an unknown statement and a Parse "
+            f"error answer ErrorResponse and skip to Sync; Describe of the statement "
+            f"answers ParameterDescription (25, 25, 701, 701, 23) and RowDescription "
+            f"revenue float8; tags {tags}")
+
+
+def console_output(console, lines):
+    """What the console prints for each line, its timings taken out."""
+    out = []
+    for line in lines:
+        start = console.out.tell()
+        console.handle(line)
+        out.append(re.sub(r"\(\d+\.\d+ms\)|in \d+\.\d+s", "(time)",
+                          console.out.getvalue()[start:]))
+    return out
+
+
+def front_end_phase(device, card, tables, hand_rows, hand_wall, sql_rows, sql_wall,
+                    wrappers, table_eq, tpch_sql):
+    """Phase 9: the front ends on the card. Returns the launch counts of the
+    phase."""
+    import io
+    import threading
+
+    from hyrise_tpu_torch.console import Console
+    from hyrise_tpu_torch.parallel.scheduler import PoolScheduler, schedule_plan, set_scheduler
+    from hyrise_tpu_torch.server import Server
+    from hyrise_tpu_torch.storage.catalog import Catalog
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS
+
+    for order in (STREAM_1, STREAM_2):
+        if sorted(order) != list(range(1, 23)):
+            raise AssertionError(f"stream {order} is not a permutation of 1-22")
+    reset_counts(wrappers)
+    started = time.perf_counter()
+    cat = catalog_of(plain_copies(tables))
+    srv = Server(host="127.0.0.1", port=0, catalog=cat)
+    srv.serve_background()
+    try:
+        port = srv.server_address[1]
+        # 9a. stream 1 alone, then two query streams at once, then stream 1
+        # alone again: the first run on the fresh copies pays what is cached
+        # on them (table statistics, dictionaries), so both orders are timed
+        alone = [run_stream(port, STREAM_1, tpch_sql, threading.Barrier(1))]
+        start = threading.Barrier(3, timeout=120)
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            futures = [pool.submit(run_stream, port, order, tpch_sql, start)
+                       for order in (STREAM_1, STREAM_2)]
+            start.wait()
+            t0 = time.perf_counter()
+            streams = [f.result() for f in futures]
+            elapsed = time.perf_counter() - t0
+        for n, (answers, _, _) in enumerate(streams, 1):
+            for qid, msgs in answers.items():
+                check_answer(msgs, sql_rows[qid], f"stream {n} Q{qid} vs phase 6",
+                             "ORDER BY" in tpch_sql[qid].upper(), table_eq)
+        alone.append(run_stream(port, STREAM_1, tpch_sql, threading.Barrier(1)))
+        for when, run in zip(("before", "after"), alone):
+            for qid, msgs in run[0].items():
+                check_answer(msgs, sql_rows[qid], f"stream 1 alone {when} Q{qid} vs phase 6",
+                             "ORDER BY" in tpch_sql[qid].upper(), table_eq)
+        log(f"frontend: 2 TPC-H streams (TPC-H Appendix A orders) at once through the "
+            f"wire server on {device}: all 44 answers equal phase 6's rows (ints and "
+            f"strings exactly, floats within 1e-6 relative, in order under ORDER BY)")
+        for n, (_, ms, wall) in enumerate(streams, 1):
+            log(f"frontend: stream {n} wall {wall * 1e3:.3f} ms (host clock, from the "
+                f"common start to its last answer parsed) {card}; per query ms: "
+                + ", ".join(f"Q{q} {m:.3f}" for q, m in ms.items()))
+        for when, (_, ms, wall) in zip(("before", "after"), alone):
+            log(f"frontend: stream 1 alone through the server {when} the 2 streams: "
+                f"wall {wall * 1e3:.3f} ms ({22 / wall:.3f} queries/s) {card}; per query "
+                f"ms: " + ", ".join(f"Q{q} {m:.3f}" for q, m in ms.items()))
+        log(f"frontend: 2 streams: 44 queries in {elapsed:.3f} s, throughput "
+            f"{44 / elapsed:.3f} queries/s {card}; stream 1 alone, before / after: "
+            f"{22 / alone[0][2]:.3f} / {22 / alone[1][2]:.3f} queries/s; 2 x alone after "
+            f"{2 * alone[1][2]:.3f} s against {elapsed:.3f} s together; phase 6's sum of "
+            f"medians (in process, plan cached) "
+            f"{sum(m for _, m in sql_wall.values()):.3f} ms {card}")
+        log("frontend: " + extended_checks(port, sql_rows, table_eq))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+    # 9b. the 22 hand plans through the pool scheduler
+    set_scheduler(PoolScheduler(workers=SCHEDULER_WORKERS))
+    try:
+        sched_ms = {}
+        for qid in sorted(TPCH_PLANS):
+            first, median, rows = timed_query(
+                lambda: schedule_plan(TPCH_PLANS[qid](cat)).rows())
+            sched_ms[qid] = (first, median)
+            ok, msg = table_eq.tables_equal(rows, hand_rows[qid], ordered=True,
+                                            rel_tol=1e-6, abs_tol=0.0)
+            if not ok:
+                raise AssertionError(f"scheduled Q{qid} vs phase 5: {msg}")
+    finally:
+        set_scheduler(None)
+    log(f"frontend: the 22 hand plans through schedule_plan with PoolScheduler("
+        f"workers={SCHEDULER_WORKERS}) equal phase 5's rows in order; wall ms (host clock, "
+        f"to rows on the host; first run / median of {QUERY_REPS}) beside phase 5's median "
+        f"{card}: "
+        + "; ".join(f"Q{q} {f:.3f} / {m:.3f} ({hand_wall[q][1]:.3f})"
+                    for q, (f, m) in sched_ms.items())
+        + f"; sums of medians {sum(m for _, m in sched_ms.values()):.3f} and "
+        f"{sum(m for _, m in hand_wall.values()):.3f}")
+
+    # 9c. the console: TPC-C generated on the card, a script against the
+    # same script over CPU copies of the same tables
+    console = Console(Catalog(device=device), out=io.StringIO())
+    t0 = time.perf_counter()
+    console.handle(f"generate tpcc {TPCC_WAREHOUSES}")
+    generate_s = time.perf_counter() - t0
+    tpcc = {name: console.catalog.get_table(name) for name in TPCC_TABLES}
+    if any(t.device != device for t in tpcc.values()):
+        raise AssertionError("generate tpcc put a table off the card")
+    t0 = time.perf_counter()
+    got = console_output(console, CONSOLE_SCRIPT)
+    script_s = time.perf_counter() - t0
+    cpu_console = Console(catalog_of(cpu_copy(tpcc)), out=io.StringIO())
+    want = console_output(cpu_console, CONSOLE_SCRIPT)
+    for line, g, w in zip(CONSOLE_SCRIPT, got, want):
+        if g != w or "error" in g:
+            raise AssertionError(f"console {line!r} on the card:\n{g}\non the CPU:\n{w}")
+    log(f"frontend: console: generate tpcc {TPCC_WAREHOUSES} on {device} in "
+        f"{generate_s:.1f} s ({', '.join(f'{n} {t.num_rows}' for n, t in tpcc.items())} "
+        f"rows); {len(CONSOLE_SCRIPT)} script lines (9 row counts, a join, a group-by, an "
+        f"ORDER BY ... LIMIT) in {script_s:.2f} s, output equal to the same script over "
+        f"CPU tensors {card}")
+    del console, cpu_console, tpcc
+
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for name in FRONT_END_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in phase 9")
+    log(f"frontend: launches in phase 9 {launches}")
+    log(f"frontend: phase 9 took {time.perf_counter() - started:.1f} s")
+    return launches
+
+
 def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None:
     """`--cells`: K3 and K6 alone. With `checked` (this checkout's kernels)
     every check of phase 3 for them, then their timed shapes; without (the
@@ -3019,7 +3301,7 @@ def main() -> None:
     log(f"main: mean rows per launch on the main path: {rows_per_launch(wrappers)}")
 
     # -- 6. the SQL entry point ----------------------------------------------
-    sql_launches, sql_wall = sql_phase(device, card, cat, results, wall, wrappers,
+    sql_launches, sql_wall, sql_rows = sql_phase(device, card, cat, results, wall, wrappers,
                                        sql_kernels, table_eq, SQLPipelineBuilder,
                                        FusedFilterAggregate, SqliteOracle, TPCH_SQL)
     launches.update({name: sql_launches[name] for name in sql_kernels})
@@ -3038,6 +3320,12 @@ def main() -> None:
     for name in PHYSICAL_KERNELS:
         if physical_launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in phase 8")
+
+    # -- 9. front ends: the wire server, the scheduler, the console -------------
+    front_launches = front_end_phase(device, card, tables, results, wall, sql_rows,
+                                     sql_wall, wrappers, table_eq, TPCH_SQL)
+    for name, count in front_launches.items():
+        launches[name] += count
 
     csrc = "hyrise_tpu_torch/kernels/csrc/"
 

@@ -42,11 +42,22 @@ class MvccData:
     tids:       the transaction that inserted or locked the row (0 = none)
     begin_cids: commit id from which the row is visible
     end_cids:   commit id from which the row is deleted
+    write_lock: held by every writer of the vectors. A Delete checks that
+                its rows' tids are free and sets them to its own under it, so
+                that the check and the set are one step for every other
+                session (the reference takes each row with a compare-and-swap,
+                delete.cpp). An Insert appends under it, so that two sessions
+                never write the same headroom, and `grow` runs inside that
+                append. Commits and rollbacks write under it too: `grow`
+                rebinds the three vectors, and a store into the old ones
+                would be lost.
     """
 
     tids: torch.Tensor
     begin_cids: torch.Tensor
     end_cids: torch.Tensor
+    write_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
 
     @staticmethod
     def for_new_table(num_rows: int, capacity: int, *, device) -> "MvccData":
@@ -69,7 +80,8 @@ class MvccData:
         """Lengthen the vectors IN PLACE (this object keeps its identity) and
         return self. A pending Delete or Insert holds this object; if growth
         made a new one, its commit would write into orphaned tensors (a lost
-        delete, an insert never visible)."""
+        delete, an insert never visible). The caller holds `write_lock`, as
+        every writer of the vectors does."""
         extra = new_capacity - self.capacity
         if extra <= 0:
             return self

@@ -6,7 +6,10 @@ first use, inside the process that launches a kernel, into `_build/` next
 to this file; the library's name carries a hash of the source, of every
 file under `csrc/` that it includes and of the flags, so an edited source or
 header is rebuilt and concurrent builds never share a partial file.
-`build_all` compiles all sources at once, one nvcc process each.
+`build_all` compiles all sources at once, one nvcc process each. Threads of
+one process build and load a source once: a lock per source is held around
+the compile and the load (server sessions whose first queries reach the
+same unbuilt kernel wait for one build).
 Nothing here runs at import: a machine without nvcc can import every
 module and use the plain torch versions.
 """
@@ -20,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -66,24 +70,39 @@ def _library_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+_source_locks: dict = {}
+_source_locks_guard = threading.Lock()
+_loaded: dict = {}
+
+
+def _source_lock(name: str) -> threading.RLock:
+    """The lock of one source: held around its compile and its load, so
+    that threads of this process build it once."""
+    with _source_locks_guard:
+        return _source_locks.setdefault(name, threading.RLock())
+
+
 def _compile(name: str) -> None:
     """Compile csrc/<name>.cu unless its library is there; raises with nvcc's
     output if it fails. The .log beside the library keeps nvcc's output and,
-    as its first line, the seconds nvcc took."""
-    lib = _library_path(name)
-    if lib.exists():
-        return
-    BUILD_DIR.mkdir(exist_ok=True)
-    partial = lib.with_name(f"{lib.name}.{os.getpid()}.partial")
-    t0 = time.perf_counter()
-    done = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(CSRC_DIR / f"{name}.cu")],
-        capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{done.stderr}")
-    lib.with_suffix(".log").write_text(
-        f"nvcc seconds: {time.perf_counter() - t0:.2f}\n{done.stdout}{done.stderr}")
-    os.replace(partial, lib)
+    as its first line, the seconds nvcc took. Another process may build the
+    same source at once: each writes a partial file of its own (process and
+    thread in its name) and renames it into place."""
+    with _source_lock(name):
+        lib = _library_path(name)
+        if lib.exists():
+            return
+        BUILD_DIR.mkdir(exist_ok=True)
+        partial = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.partial")
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(CSRC_DIR / f"{name}.cu")],
+            capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{done.stderr}")
+        lib.with_suffix(".log").write_text(
+            f"nvcc seconds: {time.perf_counter() - t0:.2f}\n{done.stdout}{done.stderr}")
+        os.replace(partial, lib)
 
 
 def build_all() -> None:
@@ -93,11 +112,28 @@ def build_all() -> None:
         list(pool.map(_compile, SOURCES))
 
 
-@functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The library built from csrc/<name>.cu, compiling it if needed."""
-    _compile(name)
-    return ctypes.CDLL(str(_library_path(name)))
+    """The library built from csrc/<name>.cu, compiling it if needed; one
+    build and one load per source and process, whichever threads ask."""
+    with _source_lock(name):
+        if name not in _loaded:
+            _compile(name)
+            _loaded[name] = ctypes.CDLL(str(_library_path(name)))
+        return _loaded[name]
+
+
+_counts_lock = threading.Lock()
+
+
+def count_launch(wrapper, **counts: int) -> None:
+    """One more launch of `wrapper` (its `launches` attribute), and each of
+    `counts` added to the attribute of that name, under one lock: wrappers
+    launch from several threads (server sessions, the operator scheduler),
+    and `x.launches += 1` is a read and a write that threads can interleave."""
+    with _counts_lock:
+        wrapper.launches += 1
+        for name, n in counts.items():
+            setattr(wrapper, name, getattr(wrapper, name) + n)
 
 
 def build_log(name: str) -> str:

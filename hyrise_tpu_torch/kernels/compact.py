@@ -77,8 +77,7 @@ def select_into_buffer(mask: torch.Tensor) -> Tuple[torch.Tensor, int]:
                                    buffer.data_ptr() + 8 * n, buffer.data_ptr(),
                                    torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(max(-count, 0), "compact_select")
-    compact_indices.launches += 1
-    compact_indices.rows_seen += n
+    build.count_launch(compact_indices, rows_seen=n)
     return buffer, count
 
 

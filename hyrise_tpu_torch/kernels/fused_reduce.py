@@ -263,7 +263,7 @@ def _launch(lib, mask, keys, sizes, n_cells: int, validities: List[torch.Tensor]
             n, n_cells, buffer.data_ptr(), build.ticket(dev, "fused_reduce").data_ptr(),
             blocks, rows, folders, stream)
     build.check_launch(err, "fused_cells_reduce")
-    fused_cells_reduce.launches += 1
+    build.count_launch(fused_cells_reduce)
     return buffer[:n_entries].view(-1, n_cells)
 
 

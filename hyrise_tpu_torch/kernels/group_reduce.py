@@ -141,7 +141,7 @@ def segment_reduce_cells(values: Optional[torch.Tensor], cell: torch.Tensor,
             cell.data_ptr(), n, n_cells, _OPS[kind], init_f, init_i,
             partials.data_ptr(), out.data_ptr(), blocks, stream)
     build.check_launch(err, "group_reduce")
-    segment_reduce_cells.launches += 1
+    build.count_launch(segment_reduce_cells)
     return out.to(values.dtype) if is_extremum else out
 
 

@@ -124,7 +124,7 @@ def lookup_last_eq(build_keys: torch.Tensor, build_valid: torch.Tensor,
             rows.data_ptr(), build_blocks, probe_blocks,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "hash_lookup")
-    lookup_last_eq.launches += 1
+    build.count_launch(lookup_last_eq)
     return matched, rows
 
 

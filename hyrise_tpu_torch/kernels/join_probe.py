@@ -142,8 +142,7 @@ def lookup_last_eq_lut(build_keys: torch.Tensor, build_valid: torch.Tensor,
             matched.view(torch.uint8).data_ptr(), rows.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "lut_lookup")
-    lookup_last_eq_lut.launches += 1
-    lookup_last_eq_lut.rows_seen += nq
+    build.count_launch(lookup_last_eq_lut, rows_seen=nq)
     return matched, rows
 
 
@@ -253,11 +252,10 @@ def expand_pairs(lo: torch.Tensor, counts: torch.Tensor,
     build.check_launch(max(err, 0), "expand_pairs")
     if err == _ALLOCATION_FAILED:
         raise failure[0]
-    expand_pairs.launches += 1
-    expand_pairs.rows_seen += n_probe
     if err == _RANGES_REFUSED:
+        build.count_launch(expand_pairs, rows_seen=n_probe)
         raise _ranges_refused(*stats[1:], build_perm.shape[0])
-    expand_pairs.pairs_out += stats[0]
+    build.count_launch(expand_pairs, rows_seen=n_probe, pairs_out=stats[0])
     return outputs[0], outputs[1]
 
 

@@ -150,7 +150,7 @@ def q6_scan(ship, disc, qty, price, live, date_lo: int, date_hi: int) -> torch.T
                               n, date_lo, date_hi, partials.data_ptr(), blocks,
                               stream)
     build.check_launch(err, "q6_scan_f32")
-    q6_scan.launches += 1
+    build.count_launch(q6_scan)
     return partials.to(torch.float64).sum()
 
 
@@ -182,7 +182,7 @@ def q6_encoded(ship, disc_cents, qty, price_cents, date_lo: int,
                                  build.ticket(dev, "q6_encoded").data_ptr(),
                                  out.data_ptr(), blocks, stream)
     build.check_launch(err, "q6_encoded_i64")
-    q6_encoded.launches += 1
+    build.count_launch(q6_encoded)
     return out
 
 

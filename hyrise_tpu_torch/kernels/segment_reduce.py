@@ -170,8 +170,7 @@ def segment_reduce_sorted(values: Optional[torch.Tensor], starts: torch.Tensor,
             None if is_count else out.data_ptr(), n_valid.data_ptr(),
             None if scratch is None else scratch.data_ptr(), tiles, stream)
     build.check_launch(err, "segment_reduce_sorted")
-    segment_reduce_sorted.launches += 1
-    segment_reduce_sorted.rows_seen += n_positions
+    build.count_launch(segment_reduce_sorted, rows_seen=n_positions)
     return (out.to(values.dtype) if is_extremum else out), n_valid
 
 

@@ -17,6 +17,7 @@ import torch
 from hyrise_tpu_torch.kernels.prims import compact_indices
 from hyrise_tpu_torch.storage.column import Column
 from hyrise_tpu_torch.storage.table import Table
+from hyrise_tpu_torch.utils.asserts import assert_indices_in_range
 
 
 def mask_to_indices(mask: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -46,6 +47,7 @@ def gather_columns_at(table: Table, indices: torch.Tensor,
                        torch.zeros(cap, dtype=c.dtype.torch_dtype, device=table.device),
                        null, c.dictionary, val_range=c.val_range)
                 for c in table.columns]
+    assert_indices_in_range(indices, table.capacity, "gather.indices")
     cols = []
     for c in table.columns:
         data = lambda col=c: col.data.index_select(0, indices)  # noqa: E731

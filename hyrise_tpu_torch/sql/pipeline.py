@@ -27,7 +27,7 @@ import dataclasses
 import time
 import weakref
 from collections import OrderedDict
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -149,6 +149,11 @@ _plan_cache = SQLQueryCache()
 _prepared: Dict[str, object] = {}
 
 
+def prepared_statement(name: str):
+    """The parse tree PREPARE stored under `name`, or None."""
+    return _prepared.get(name)
+
+
 def _ok_table(device) -> Table:
     return Table.from_arrays(
         "ok", [TableColumnDefinition("ok", DataType.INT32)],
@@ -234,15 +239,7 @@ class SQLPipelineStatement:
                     sub = self._insert_validates(sub)
                 sub_plan = translate_lqp(
                     self.optimizer.optimize(sub, self.catalog), self.catalog)
-                t = execute_plan(sub_plan, context)
-                if t.num_rows == 0:
-                    # SQL: an empty scalar subquery evaluates to NULL
-                    return ast.lit(None)
-                v = t._decode_col(t.columns[0])[0]
-                if v is not None and not isinstance(v, str):
-                    v = float(v) if hasattr(v, "__float__") and \
-                        not isinstance(v, (int,)) else v
-                return ast.lit(v if not hasattr(v, "item") else v.item())
+                return ast.lit(self._scalar_value(execute_plan(sub_plan, context)))
             for attr in ("left", "right", "value", "lower", "upper"):
                 if hasattr(e, attr) and isinstance(getattr(e, attr), ast.Expr):
                     setattr(e, attr, fix_expr(getattr(e, attr)))
@@ -258,6 +255,16 @@ class SQLPipelineStatement:
 
         L.map_lqp(lqp, visit)
         return found[0]
+
+    def _scalar_value(self, t: Table):
+        """The value a scalar subquery's result `t` stands for in the plan."""
+        if t.num_rows == 0:
+            return None  # SQL: an empty scalar subquery evaluates to NULL
+        v = t._decode_col(t.columns[0])[0]
+        if v is not None and not isinstance(v, str):
+            v = float(v) if hasattr(v, "__float__") and \
+                not isinstance(v, (int,)) else v
+        return v if not hasattr(v, "item") else v.item()
 
     def get_physical_plan(self, context=None):
         # The key carries the statement's position (sql_text is the whole
@@ -385,16 +392,22 @@ class SQLPipeline:
                                   context=context)
         self.pipeline_statements: List[SQLPipelineStatement] = []
 
-    def get_result_table(self) -> Table:
+    def execute_statements(self) -> Iterator[Tuple[SQLPipelineStatement, Table]]:
+        """Run the statements in order, yielding each with its result as
+        soon as it has run (a server answers statement by statement)."""
         catalog, optimizer, use_cache, params = self._args
-        result: Optional[Table] = None
         for position, stmt in enumerate(self.statements):
             ps = SQLPipelineStatement(stmt, self._sql, catalog, optimizer,
                                       use_cache, params=params, position=position,
                                       **self._transactions)
             ps.metrics.parse_s = self.parse_s / max(len(self.statements), 1)
             self.pipeline_statements.append(ps)
-            result = ps.execute()
+            yield ps, ps.execute()
+
+    def get_result_table(self) -> Table:
+        result: Optional[Table] = None
+        for _, result in self.execute_statements():
+            pass
         if result is None:
             raise ValueError("empty SQL pipeline")
         return result

@@ -14,6 +14,7 @@ from typing import Dict, List
 
 import torch
 
+from hyrise_tpu_torch.concurrency.transaction import TransactionManager
 from hyrise_tpu_torch.storage.table import Table
 
 
@@ -22,7 +23,7 @@ class Catalog:
         self._tables: Dict[str, Table] = {}
         self._views: Dict[str, object] = {}  # name -> LQP
         self._device = None if device is None else torch.device(device)
-        self._transaction_manager = None
+        self._transaction_manager = TransactionManager()
         # counts writes: tables added, replaced or dropped, rows inserted or
         # deleted (the plan cache re-resolves scalar subqueries after one)
         self.version = 0
@@ -90,12 +91,9 @@ class Catalog:
         return torch.device("cuda")
 
     @property
-    def transaction_manager(self):
-        """The TransactionManager of this catalog's tables, made on first
-        use."""
-        if self._transaction_manager is None:
-            from hyrise_tpu_torch.concurrency.transaction import TransactionManager
-            self._transaction_manager = TransactionManager()
+    def transaction_manager(self) -> TransactionManager:
+        """The TransactionManager of this catalog's tables (made with the
+        catalog, so that concurrent sessions share one)."""
         return self._transaction_manager
 
     def table_statistics(self, name: str):

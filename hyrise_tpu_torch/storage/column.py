@@ -124,6 +124,11 @@ class Column:
         return self._validity
 
     @property
+    def is_lazy(self) -> bool:
+        """Whether the data or the validity is a thunk not run yet."""
+        return callable(self._data) or callable(self._validity)
+
+    @property
     def has_validity(self) -> bool:
         """Whether a validity mask exists, WITHOUT materializing it."""
         return self._validity is not None

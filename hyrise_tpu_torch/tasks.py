@@ -17,7 +17,11 @@ from hyrise_tpu_torch.storage.table import Table
 class ChunkCompressionTask:
     """Re-encode the dense columns of a table to its at-rest spec.
 
-        ChunkCompressionTask("lineitem", catalog).run()
+        task = ChunkCompressionTask("lineitem", catalog)
+        task.run()                              # on the caller, or
+        JobTask(task.run).schedule().join()     # through the scheduler
+                                                # (parallel/scheduler.py),
+                                                # like the reference's task queue
 
     The spec defaults to the one ChunkEncoder.encode_table remembered on
     the table (`encoding_spec`); a table never encoded is left as it is.
