@@ -196,14 +196,35 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              schedule_plan with PoolScheduler(workers=4), equal to phase 5's
              rows in order, their walls beside phase 5's medians. The
              console's `generate tpcc 10` on the card and a script (the nine
-             tables' row counts, a join, a group-by, an ORDER BY ... LIMIT)
+             tables' row counts, a join, a group-by, a join of order_line with
+             its orders on three keys, an ORDER BY ... LIMIT)
              whose output equals the same script over CPU copies of the
              tables. K3-K7 and K9 must have launched; the phase's launches
              are added to the kernels line's.
 
+10. streaming — blocked and segmented execution (plan/blocked.py,
+             plan/segmented.py), with every launch count at 0 again before
+             it. At SF1, on phase 4's tables: the 22 hand plans through
+             run_query(via="segmented") with lineitem streamed in blocks of
+             2^20 rows (6 blocks) and orders resident, each equal to phase
+             5's rows in order (floats within 1e-6 relative); Q1, Q3, Q6
+             and Q14 through via="blocked"; ROADMAP C1's shape (an Aggregate
+             over a UnionAll of lineitem and a 2-row table) must be refused.
+             Then the SF1 tables leave the card and TPC-H at SF10 is
+             generated on it (lineitem 59,989,423 rows): the 22 hand plans
+             streamed with the JAX package's thresholds (resident_rows 2^24,
+             block_rows 2^22: lineitem in 15 blocks, orders resident) equal
+             to the same plans run resident, Q1 and Q6 equal to the numpy
+             oracles over the host columns, Q4, Q15, Q17, Q18, Q20 and Q21
+             in 2 stages or more; per query the stages, the blocks, the
+             first-run and median-of-3 host ms and the MB allocated above
+             the tables during the first run, streamed and resident. K3,
+             K4, K7 and K9 must have launched; the phase's launches are
+             added to the kernels line's.
+
 Phases 5 and 6 also print the mean rows per launch of K4, K5, K7 and K9 and
 K5's mean pairs per launch (the wrappers count the rows they are given), so
-their launch counts can be read against sizes. After phase 9 comes the
+their launch counts can be read against sizes. After phase 10 comes the
 script's run time, the build included. The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}} and is printed only when every phase passed.
@@ -280,8 +301,9 @@ def q6_oracle(li, pool) -> float:
     """Q6 revenue in numpy: float32 compares and products, float64 sum."""
     ship, _ = li["l_shipdate"]
     disc, qty, price = li["l_discount"], li["l_quantity"], li["l_extendedprice"]
-    dates = pool[ship]
-    m = ((dates >= "1994-01-01") & (dates < "1995-01-01")
+    # the pool is sorted, so a date compare is a compare of its code
+    lo, hi = np.searchsorted(pool, ["1994-01-01", "1995-01-01"])
+    m = ((ship >= lo) & (ship < hi)
          & (disc >= np.float32(0.06 - 0.01)) & (disc <= np.float32(0.06 + 0.01001))
          & (qty < np.float32(24)))
     return float(np.sum((price[m] * disc[m]).astype(np.float64)))
@@ -293,7 +315,7 @@ def q1_oracle(li, pool):
     ship, _ = li["l_shipdate"]
     rf_codes, rf_pool = li["l_returnflag"]
     ls_codes, ls_pool = li["l_linestatus"]
-    m = pool[ship] <= "1998-12-01"
+    m = ship < np.searchsorted(pool, "1998-12-01", side="right")  # the pool is sorted
     qty, price = li["l_quantity"][m], li["l_extendedprice"][m]
     disc, tax = li["l_discount"][m], li["l_tax"][m]
     one = np.float32(1)
@@ -2722,6 +2744,9 @@ CONSOLE_SCRIPT = tuple(f"SELECT COUNT(*) FROM {name}" for name in TPCC_TABLES) +
     "JOIN item ON ol_i_id = i_id WHERE i_price > 90 GROUP BY ol_w_id ORDER BY ol_w_id",
     "SELECT ol_w_id, COUNT(*) AS n, SUM(ol_quantity) AS quantity, MAX(ol_number) AS most "
     "FROM order_line GROUP BY ol_w_id ORDER BY ol_w_id",
+    "SELECT o_carrier_id, COUNT(*) AS lines, SUM(ol_quantity) AS quantity, MAX(ol_amount) "
+    "AS most FROM order_line JOIN tpcc_order ON ol_w_id = o_w_id AND ol_d_id = o_d_id "
+    "AND ol_o_id = o_id GROUP BY o_carrier_id ORDER BY o_carrier_id",
     "SELECT i_id, i_name, i_price FROM item ORDER BY i_price DESC, i_id LIMIT 10",
 )
 # the kernels phase 9 must launch: the SQL path's group-bys (K3), joins (K4,
@@ -2942,8 +2967,9 @@ def front_end_phase(device, card, tables, hand_rows, hand_wall, sql_rows, sql_wa
             raise AssertionError(f"console {line!r} on the card:\n{g}\non the CPU:\n{w}")
     log(f"frontend: console: generate tpcc {TPCC_WAREHOUSES} on {device} in "
         f"{generate_s:.1f} s ({', '.join(f'{n} {t.num_rows}' for n, t in tpcc.items())} "
-        f"rows); {len(CONSOLE_SCRIPT)} script lines (9 row counts, a join, a group-by, an "
-        f"ORDER BY ... LIMIT) in {script_s:.2f} s, output equal to the same script over "
+        f"rows); {len(CONSOLE_SCRIPT)} script lines (9 row counts, a join, a group-by, a "
+        f"join on three keys, an ORDER BY ... LIMIT) in {script_s:.2f} s, output equal to "
+        f"the same script over "
         f"CPU tensors {card}")
     del console, cpu_console, tpcc
 
@@ -2954,6 +2980,172 @@ def front_end_phase(device, card, tables, hand_rows, hand_wall, sql_rows, sql_wa
     log(f"frontend: launches in phase 9 {launches}")
     log(f"frontend: phase 9 took {time.perf_counter() - started:.1f} s")
     return launches
+
+
+# -- 10. streaming: blocked and segmented execution -----------------------------
+
+# phase 4's SF1 tables streamed: lineitem (6,001,215 rows) in 6 blocks,
+# orders (1,500,000) resident
+SF1_STREAMING = dict(resident_rows=2**21, block_rows=2**20)
+BLOCKED_QIDS = (1, 3, 6, 14)
+STREAM_SF = 10.0
+# the JAX package's configuration (hyrise_tpu/plan/segmented.py): lineitem
+# (59,989,423 rows from this generator) in 15 blocks, orders (15,000,000) resident
+SF10_STREAMING = dict(resident_rows=2**24, block_rows=2**22)
+MULTI_STAGE = (4, 15, 17, 18, 20, 21)  # need at least 2 stages at SF10
+STREAM_REPS = 3                 # median of 3 after the first run
+# the kernels phase 10 must launch: group-bys (K3), joins (K4), the general
+# group-by (K7), every filter and compaction (K9)
+STREAM_KERNELS = ("segment_reduce_cells", "lookup_last_eq_lut", "segment_reduce_sorted",
+                  "compact_indices")
+
+
+def stages_of(qid, cat, streaming, plans):
+    """(stage count, blocks of the stream tables) of qid's segmented run."""
+    from hyrise_tpu_torch.plan.segmented import SegmentedQuery
+    sq = SegmentedQuery(plans[qid](cat), cat, **streaming)
+    blocks = sum(-(-max(cat.get_table(s.stream).num_rows, 1) // streaming["block_rows"])
+                 for s in sq.stages if s.stream)
+    return len(sq.stages), blocks
+
+
+def timed_peak(run, device):
+    """(first ms, median ms of STREAM_REPS more, MB the first run allocated
+    above what was allocated before it, last rows): host clock to rows on
+    the host."""
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    times, rows = [], None
+    for i in range(1 + STREAM_REPS):
+        t0 = time.perf_counter()
+        rows = run().rows()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            peak = (torch.cuda.max_memory_allocated(device) - base) / 1e6
+    return times[0], statistics.median(times[1:]), peak, rows
+
+
+def streaming_sf1(device, cat, hand_rows, table_eq) -> str:
+    """Phase 10 at SF1: the 22 hand plans through run_query(via="segmented")
+    and Q1, Q3, Q6, Q14 through via="blocked", each equal to phase 5's rows;
+    ROADMAP C1's plan shape refused."""
+    from hyrise_tpu_torch.expression import ast
+    from hyrise_tpu_torch.ops.aggregate import Aggregate
+    from hyrise_tpu_torch.ops.base import execute_plan
+    from hyrise_tpu_torch.ops.get_table import GetTable, TableWrapper
+    from hyrise_tpu_torch.ops.misc import UnionAll
+    from hyrise_tpu_torch.ops.projection import Projection
+    from hyrise_tpu_torch.plan.blocked import BlockedQuery, PlanNotCompilable
+    from hyrise_tpu_torch.storage.column import Column
+    from hyrise_tpu_torch.storage.table import Table
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, run_query
+    from hyrise_tpu_torch.types import DataType
+
+    t0 = time.perf_counter()
+    shapes, ms = {}, {}
+    for qid in sorted(TPCH_PLANS):
+        shapes[qid] = stages_of(qid, cat, SF1_STREAMING, TPCH_PLANS)
+        q0 = time.perf_counter()
+        rows = run_query(qid, cat, via="segmented", **SF1_STREAMING).rows()
+        ms[qid] = (time.perf_counter() - q0) * 1e3
+        ok, msg = table_eq.tables_equal(rows, hand_rows[qid], ordered=True, rel_tol=1e-6,
+                                        abs_tol=0.0)
+        if not ok:
+            raise AssertionError(f"segmented Q{qid} at SF{SF} vs phase 5: {msg}")
+    for qid in BLOCKED_QIDS:
+        rows = run_query(qid, cat, via="blocked",
+                         block_rows=SF1_STREAMING["block_rows"]).rows()
+        ok, msg = table_eq.tables_equal(rows, hand_rows[qid], ordered=True, rel_tol=1e-6,
+                                        abs_tol=0.0)
+        if not ok:
+            raise AssertionError(f"blocked Q{qid} at SF{SF} vs phase 5: {msg}")
+    # ROADMAP C1: a UnionAll on the stream path would count its other input
+    # once per block; the port refuses the plan
+    two = Table([Column("l_quantity", DataType.FLOAT32,
+                        torch.ones(2, dtype=torch.float32, device=device))], 2, name="two")
+
+    def c1_plan():
+        union = UnionAll(Projection(GetTable("lineitem", cat), ["l_quantity"]),
+                         TableWrapper(two))
+        return Aggregate(union, [], [("n", ast.count_())])
+
+    n_eager = execute_plan(c1_plan()).rows()[0][0]
+    if n_eager != cat.get_table("lineitem").num_rows + 2:
+        raise AssertionError(f"C1 plan, eager: {n_eager} rows")
+    try:
+        BlockedQuery(c1_plan(), cat, block_rows=SF1_STREAMING["block_rows"])
+    except PlanNotCompilable:
+        pass
+    else:
+        raise AssertionError("a UnionAll on the stream path was not refused (ROADMAP C1)")
+    return (f"SF{SF}: the 22 hand plans through run_query(via=\"segmented\", "
+            f"{SF1_STREAMING}) equal phase 5's rows in order (floats within 1e-6 "
+            f"relative); stages/blocks and first-run ms (host clock to rows on the host): "
+            + "; ".join(f"Q{q} {shapes[q][0]}/{shapes[q][1]} {ms[q]:.3f}" for q in ms)
+            + f"; via=\"blocked\" Q{', Q'.join(map(str, BLOCKED_QIDS))} equal too; ROADMAP "
+            f"C1's Aggregate over UnionAll(lineitem, 2 rows) refused (eager {n_eager}); "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def streaming_sf10(device, card, table_eq) -> None:
+    """Phase 10 at SF10: TPC-H generated on the card, the 22 hand plans
+    streamed (run_query(via="segmented") with the JAX package's thresholds)
+    and resident (run_query), equal to each other; Q1 and Q6 equal the numpy
+    oracles; walls and peak memory of both forms."""
+    from hyrise_tpu_torch.tpch import dbgen
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, run_query
+
+    t0 = time.perf_counter()
+    specs = dbgen.generate_specs(STREAM_SF, SEED)
+    tables = {name: dbgen._make_table(name, cols, n, device)
+              for name, (cols, n) in specs.items()}
+    torch.cuda.synchronize(device)
+    gen_s = time.perf_counter() - t0
+    li = {name: payload for name, _, payload in specs["lineitem"][0]}
+    pool = li["l_shipdate"][1]
+    del specs
+    table_mb = torch.cuda.memory_allocated(device) / 1e6
+    cat = catalog_of(tables)
+    log(f"streaming: SF{STREAM_SF} generated and uploaded in {gen_s:.1f} s: "
+        + ", ".join(f"{name} {t.num_rows}" for name, t in tables.items())
+        + f" rows; {table_mb:.1f} MB allocated on {device} with them")
+    t0 = time.perf_counter()
+    lines, streamed_rows, shapes, medians = [], {}, {}, {}
+    for qid in sorted(TPCH_PLANS):
+        shapes[qid] = stages_of(qid, cat, SF10_STREAMING, TPCH_PLANS)
+        s_first, s_med, s_peak, streamed = timed_peak(
+            lambda: run_query(qid, cat, via="segmented", **SF10_STREAMING), device)
+        r_first, r_med, r_peak, resident = timed_peak(lambda: run_query(qid, cat), device)
+        check_finite(streamed, f"streamed Q{qid} at SF{STREAM_SF}")
+        ok, msg = table_eq.tables_equal(streamed, resident, ordered=True, rel_tol=1e-6,
+                                        abs_tol=0.0)
+        if not ok:
+            raise AssertionError(f"streamed Q{qid} at SF{STREAM_SF} vs resident: {msg}")
+        if qid in MULTI_STAGE and shapes[qid][0] < 2:
+            raise AssertionError(f"Q{qid} at SF{STREAM_SF} in {shapes[qid][0]} stage")
+        streamed_rows[qid], medians[qid] = streamed, (s_med, r_med)
+        lines.append(f"Q{qid} {shapes[qid][0]} stages, {shapes[qid][1]} blocks, streamed "
+                     f"{s_first:.3f} / {s_med:.3f} ms, {s_peak:.1f} MB; resident "
+                     f"{r_first:.3f} / {r_med:.3f} ms, {r_peak:.1f} MB ({len(streamed)} rows)")
+    expected6 = q6_oracle(li, pool)
+    got6 = float(streamed_rows[6][0][0])
+    if rel_diff(got6, expected6) > 1e-6:
+        raise AssertionError(f"streamed Q6 at SF{STREAM_SF} {got6} vs numpy {expected6}")
+    worst = check_q1(streamed_rows[1], q1_oracle(li, pool))
+    log(f"streaming: SF{STREAM_SF} all 22 streamed answers equal the resident ones on the "
+        f"card (ints and strings exactly, floats within 1e-6 relative, in order); Q6 "
+        f"{got6!r} vs numpy {expected6!r} (rel {rel_diff(got6, expected6):.3e}); Q1's "
+        f"groups equal the numpy oracle's (floats within {worst:.3e}); "
+        f"Q{', Q'.join(map(str, MULTI_STAGE))} in 2 stages or more; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"streaming: SF{STREAM_SF} per query (segmented {SF10_STREAMING}; host clock "
+        f"to rows on the host, first / median of "
+        f"{STREAM_REPS}; MB allocated above the tables during the first run) {card}: "
+        + "; ".join(lines))
+    log(f"streaming: SF{STREAM_SF} sums of medians: streamed "
+        f"{sum(m for m, _ in medians.values()):.3f} ms, resident "
+        f"{sum(m for _, m in medians.values()):.3f} ms {card}")
 
 
 def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None:
@@ -3325,6 +3517,24 @@ def main() -> None:
     front_launches = front_end_phase(device, card, tables, results, wall, sql_rows,
                                      sql_wall, wrappers, table_eq, TPCH_SQL)
     for name, count in front_launches.items():
+        launches[name] += count
+
+    # -- 10. streaming: blocked and segmented execution at SF1 and SF10 --------
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    # on phase 4's tables as generated: phase 7 wrote into the catalog's
+    log("streaming: " + streaming_sf1(device, catalog_of(plain_copies(tables)), results,
+                                      table_eq))
+    del tables, cat, cpu_cat, qcols  # the SF1 tables leave the card before SF10's come
+    torch.cuda.empty_cache()
+    streaming_sf10(device, card, table_eq)
+    stream_launches = {name: w.launches for name, w in wrappers.items()}
+    for name in STREAM_KERNELS:
+        if stream_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in phase 10")
+    log(f"streaming: launches in phase 10 {stream_launches}")
+    log(f"streaming: phase 10 took {time.perf_counter() - t0:.1f} s")
+    for name, count in stream_launches.items():
         launches[name] += count
 
     csrc = "hyrise_tpu_torch/kernels/csrc/"

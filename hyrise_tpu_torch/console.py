@@ -40,6 +40,7 @@ class Console:
         # MVCC validation on by default, like the reference console:
         # otherwise deleted rows stay visible
         self.use_mvcc = True
+        self.prepared: dict = {}  # this session's SQL PREPARE statements
 
     def println(self, *a):
         print(*a, file=self.out)
@@ -217,7 +218,7 @@ anything else is executed as SQL""")
         t0 = time.time()
         try:
             b = SQLPipelineBuilder(sql).with_catalog(self.catalog) \
-                .with_transaction_manager(self.tm)
+                .with_transaction_manager(self.tm).with_prepared(self.prepared)
             if self.use_mvcc:
                 b.with_mvcc(True)
             if self.context is not None:

@@ -36,7 +36,9 @@ NULL other side; ANTI keeps them; ANTI_NULL_AS_TRUE (NOT IN) rejects them.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import dataclasses
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,10 +48,12 @@ from hyrise_tpu_torch.kernels.prims import (LUT_MAX_ENTRIES, compact_indices,
                                             expand_pairs, lookup_last_eq,
                                             lookup_last_eq_lut, rank_in_sorted,
                                             ranks_lo_hi, sort_valid_keys)
-from hyrise_tpu_torch.ops.base import AbstractOperator
+from hyrise_tpu_torch.ops.base import AbstractOperator, execute_plan
+from hyrise_tpu_torch.ops.get_table import TableWrapper
 from hyrise_tpu_torch.ops.materialize import (ensure_prefix, filter_table,
                                               gather_columns_at)
-from hyrise_tpu_torch.storage.column import merge_dictionaries
+from hyrise_tpu_torch.ops.table_scan import TableScan
+from hyrise_tpu_torch.storage.column import Column, merge_dictionaries
 from hyrise_tpu_torch.storage.index import SortedIndex, get_index
 from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.types import (EXISTENCE_MODES, DataType, JoinMode,
@@ -58,36 +62,48 @@ from hyrise_tpu_torch.types import (EXISTENCE_MODES, DataType, JoinMode,
 Ranges = List[Tuple[torch.Tensor, torch.Tensor]]  # (lo, counts) per range
 
 
-def _join_key_arrays(lt: Table, rt: Table, left_col: str, right_col: str):
-    """Promote both key columns into one comparable key space (the
-    reference's JoinHash hash_traits promotion for mixed int/float keys).
+@dataclasses.dataclass
+class _KeySpace:
+    """One comparable key space for a probe and a build key column (the
+    reference's JoinHash hash_traits promotion for mixed int/float keys):
+    int64 keys for integer and string columns, float64 otherwise. String
+    columns with UNEQUAL dictionaries have their codes rewritten into the
+    merged dictionary's code space, whose size is remap_len; a caller that
+    bounds the key values must then use (0, remap_len - 1): the columns'
+    own bounds are in the old space."""
 
-    Returns (lk, lv, rk, rv, remap_len): int64 keys for integer and string
-    columns, float64 otherwise, and each side's validity or None. remap_len
-    is None unless the keys are string columns with UNEQUAL dictionaries;
-    then the codes were rewritten into the merged dictionary's code space
-    and remap_len is its size, and a caller that bounds the key values must
-    use (0, remap_len - 1): the columns' own bounds are in the old space."""
-    lc, rc = lt.column(left_col), rt.column(right_col)
-    if (lc.dtype is DataType.STRING) != (rc.dtype is DataType.STRING):
+    dtype: torch.dtype
+    probe_remap: Optional[np.ndarray] = None  # old code -> merged code
+    build_remap: Optional[np.ndarray] = None
+    remap_len: Optional[int] = None
+
+
+def _key_space(pc: Column, bc: Column) -> _KeySpace:
+    if (pc.dtype is DataType.STRING) != (bc.dtype is DataType.STRING):
         raise TypeError("cannot join string with non-string column")
-    remap_len = None
-    if lc.dtype is DataType.STRING:
-        same = lc.dictionary is rc.dictionary or np.array_equal(
-            lc.dictionary, rc.dictionary)
-        if same:
-            lk, rk = lc.data.to(torch.int64), rc.data.to(torch.int64)
-        else:
-            merged, rl, rr = merge_dictionaries(lc.dictionary, rc.dictionary)
-            dev = lt.device
-            lk = torch.as_tensor(rl, dtype=torch.int64, device=dev)[lc.data.to(torch.int64)]
-            rk = torch.as_tensor(rr, dtype=torch.int64, device=dev)[rc.data.to(torch.int64)]
-            remap_len = len(merged)
-    elif lc.dtype.is_integral and rc.dtype.is_integral:
-        lk, rk = lc.data.to(torch.int64), rc.data.to(torch.int64)
-    else:
-        lk, rk = lc.data.to(torch.float64), rc.data.to(torch.float64)
-    return lk, lc.validity, rk, rc.validity, remap_len
+    if pc.dtype is DataType.STRING:
+        if pc.dictionary is bc.dictionary or np.array_equal(pc.dictionary, bc.dictionary):
+            return _KeySpace(torch.int64)
+        merged, rp, rb = merge_dictionaries(pc.dictionary, bc.dictionary)
+        return _KeySpace(torch.int64, rp, rb, len(merged))
+    if pc.dtype.is_integral and bc.dtype.is_integral:
+        return _KeySpace(torch.int64)
+    return _KeySpace(torch.float64)
+
+
+def _keys_in(c: Column, remap: Optional[np.ndarray], dtype: torch.dtype) -> torch.Tensor:
+    if remap is None:
+        return c.data.to(dtype)
+    return torch.as_tensor(remap, dtype=torch.int64, device=c.device)[c.data.to(torch.int64)]
+
+
+def _join_key_arrays(lt: Table, rt: Table, left_col: str, right_col: str):
+    """Both key columns in one key space (_KeySpace): (lk, lv, rk, rv,
+    remap_len), each side's keys and validity or None."""
+    lc, rc = lt.column(left_col), rt.column(right_col)
+    space = _key_space(lc, rc)
+    return (_keys_in(lc, space.probe_remap, space.dtype), lc.validity,
+            _keys_in(rc, space.build_remap, space.dtype), rc.validity, space.remap_len)
 
 
 def _valid_rows(table: Table, validity: Optional[torch.Tensor]) -> torch.Tensor:
@@ -125,6 +141,44 @@ def _concat_columns(left_cols, right_cols, swap_output: bool):
     return (right_cols + left_cols) if swap_output else (left_cols + right_cols)
 
 
+@dataclasses.dataclass
+class _BuildSide:
+    """A join's build side as its probes read it."""
+
+    table: Table                      # the build rows (a prefix copy on the ranges path)
+    space: _KeySpace
+    keys: torch.Tensor                # in `space`
+    validity: Optional[torch.Tensor]  # the key column's
+    valid: torch.Tensor               # live and not NULL
+    bounds: Optional[Tuple[int, int]] = None  # lookup path: the LUT's, else None
+    sorted_keys: Optional[torch.Tensor] = None  # ranges path
+    perm: Optional[torch.Tensor] = None
+
+
+class BuildCache:
+    """What the build sides of a streamed run cost outside the kernels,
+    kept from one block to the next (plan/blocked.py): a build input off the
+    stream path gives the same Table object in every block, so its keys,
+    LUT bounds (with their possible host read) or sorted order are made
+    once a run. An entry keeps the objects whose identity its key holds.
+    `builds` counts the entries made."""
+
+    def __init__(self) -> None:
+        self._entries: dict = {}
+        self.builds = 0
+
+    def get(self, key):
+        entry = self._entries.get(key)
+        return None if entry is None else entry[1]
+
+    def put(self, key, keep, value) -> None:
+        self._entries[key] = (keep, value)
+        self.builds += 1
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+
 class Join(AbstractOperator):
     """The join engine (see the module docstring)."""
 
@@ -139,29 +193,64 @@ class Join(AbstractOperator):
         self.cond = cond
         # which path ran: "lut" (K4), "lookup" (K8) or "ranges"
         self.path: Optional[str] = None
+        # set by a streamed run (plan/blocked.py) while the build input is
+        # one that every block shares
+        self.build_cache: Optional[BuildCache] = None
 
     def _on_execute(self, context) -> Table:
-        lt, rt = self.input_table(0), self.input_table(1)
+        return self._join(self.input_table(0), self.input_table(1), self.left_col,
+                          self.right_col)
+
+    def _join(self, lt: Table, rt: Table, left_col: str, right_col: str) -> Table:
         if self.mode is JoinMode.RIGHT:
             # RIGHT = LEFT with the sides swapped (reference
             # join_hash.cpp:55-76); the output keeps left columns first
             probe_t, build_t = rt, lt
-            probe_col, build_col = self.right_col, self.left_col
+            probe_col, build_col = right_col, left_col
             mode, cond, swap = JoinMode.LEFT, self.cond.flipped(), True
         else:
             probe_t, build_t = lt, rt
-            probe_col, build_col = self.left_col, self.right_col
+            probe_col, build_col = left_col, right_col
             mode, cond, swap = self.mode, self.cond, False
-        if self._lookup_applicable(build_t, build_col, mode, cond):
-            return self._lookup_execute(probe_t, build_t, probe_col, build_col,
-                                        mode, swap)
+        lookup = self._lookup_applicable(build_t, build_col, mode, cond)
+        build = self._build_side(probe_t, build_t, probe_col, build_col, lookup)
+        if lookup:
+            return self._lookup_execute(probe_t, build, probe_col, mode, swap)
         # the sort-based path pays per row of capacity: compact masked inputs
-        probe_t, build_t = ensure_prefix(probe_t), ensure_prefix(build_t)
-        ranges, perm, probe_valid = self._probe(probe_t, build_t, probe_col,
-                                                build_col, cond)
+        probe_t = ensure_prefix(probe_t)
+        ranges, probe_valid = self._probe(probe_t, build, probe_col, cond)
         self.path = "ranges"
-        return self._emit(probe_t, build_t, build_col, ranges, perm,
+        return self._emit(probe_t, build.table, build_col, ranges, build.perm,
                           probe_valid, mode, swap)
+
+    def _build_side(self, probe_t: Table, build_t: Table, probe_col: str, build_col: str,
+                    lookup: bool) -> "_BuildSide":
+        """The build side's keys in the probe's key space, and what the path
+        needs of them: the LUT bounds (lookup) or the sorted valid keys
+        (ranges, over a prefix copy of a masked build table). With a
+        build_cache, a build table seen before (the same Table object, a
+        probe key of the same type and dictionary) is not built again."""
+        pc = probe_t.column(probe_col)
+        probe_dict = pc.dictionary if pc.dtype is DataType.STRING else None
+        key = ("build", id(build_t), build_col, pc.dtype, id(probe_dict))
+        if self.build_cache is not None:
+            cached = self.build_cache.get(key)
+            if cached is not None:
+                return cached
+        table = build_t if lookup else ensure_prefix(build_t)
+        bc = table.column(build_col)
+        space = _key_space(pc, bc)
+        keys = _keys_in(bc, space.build_remap, space.dtype)
+        build = _BuildSide(table, space, keys, bc.validity, _valid_rows(table, bc.validity))
+        if lookup:
+            build.bounds = self._lut_bounds(table, build_col, keys, build.valid,
+                                            space.remap_len)
+        else:
+            build.sorted_keys, build.perm = self._sorted_build(
+                table, build_col, keys, bc.validity, space.remap_len)
+        if self.build_cache is not None:
+            self.build_cache.put(key, (build_t, probe_dict), build)
+        return build
 
     # -- lookup path (unique build keys / existence joins) -----------------------
 
@@ -209,20 +298,18 @@ class Join(AbstractOperator):
             return bounds
         return None
 
-    def _lookup_execute(self, probe_t: Table, build_t: Table, probe_col: str,
-                        build_col: str, mode: JoinMode, swap_output: bool) -> Table:
-        lk, lv, rk, rv, remap_len = _join_key_arrays(probe_t, build_t,
-                                                     probe_col, build_col)
+    def _lookup_execute(self, probe_t: Table, build: "_BuildSide", probe_col: str,
+                        mode: JoinMode, swap_output: bool) -> Table:
+        pc = probe_t.column(probe_col)
+        lk, lv = _keys_in(pc, build.space.probe_remap, build.space.dtype), pc.validity
         live = probe_t.live_mask()
         probe_valid = live if lv is None else (live & lv)
-        b_live = build_t.live_mask()
-        build_valid = b_live if rv is None else (b_live & rv)
-        bounds = self._lut_bounds(build_t, build_col, rk, build_valid, remap_len)
-        if bounds is not None:
-            matched, build_row = lookup_last_eq_lut(rk, build_valid, lk, *bounds)
+        if build.bounds is not None:
+            matched, build_row = lookup_last_eq_lut(build.keys, build.valid, lk,
+                                                    *build.bounds)
             self.path = "lut"
         else:
-            matched, build_row = lookup_last_eq(rk, build_valid, lk)
+            matched, build_row = lookup_last_eq(build.keys, build.valid, lk)
             self.path = "lookup"
         matched = matched & probe_valid
         if mode in EXISTENCE_MODES:
@@ -231,35 +318,34 @@ class Join(AbstractOperator):
                 # NOT IN (reference JoinMode::AntiNullAsTrue): a NULL probe
                 # key is rejected unless the set is empty, and any NULL in
                 # the build set rejects every probe row
+                b_live = build.table.live_mask()
                 if lv is not None:
                     keep = keep & (lv | ~b_live.any())
-                if rv is not None:
-                    keep = keep & ~(b_live & ~rv).any()
+                if build.validity is not None:
+                    keep = keep & ~(b_live & ~build.validity).any()
             return Table(probe_t.columns, int(keep.sum()), name=probe_t.name,
                          live=keep)
         out_live = matched if mode is JoinMode.INNER else live
         build_cols = gather_columns_at(
-            build_t, build_row, matched if mode is JoinMode.LEFT else None)
+            build.table, build_row, matched if mode is JoinMode.LEFT else None)
         return Table(_concat_columns(probe_t.columns, build_cols, swap_output),
                      int(out_live.sum()), name=probe_t.name, live=out_live)
 
     # -- sorted-range path -------------------------------------------------------
 
-    def _probe(self, probe_t: Table, build_t: Table, probe_col: str, build_col: str,
+    def _probe(self, probe_t: Table, build: "_BuildSide", probe_col: str,
                cond: PredicateCondition):
-        """(ranges, build_perm, probe_valid): per probe row the match ranges
-        over the build side's valid rows in sorted order, and that order as
-        original build rows."""
-        lk, lv, rk, rv, remap_len = _join_key_arrays(probe_t, build_t, probe_col,
-                                                     build_col)
-        probe_valid = _valid_rows(probe_t, lv)
-        sorted_keys, perm = self._sorted_build(build_t, build_col, rk, rv, remap_len)
+        """(ranges, probe_valid): per probe row the match ranges over the
+        build side's valid rows in sorted order."""
+        pc = probe_t.column(probe_col)
+        lk = _keys_in(pc, build.space.probe_remap, build.space.dtype)
+        probe_valid = _valid_rows(probe_t, pc.validity)
         if cond is PredicateCondition.NOT_EQUALS:
             conds = (PredicateCondition.GREATER_THAN, PredicateCondition.LESS_THAN)
         else:
             conds = (cond,)
-        ranges = [_probe_ranges(sorted_keys, lk, probe_valid, c) for c in conds]
-        return ranges, perm, probe_valid
+        ranges = [_probe_ranges(build.sorted_keys, lk, probe_valid, c) for c in conds]
+        return ranges, probe_valid
 
     def _sorted_build(self, build_t: Table, build_col: str, rk: torch.Tensor,
                       rv: Optional[torch.Tensor], remap_len: Optional[int]):
@@ -386,6 +472,96 @@ class JoinIndex(Join):
         if not used:
             return super()._sorted_build(build_t, build_col, rk, rv, remap_len)
         return values.to(rk.dtype), idx.perm
+
+
+PACKED_LEFT, PACKED_RIGHT = "__packed_key_left", "__packed_key_right"
+
+
+def _pack_ranges(lt: Table, rt: Table, pairs) -> Optional[List[Tuple[int, int]]]:
+    """(lowest value, width) per key pair when the pairs pack into one int64
+    key without collisions: integer columns with known val_ranges, or
+    string columns of one dictionary, whose widths multiply to at most
+    2^63. None otherwise."""
+    out = []
+    for left, right in pairs:
+        a, b = lt.column(left), rt.column(right)
+        if a.dtype is DataType.STRING and b.dtype is DataType.STRING:
+            if not (a.dictionary is b.dictionary
+                    or np.array_equal(a.dictionary, b.dictionary)):
+                return None
+            lo, hi = 0, max(len(a.dictionary) - 1, 0)
+        elif a.dtype.is_integral and b.dtype.is_integral and \
+                a.val_range is not None and b.val_range is not None:
+            lo = min(a.val_range[0], b.val_range[0])
+            hi = max(a.val_range[1], b.val_range[1])
+        else:
+            return None
+        out.append((lo, hi - lo + 1))
+    return out if math.prod(w for _, w in out) <= 1 << 63 else None
+
+
+def _with_packed_key(t: Table, columns: Sequence[str], ranges, name: str) -> Table:
+    """`t` with one more column `name`: its key columns packed into one
+    int64, NULL where any of them is NULL. It is unique where one of them
+    is, and bounded by the product of the widths."""
+    cols = [t.column(c) for c in columns]
+    key = torch.zeros(t.capacity, dtype=torch.int64, device=t.device)
+    validity = None
+    for c, (lo, width) in zip(cols, ranges):
+        key = key * width + (c.data.to(torch.int64) - lo)
+        if c.validity is not None:
+            validity = c.validity if validity is None else validity & c.validity
+    packed = Column(name, DataType.INT64, key, validity, unique=any(c.unique for c in cols),
+                    val_range=(0, math.prod(w for _, w in ranges) - 1))
+    return Table(list(t.columns) + [packed], t.num_rows, name=t.name, live=t.live)
+
+
+class MultiKeyJoin(Join):
+    """An INNER equi join on several column pairs (ROADMAP C22), as the
+    physical translator makes it from a JoinNode and the column equalities
+    between its two sides directly above it (plan/translator.py).
+
+    Where the key pairs pack into one int64 key (_pack_ranges), each side
+    gets the packed key as one more column, the join engine runs on that one
+    pair, and the packed columns are dropped again: the join expands only
+    the pairs that match on every key, and a packed key that is unique on
+    the build side takes the lookup path. Otherwise it is the plan the
+    JoinNode gave before: the join on the first pair, then a TableScan of
+    each other equality. performance_data.extra["packed_key"] says which
+    ran. The rows and their order are the same either way."""
+
+    name = "Join"
+
+    def __init__(self, left: AbstractOperator, right: AbstractOperator,
+                 column_pair: Tuple[str, str], folded: Sequence[Tuple[str, str, object]]):
+        super().__init__(left, right, JoinMode.INNER, column_pair)
+        # (left column, right column, the equality's predicate) each
+        self.folded = list(folded)
+
+    @property
+    def column_pairs(self) -> List[Tuple[str, str]]:
+        return [(self.left_col, self.right_col)] + [(a, b) for a, b, _ in self.folded]
+
+    def _on_execute(self, context) -> Table:
+        lt, rt = self.input_table(0), self.input_table(1)
+        pairs = self.column_pairs
+        ranges = _pack_ranges(lt, rt, pairs)
+        self.performance_data.extra["packed_key"] = ranges is not None
+        if ranges is None:
+            out = self._join(lt, rt, self.left_col, self.right_col)
+            for _, _, predicate in self.folded:
+                out = execute_plan(TableScan(TableWrapper(out), predicate))
+            return out
+        packed_lt = _with_packed_key(lt, [a for a, _ in pairs], ranges, PACKED_LEFT)
+        key = ("packed", id(rt))
+        packed_rt = None if self.build_cache is None else self.build_cache.get(key)
+        if packed_rt is None:
+            packed_rt = _with_packed_key(rt, [b for _, b in pairs], ranges, PACKED_RIGHT)
+            if self.build_cache is not None:
+                self.build_cache.put(key, rt, packed_rt)
+        out = self._join(packed_lt, packed_rt, PACKED_LEFT, PACKED_RIGHT)
+        return Table([c for c in out.columns if c.name not in (PACKED_LEFT, PACKED_RIGHT)],
+                     out.num_rows, name=out.name, live=out.live)
 
 
 class JoinNestedLoop(AbstractOperator):

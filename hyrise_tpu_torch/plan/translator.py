@@ -5,11 +5,17 @@ src/lib/logical_query_plan/lqp_translator.cpp:68-246 — node-type dispatch;
 join nodes pick JoinHash for hashable equi predicates and
 SortMerge/NestedLoop otherwise; predicates become TableScan chains, and a
 predicate the IndexScanRule marked becomes an IndexScan of the stored table.
+
+An INNER equi JoinNode with column equalities between its two sides in the
+PredicateNodes directly above it (the SQL translator keeps one equality as
+the join key and the others as predicates) becomes one MultiKeyJoin on all
+of them (ROADMAP C22): it joins on one packed key where the key ranges
+allow, and the LQP is unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -17,14 +23,16 @@ from hyrise_tpu_torch.ops.aggregate import Aggregate
 from hyrise_tpu_torch.ops.base import AbstractOperator
 from hyrise_tpu_torch.ops.get_table import GetTable, TableWrapper
 from hyrise_tpu_torch.ops.index_scan import IndexScan
-from hyrise_tpu_torch.ops.join import Join, JoinSortMerge, Product
+from hyrise_tpu_torch.ops.join import Join, JoinSortMerge, MultiKeyJoin, Product
 from hyrise_tpu_torch.ops.misc import (AddRowIds, Alias, Difference, Limit, UnionAll,
                                        UnionPositions)
 from hyrise_tpu_torch.ops.projection import Projection
 from hyrise_tpu_torch.ops.rw_ops import Delete, Insert, Update, Validate
 from hyrise_tpu_torch.ops.sort import Sort
 from hyrise_tpu_torch.ops.table_scan import TableScan
+from hyrise_tpu_torch.expression import ast
 from hyrise_tpu_torch.plan import lqp as L
+from hyrise_tpu_torch.plan.optimizer import _output_columns
 from hyrise_tpu_torch.storage.table import Table, TableColumnDefinition
 from hyrise_tpu_torch.types import DataType, JoinMode, PredicateCondition
 
@@ -91,6 +99,54 @@ class _Distinct(Aggregate):
         return super()._on_execute(context)
 
 
+def _column_pair(predicate, left_cols, right_cols) -> Optional[Tuple[str, str]]:
+    """(left column, right column) of a predicate that equates a column of
+    each side of a join, else None."""
+    if not (isinstance(predicate, ast.Comparison)
+            and predicate.cond is PredicateCondition.EQUALS
+            and isinstance(predicate.left, ast.ColumnRef)
+            and isinstance(predicate.right, ast.ColumnRef)):
+        return None
+    a, b = predicate.left.name, predicate.right.name
+    for x, y in ((a, b), (b, a)):
+        if x in left_cols and y in right_cols and x not in right_cols and y not in left_cols:
+            return x, y
+    return None
+
+
+def _fold_join(node: L.JoinNode, predicates: List[object], T, catalog):
+    """(MultiKeyJoin, the predicates it did not take) when `node` is an INNER
+    equi join and some of `predicates` (which sit directly above it, lowest
+    first) equate a column of each side; else None."""
+    if node.mode is not JoinMode.INNER or node.cond is not PredicateCondition.EQUALS:
+        return None
+    left_cols = _output_columns(node.children[0], catalog)
+    right_cols = _output_columns(node.children[1], catalog)
+    if left_cols is None or right_cols is None:
+        return None
+    folded, rest = [], []
+    for p in predicates:
+        pair = _column_pair(p, set(left_cols), set(right_cols))
+        if pair is None:
+            rest.append(p)
+        else:
+            folded.append((*pair, p))
+    if not folded:
+        return None
+    return MultiKeyJoin(T(node.children[0]), T(node.children[1]),
+                        (node.left_col, node.right_col), folded), rest
+
+
+def _predicate_chain(node: L.LQPNode):
+    """The predicates of the PredicateNodes from `node` down, lowest first,
+    and the node below them."""
+    preds = []
+    while isinstance(node, L.PredicateNode):
+        preds.append(node.predicate)
+        node = node.children[0]
+    return preds[::-1], node
+
+
 def translate_lqp(node: L.LQPNode, catalog=None,
                   _memo: Optional[Dict[int, AbstractOperator]] = None
                   ) -> AbstractOperator:
@@ -128,7 +184,15 @@ def translate_lqp(node: L.LQPNode, catalog=None,
             if leaf is not stored:
                 op = Alias(op, leaf.names, leaf.sources)
         else:
-            op = TableScan(T(node.children[0]), node.predicate)
+            preds, below = _predicate_chain(node)
+            fold = _fold_join(below, preds, T, catalog) \
+                if isinstance(below, L.JoinNode) else None
+            if fold is None:
+                op = TableScan(T(node.children[0]), node.predicate)
+            else:
+                op, rest = fold
+                for p in rest:
+                    op = TableScan(op, p)
     elif isinstance(node, L.ProjectionNode):
         op = Projection(T(node.children[0]), node.outputs)
     elif isinstance(node, L.AggregateNode):
@@ -141,17 +205,19 @@ def translate_lqp(node: L.LQPNode, catalog=None,
         from hyrise_tpu_torch.expression.ast import Logical
         from hyrise_tpu_torch.kernels.fused import FusedFilterAggregate
 
-        preds = []
-        c = node.children[0]
-        while isinstance(c, L.PredicateNode):
-            preds.append(c.predicate)
-            c = c.children[0]
+        preds, c = _predicate_chain(node.children[0])
+        fold = _fold_join(c, preds, T, catalog) if isinstance(c, L.JoinNode) else None
+        below = None
+        if fold is not None:
+            below, preds = fold
         if preds:
-            combined = preds[-1]
-            for p in reversed(preds[:-1]):
+            combined = preds[0]
+            for p in preds[1:]:
                 combined = Logical("and", combined, p)
-            op = FusedFilterAggregate(T(c), combined, node.groupby,
-                                      node.aggregates)
+            op = FusedFilterAggregate(T(c) if below is None else below, combined,
+                                      node.groupby, node.aggregates)
+        elif below is not None:
+            op = Aggregate(below, node.groupby, node.aggregates)
         else:
             op = Aggregate(T(node.children[0]), node.groupby, node.aggregates)
     elif isinstance(node, L.DistinctNode):

@@ -10,10 +10,9 @@ Describe / Execute / Close / Sync / Flush, all in text format.
 
 Every statement runs through SQLPipelineBuilder over the server's Catalog
 with MVCC on (reads see committed rows only; a write commits on its own)
-and without the plan cache: a cached plan is one set of operator objects
-with their outputs, which two sessions running the same text would share
-(ROADMAP C19). Where the JAX server is wrong, this one follows the
-protocol (ROADMAP C2):
+and with the plan cache, which hands every caller an operator tree of its
+own. A session keeps its own SQL PREPARE statements, as PostgreSQL does.
+Where the JAX server is wrong, this one follows the protocol (ROADMAP C2):
 
 - Bind to a statement that was never parsed answers ErrorResponse.
 - After an error in the extended protocol, every message up to the next
@@ -57,7 +56,7 @@ from hyrise_tpu_torch.concurrency.transaction import TransactionConflict
 from hyrise_tpu_torch.ops.materialize import ensure_prefix
 from hyrise_tpu_torch.sql import parser as P
 from hyrise_tpu_torch.sql.pipeline import (SQLPipelineBuilder, SQLPipelineStatement,
-                                           prepared_statement)
+                                           UnknownPreparedStatement, prepared_statement)
 from hyrise_tpu_torch.storage.catalog import Catalog
 from hyrise_tpu_torch.storage.column import Column
 from hyrise_tpu_torch.storage.table import Table
@@ -208,21 +207,22 @@ def _cstr(s: str) -> bytes:
     return s.encode() + b"\x00"
 
 
-def _effective(stmt):
-    """The statement whose kind decides the answer: EXECUTE's prepared one."""
+def _effective(stmt, prepared: dict):
+    """The statement whose kind decides the answer: EXECUTE's prepared one
+    in the session's map `prepared`."""
     if isinstance(stmt, P.ExecuteStmt):
-        inner = prepared_statement(stmt.name)
+        inner = prepared_statement(stmt.name, prepared)
         return stmt if inner is None else inner
     return stmt
 
 
-def _returns_rows(stmt) -> bool:
-    stmt = _effective(stmt)
+def _returns_rows(stmt, prepared: dict) -> bool:
+    stmt = _effective(stmt, prepared)
     return not isinstance(stmt, _DML) and type(stmt) not in _NO_ROWS_TAGS
 
 
-def _command_tag(stmt, result: Table, plan) -> str:
-    stmt = _effective(stmt)
+def _command_tag(stmt, result: Table, plan, prepared: dict) -> str:
+    stmt = _effective(stmt, prepared)
     if isinstance(stmt, _DML):
         # the rows the Insert appends, the Delete or the Update changes:
         # its first input's
@@ -315,6 +315,7 @@ class _Session:
         self.catalog = server.catalog
         self._statements: dict = {}    # name -> _Parsed
         self._portals: dict = {}       # name -> _Portal
+        self._prepared: dict = {}      # SQL PREPARE's name -> parse tree
         self._skipping = False         # after an extended-protocol error, until Sync
 
     # -- low-level -----------------------------------------------------------
@@ -369,23 +370,25 @@ class _Session:
             self._send_error(str(e), e.sqlstate)
         elif isinstance(e, TransactionConflict):
             self._send_error(str(e), _SERIALIZATION_FAILURE)
+        elif isinstance(e, UnknownPreparedStatement):
+            self._send_error(str(e), _UNKNOWN_STATEMENT)
         else:
             self._send_error(str(e))
 
     def _send_result(self, stmt, result: Table, plan, describe: bool) -> None:
         """The rows of a statement that returns rows (after their
         RowDescription if `describe`), then CommandComplete."""
-        if _returns_rows(stmt):
+        if _returns_rows(stmt, self._prepared):
             if describe:
                 self._send(b"T", _row_description(result))
             self.wfile.write(_data_rows(result))
-        self._send(b"C", _cstr(_command_tag(stmt, result, plan)))
+        self._send(b"C", _cstr(_command_tag(stmt, result, plan, self._prepared)))
 
     # -- statements ----------------------------------------------------------
 
     def _pipeline(self, sql: str, params=None):
         return (SQLPipelineBuilder(sql).with_catalog(self.catalog)
-                .with_mvcc(True).dont_cache_query_plans().with_params(params)
+                .with_mvcc(True).with_prepared(self._prepared).with_params(params)
                 .create_pipeline())
 
     def _run_simple(self, sql: str) -> None:
@@ -405,7 +408,7 @@ class _Session:
     def _describe_statement(self, parsed: _Parsed) -> None:
         self._send(b"t", struct.pack("!H", len(parsed.oids))
                    + b"".join(struct.pack("!I", o) for o in parsed.oids))
-        if parsed.stmt is None or not _returns_rows(parsed.stmt):
+        if parsed.stmt is None or not _returns_rows(parsed.stmt, self._prepared):
             self._send(b"n")  # NoData
             return
         if isinstance(parsed.stmt, P.ExecuteStmt):
@@ -493,7 +496,8 @@ class _Session:
             self._describe_statement(parsed)
             return
         portal = self._portal(name)
-        if portal.parsed.stmt is None or not _returns_rows(portal.parsed.stmt):
+        if portal.parsed.stmt is None or not _returns_rows(portal.parsed.stmt,
+                                                            self._prepared):
             self._send(b"n")
             return
         # run now for the result's own description; Execute sends its rows

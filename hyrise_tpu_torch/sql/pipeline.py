@@ -24,6 +24,7 @@ Reference: src/lib/sql/ —
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import weakref
 from collections import OrderedDict
@@ -86,6 +87,7 @@ class SQLQueryCache:
         self._prio: Dict = {}        # gds/gdfs: cached priority
         self._clock = 0.0
         self._tick = 0
+        self._lock = threading.Lock()  # sessions and threads share the cache
 
     def _touch(self, key):
         self._tick += 1
@@ -102,18 +104,20 @@ class SQLQueryCache:
             self._prio[key] = self._clock + f * cost / size
 
     def get(self, key):
-        if key not in self._d:
-            return None
-        self._touch(key)
-        return self._d[key]
+        with self._lock:
+            if key not in self._d:
+                return None
+            self._touch(key)
+            return self._d[key]
 
     def put(self, key, value, cost: float = 1.0, size: float = 1.0):
-        self._d[key] = value
-        if self.policy in ("gds", "gdfs"):
-            self._cost_size[key] = (cost, size)
-        self._touch(key)
-        while len(self._d) > self.capacity:
-            self._evict()
+        with self._lock:
+            self._d[key] = value
+            if self.policy in ("gds", "gdfs"):
+                self._cost_size[key] = (cost, size)
+            self._touch(key)
+            while len(self._d) > self.capacity:
+                self._evict()
 
     def _evict(self):
         if self.policy == "lru":
@@ -140,18 +144,27 @@ class SQLQueryCache:
         self._prio.pop(k, None)
 
     def clear(self):
-        for d in (self._d, self._freq, self._hist, self._cost_size,
-                  self._prio):
-            d.clear()
+        with self._lock:
+            for d in (self._d, self._freq, self._hist, self._cost_size,
+                      self._prio):
+                d.clear()
 
 
 _plan_cache = SQLQueryCache()
+# the prepared statements of callers that bring no map of their own
+# (SQLPipelineBuilder.with_prepared); a session keeps its own, as
+# PostgreSQL scopes prepared statements to a session
 _prepared: Dict[str, object] = {}
 
 
-def prepared_statement(name: str):
-    """The parse tree PREPARE stored under `name`, or None."""
-    return _prepared.get(name)
+class UnknownPreparedStatement(SQLTranslationError):
+    """EXECUTE of a name that this caller's map does not hold."""
+
+
+def prepared_statement(name: str, prepared: Optional[Dict[str, object]] = None):
+    """The parse tree PREPARE stored under `name` in `prepared` (the
+    process-wide map when None), or None."""
+    return (_prepared if prepared is None else prepared).get(name)
 
 
 def _ok_table(device) -> Table:
@@ -167,7 +180,8 @@ class SQLPipelineStatement:
     def __init__(self, stmt, sql_text: str, catalog: Catalog,
                  optimizer: Optional[Optimizer], use_cache: bool,
                  params: Optional[List[object]] = None, position: int = 0,
-                 use_mvcc: bool = False, transaction_manager=None, context=None):
+                 use_mvcc: bool = False, transaction_manager=None, context=None,
+                 prepared: Optional[Dict[str, object]] = None):
         self.stmt = stmt
         self.sql_text = sql_text
         self.position = position  # of the statement within sql_text
@@ -178,6 +192,7 @@ class SQLPipelineStatement:
         self.use_mvcc = use_mvcc
         self.tm = transaction_manager or catalog.transaction_manager
         self.context = context
+        self.prepared = _prepared if prepared is None else prepared
         self.metrics = StatementMetrics()
 
     # -- stages --------------------------------------------------------------
@@ -267,37 +282,40 @@ class SQLPipelineStatement:
         return v if not hasattr(v, "item") else v.item()
 
     def get_physical_plan(self, context=None):
-        # The key carries the statement's position (sql_text is the whole
-        # pipeline's text: without it every statement of one text would
-        # share the first one's plan), whether MVCC is on (a plan without
-        # Validate shows rows a transaction must not see) and the catalog's
-        # id; the entry holds a weak reference to the catalog itself: cached
-        # operators read that catalog, and an id can be reused once its
-        # catalog is gone. A plan whose scalar subqueries were resolved into
-        # literals also keeps what they read: the catalog's version and the
-        # snapshot. DML is never cached.
+        # The cache keeps what callers can share: the optimized LQP, with
+        # the literals its scalar subqueries resolved to, and translates a
+        # physical plan of its own for every caller (the reference
+        # deep-copies a cached PQP): operators hold their outputs, so two
+        # callers of one tree would overwrite each other's. The key carries
+        # the statement's position (sql_text is the whole pipeline's text:
+        # without it every statement of one text would share the first
+        # one's plan), whether MVCC is on (a plan without Validate shows
+        # rows a transaction must not see) and the catalog's id; the entry
+        # holds a weak reference to the catalog itself: an id can be reused
+        # once its catalog is gone. An LQP whose scalar subqueries were
+        # resolved into literals also keeps what they read: the catalog's
+        # version and the snapshot. DML is never cached.
         cache_key = (self.sql_text, self.position, self.use_mvcc, id(self.catalog))
         cacheable = self.use_cache and self.params is None and \
             not isinstance(self.stmt, _DML)
         read_at = (self.catalog.version,
                    None if context is None else context.snapshot_commit_id)
+        lqp = None
         if cacheable:
             cached = _plan_cache.get(cache_key)
             if cached is not None and cached[0]() is self.catalog and \
                     cached[2] in (None, read_at):
                 self.metrics.cache_hit = True
-                # plans cache their outputs -> clear before reuse (the
-                # reference deep-copies cached PQPs instead)
-                _clear_plan_outputs(cached[1])
-                return cached[1]
-        lqp = self.get_optimized_lqp()
-        resolved = self._resolve_scalar_subqueries(lqp, context)
+                lqp = cached[1]
+        if lqp is None:
+            lqp = self.get_optimized_lqp()
+            resolved = self._resolve_scalar_subqueries(lqp, context)
+            if cacheable:
+                _plan_cache.put(cache_key, (weakref.ref(self.catalog), lqp,
+                                            read_at if resolved else None))
         t0 = time.perf_counter()
         plan = translate_lqp(lqp, self.catalog)
         self.metrics.compile_s = time.perf_counter() - t0
-        if cacheable:
-            _plan_cache.put(cache_key, (weakref.ref(self.catalog), plan,
-                                        read_at if resolved else None))
         return plan
 
     def execute(self) -> Table:
@@ -305,7 +323,8 @@ class SQLPipelineStatement:
             inner = SQLPipelineStatement(
                 self.stmt.stmt, self.sql_text, self.catalog, self.optimizer,
                 use_cache=False, params=self.params, use_mvcc=self.use_mvcc,
-                transaction_manager=self.tm, context=self.context)
+                transaction_manager=self.tm, context=self.context,
+                prepared=self.prepared)
             lqp = inner.get_optimized_lqp()
             lines = np.array(lqp.describe().split("\n"), dtype=object)
             return Table.from_arrays(
@@ -313,12 +332,12 @@ class SQLPipelineStatement:
                 [lines], device=self.catalog.device)
         # prepared statements
         if isinstance(self.stmt, P.PrepareStmt):
-            _prepared[self.stmt.name] = self.stmt.stmt
+            self.prepared[self.stmt.name] = self.stmt.stmt
             return _ok_table(self.catalog.device)
         if isinstance(self.stmt, P.ExecuteStmt):
-            inner = _prepared.get(self.stmt.name)
+            inner = self.prepared.get(self.stmt.name)
             if inner is None:
-                raise SQLTranslationError(
+                raise UnknownPreparedStatement(
                     f"no prepared statement {self.stmt.name!r}")
             vals = []
             for p in self.stmt.params:
@@ -333,7 +352,7 @@ class SQLPipelineStatement:
                 inner, self.sql_text + repr(vals), self.catalog,
                 self.optimizer, use_cache=False, params=vals,
                 use_mvcc=self.use_mvcc, transaction_manager=self.tm,
-                context=self.context)
+                context=self.context, prepared=self.prepared)
             out = sub.execute()
             self.metrics = sub.metrics
             return out
@@ -361,27 +380,14 @@ class SQLPipelineStatement:
         return result
 
 
-def _clear_plan_outputs(plan) -> None:
-    seen = set()
-
-    def walk(op):
-        if id(op) in seen:
-            return
-        seen.add(id(op))
-        op.clear_output()
-        for i in op.inputs:
-            walk(i)
-
-    walk(plan)
-
-
 class SQLPipeline:
     """Multi-statement pipeline (reference: sql_pipeline.cpp)."""
 
     def __init__(self, sql: str, catalog: Catalog,
                  optimizer: Optional[Optimizer], use_cache: bool,
                  params: Optional[List[object]] = None, use_mvcc: bool = False,
-                 transaction_manager=None, context=None):
+                 transaction_manager=None, context=None,
+                 prepared: Optional[Dict[str, object]] = None):
         t0 = time.perf_counter()
         self.statements = P.parse_sql(sql)
         self.parse_s = time.perf_counter() - t0
@@ -389,7 +395,7 @@ class SQLPipeline:
         self._args = (catalog, optimizer, use_cache, params)
         self._transactions = dict(use_mvcc=use_mvcc,
                                   transaction_manager=transaction_manager,
-                                  context=context)
+                                  context=context, prepared=prepared)
         self.pipeline_statements: List[SQLPipelineStatement] = []
 
     def execute_statements(self) -> Iterator[Tuple[SQLPipelineStatement, Table]]:
@@ -425,6 +431,7 @@ class SQLPipelineBuilder:
         self._use_mvcc = False
         self._tm = None
         self._context = None
+        self._prepared: Optional[Dict[str, object]] = None
 
     def with_catalog(self, catalog: Catalog) -> "SQLPipelineBuilder":
         self._catalog = catalog
@@ -446,6 +453,12 @@ class SQLPipelineBuilder:
         """Run every statement in `context`, which the caller commits or
         rolls back (no auto-commit)."""
         self._context = context
+        return self
+
+    def with_prepared(self, prepared: Dict[str, object]) -> "SQLPipelineBuilder":
+        """Keep PREPARE's statements in `prepared` and read EXECUTE's from
+        it: one map a session. Without it the process-wide map serves."""
+        self._prepared = prepared
         return self
 
     def with_optimizer(self, optimizer: Optimizer) -> "SQLPipelineBuilder":
@@ -471,7 +484,7 @@ class SQLPipelineBuilder:
         return SQLPipeline(self.sql, self._catalog, self._optimizer,
                            self._use_cache, params=self._params,
                            use_mvcc=self._use_mvcc, transaction_manager=self._tm,
-                           context=self._context)
+                           context=self._context, prepared=self._prepared)
 
 
 def run_sql(sql: str, catalog: Catalog, context=None, use_mvcc: bool = False) -> Table:

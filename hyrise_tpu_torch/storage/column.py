@@ -197,6 +197,30 @@ class Column:
                       self.dictionary, self.device, self._capacity,
                       self.unique, self.val_range, self.encoded)
 
+    def block(self, lo: int, hi: int) -> "Column":
+        """Rows [lo, hi) over this column's storage, copying nothing: views
+        of the data and validity, or of an encoded column's payload where
+        its encoding can be cut there (storage/encoding.py; the block then
+        decodes its own rows on first read); otherwise, and for a lazy
+        column, a thunk that slices this column's dense form. The
+        dictionary is shared; `unique` and `val_range` hold for any subset
+        of the rows, so they carry over."""
+        validity = self._validity
+        if callable(validity):
+            validity = (lambda: self.validity[lo:hi])  # noqa: E731
+        elif validity is not None:
+            validity = validity[lo:hi]
+        payload = None if self.encoded is None else self.encoded.block(lo, hi)
+        if payload is not None:
+            dtype = self.dtype.torch_dtype
+            data = (lambda: payload.decode(dtype))  # noqa: E731
+        elif callable(self._data):
+            data = (lambda: self.data[lo:hi])  # noqa: E731
+        else:
+            data = self._data[lo:hi]
+        return Column(self.name, self.dtype, data, validity, self.dictionary, self.device,
+                      hi - lo, self.unique, self.val_range, payload)
+
     def code_for(self, value: str) -> Optional[int]:
         """Exact dictionary code of a string value, or None if absent."""
         assert self.dtype is DataType.STRING

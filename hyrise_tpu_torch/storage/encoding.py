@@ -77,6 +77,10 @@ class NarrowCodes:
             return self.codes.to(torch.int32)
         return self.dictionary[self.codes.long()].to(dtype)
 
+    def block(self, lo: int, hi: int) -> "NarrowCodes":
+        """Rows [lo, hi): a view of the codes, the dictionary shared."""
+        return NarrowCodes(self.codes[lo:hi], self.dictionary)
+
 
 @dataclasses.dataclass
 class RunLengthColumn:
@@ -95,6 +99,10 @@ class RunLengthColumn:
         run = torch.searchsorted(self.end_positions, rows, right=True)
         return self.values[run.clamp_(max=max(self.values.shape[0] - 1, 0))].to(dtype)
 
+    def block(self, lo: int, hi: int) -> None:
+        """A run may start before `lo`: no view of the runs gives the rows."""
+        return None
+
 
 @dataclasses.dataclass
 class FrameOfReferenceColumn:
@@ -108,6 +116,16 @@ class FrameOfReferenceColumn:
     def decode(self, dtype: torch.dtype) -> torch.Tensor:
         dense = self.frames[:, None] + self.offsets.view(-1, FOR_BLOCK).to(self.frames.dtype)
         return dense.view(-1)[:self.num_rows].to(dtype)
+
+    def block(self, lo: int, hi: int) -> Optional["FrameOfReferenceColumn"]:
+        """Rows [lo, hi) as views of whole frames where `lo` starts one, else
+        None."""
+        if lo % FOR_BLOCK:
+            return None
+        first, last = lo // FOR_BLOCK, -(-hi // FOR_BLOCK)
+        return FrameOfReferenceColumn(self.frames[first:last],
+                                      self.offsets[first * FOR_BLOCK:last * FOR_BLOCK],
+                                      hi - lo)
 
 
 def dictionary_encode(data: torch.Tensor) -> NarrowCodes:

@@ -109,6 +109,26 @@ class Table:
             return self.live
         return torch.arange(self.capacity, device=self.device) < self.num_rows
 
+    def block(self, lo: int, hi: int) -> "Table":
+        """Rows [lo, hi) of this table as a table over the same storage
+        (Column.block), for streamed execution (plan/blocked.py). The live
+        mask and the MVCC vectors are sliced too, so a Validate over the
+        block sees what it would see of these rows in the whole table; the
+        encoding spec carries over. Block statistics and indexes describe
+        the whole table's positions and are dropped. A masked table's block
+        counts its live rows with one host read."""
+        assert 0 <= lo <= hi <= self.capacity, (lo, hi, self.capacity)
+        live = None if self.live is None else self.live[lo:hi]
+        n = max(min(hi, self.num_rows) - lo, 0) if live is None else int(live.sum())
+        out = Table([c.block(lo, hi) for c in self.columns], n, name=self.name, live=live)
+        if self.mvcc is not None:
+            m = self.mvcc  # the same write lock: the vectors are the table's
+            out.mvcc = dataclasses.replace(m, tids=m.tids[lo:hi],
+                                           begin_cids=m.begin_cids[lo:hi],
+                                           end_cids=m.end_cids[lo:hi])
+        out.encoding_spec = self.encoding_spec
+        return out
+
     # -- conversion ----------------------------------------------------------
 
     def _decode_col(self, c: Column) -> np.ndarray:

@@ -32,6 +32,8 @@ from hyrise_tpu_torch.ops.misc import Alias
 from hyrise_tpu_torch.ops.projection import Projection
 from hyrise_tpu_torch.ops.sort import Sort
 from hyrise_tpu_torch.ops.table_scan import TableScan
+from hyrise_tpu_torch.plan.blocked import BlockedQuery
+from hyrise_tpu_torch.plan.segmented import SegmentedQuery
 from hyrise_tpu_torch.storage.catalog import Catalog
 from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.types import DataType, JoinMode, SortMode
@@ -785,7 +787,23 @@ TPCH_PLANS: Dict[int, Callable] = {
 }
 
 
-def run_query(qid: int, catalog: Catalog) -> Table:
+def run_query(qid: int, catalog: Catalog, via: str = "plans",
+              block_rows: int = 1 << 22, resident_rows: int = 1 << 24) -> Table:
+    """TPC-H query `qid`'s hand plan over `catalog`'s tables, where those
+    tables live. via="plans" executes the plan whole; via="blocked" streams
+    its largest table in blocks of `block_rows` rows through one split
+    (plan/blocked.py BlockedQuery, which refuses plans it cannot split);
+    via="segmented" streams every table of more than `resident_rows` rows
+    through as many stages as the plan needs (plan/segmented.py). The last
+    two mirror the JAX package's scripts/tpch_bench.py --via."""
     if qid not in TPCH_PLANS:
         raise NotImplementedError(f"TPC-H has no Q{qid}; the plans are Q1 to Q22")
-    return execute_plan(TPCH_PLANS[qid](catalog))
+    plan = TPCH_PLANS[qid](catalog)
+    if via == "plans":
+        return execute_plan(plan)
+    if via == "blocked":
+        return BlockedQuery(plan, catalog, block_rows=block_rows).run()
+    if via == "segmented":
+        return SegmentedQuery(plan, catalog, block_rows=block_rows,
+                              resident_rows=resident_rows).run()
+    raise ValueError(f"via must be 'plans', 'blocked' or 'segmented', got {via!r}")

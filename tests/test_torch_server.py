@@ -550,8 +550,8 @@ def run_stream(port, texts, out, errors):
                          ids=lambda q: "Q" + "-".join(map(str, q)))
 def test_two_sessions_at_once_get_the_single_session_answer(qids):
     """Two sessions send the same texts at the same moment; each answer
-    equals the one a session alone gets. (The plan cache would hand both the
-    same operator objects; the server does not use it.)"""
+    equals the one a session alone gets. The server's plan cache is on, so
+    both sessions' statements after the first come from it (ROADMAP C19)."""
     _, srv = tpch_servers(TPCH_SF)
     port = srv.server_address[1]
     texts = [TPCH_SQL[q] for q in qids] * 2
@@ -576,6 +576,70 @@ def test_two_sessions_at_once_get_the_single_session_answer(qids):
         for got, want in zip(out, alone):
             assert not any(t == b"E" for t, _ in got), got
             assert [t for t, _ in got] == [t for t, _ in want]
+            assert text_rows(got) == text_rows(want)
+
+
+def test_prepared_statements_belong_to_their_session(port_server):
+    """ROADMAP C21: SQL PREPARE names are one session's. Two sessions prepare
+    the same name with different texts and each EXECUTE runs its own
+    session's; a session that prepared nothing gets the server's error for
+    an unknown statement; a second PREPARE in one session replaces its
+    statement there only."""
+    a, b, c = connect(port_server), connect(port_server), connect(port_server)
+    try:
+        assert command_tags(a.query("PREPARE p FROM 'SELECT a FROM t WHERE a = 1'")) == [
+            "PREPARE"]
+        assert command_tags(b.query("PREPARE p FROM 'SELECT a FROM t WHERE a > 1'")) == [
+            "PREPARE"]
+        assert text_rows(a.query("EXECUTE p")) == [("1",)]
+        assert sorted(text_rows(b.query("EXECUTE p"))) == [(str(v),) for v in range(2, 7)]
+        unknown = c.query("EXECUTE p")
+        assert tags(unknown) == [b"E", b"Z"] and error_code(unknown) == "26000"
+        a.query("PREPARE p FROM 'SELECT a FROM t WHERE a = 3'")
+        assert text_rows(a.query("EXECUTE p")) == [("3",)]
+        assert sorted(text_rows(b.query("EXECUTE p"))) == [(str(v),) for v in range(2, 7)]
+    finally:
+        for client in (a, b, c):
+            client.close()
+
+
+def test_plan_cache_serves_two_sessions_at_once():
+    """ROADMAP C19: with the server's plan cache on, two sessions that send
+    the same text at once both hit it and each gets the answer a session
+    alone gets."""
+    from hyrise_tpu_torch.sql import pipeline
+    _, srv = tpch_servers(TPCH_SF)
+    port = srv.server_address[1]
+    texts = [TPCH_SQL[q] for q in (3, 10, 18)] * 3
+    alone, errors = [], []
+    run_stream(port, texts, alone, errors)
+    hits = []
+    statement_execute = pipeline.SQLPipelineStatement.execute
+
+    def counted(self):
+        out = statement_execute(self)
+        hits.append(self.metrics.cache_hit)
+        return out
+
+    outs = [[], []]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    pipeline.SQLPipelineStatement.execute = counted
+    try:
+        threads = [threading.Thread(target=run_stream, args=(port, texts, o, errors))
+                   for o in outs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        pipeline.SQLPipelineStatement.execute = statement_execute
+        sys.setswitchinterval(switch)
+    assert not errors, errors
+    assert len(hits) == 2 * len(texts) and all(hits), hits
+    for out in outs:
+        for got, want in zip(out, alone):
             assert text_rows(got) == text_rows(want)
 
 

@@ -99,6 +99,9 @@ def test_lru_evicts_the_least_recently_used():
 
 
 def test_plan_cache_hit_reuses_the_plan_and_gives_the_same_rows():
+    """A hit reuses the cached optimized plan (no translation to an LQP, no
+    optimizer) and translates an operator tree of its own from it, so that
+    two callers never share operators and their outputs (ROADMAP C19)."""
     cat = _catalog()
     pipeline._plan_cache.clear()
     sql = "SELECT s, SUM(b), COUNT(*) FROM t WHERE a < 30 GROUP BY s ORDER BY s"
@@ -111,8 +114,9 @@ def test_plan_cache_hit_reuses_the_plan_and_gives_the_same_rows():
     second = SQLPipelineBuilder(sql).with_catalog(cat).create_pipeline()
     assert second.get_result_table().rows() == rows
     m2 = second.pipeline_statements[0].metrics
-    assert m2.cache_hit and m2.translate_s == 0.0 and m2.compile_s == 0.0
-    assert second.pipeline_statements[0].last_plan is \
+    assert m2.cache_hit and m2.translate_s == 0.0 and m2.optimize_s == 0.0 \
+        and m2.compile_s > 0
+    assert second.pipeline_statements[0].last_plan is not \
         first.pipeline_statements[0].last_plan
     # another catalog never gets this catalog's plan
     other = _catalog()
@@ -124,6 +128,49 @@ def test_plan_cache_hit_reuses_the_plan_and_gives_the_same_rows():
         .create_pipeline()
     fourth.get_result_table()
     assert not fourth.pipeline_statements[0].metrics.cache_hit
+
+
+def test_cached_text_on_four_threads_gives_one_threads_answer():
+    """ROADMAP C19: one cached TPC-H text (Q3 at SF 0.01) runs on 4 threads,
+    5 times each, all at once; every answer equals one thread's alone, and
+    every run after the first is a cache hit."""
+    import sys
+    import threading
+
+    from hyrise_tpu_torch.tpch import dbgen
+    from hyrise_tpu_torch.tpch.queries import TPCH_SQL
+
+    cat = Catalog(device="cpu")
+    for name, t in dbgen.generate_tables(0.01, device="cpu").items():
+        cat.add_table(name, t)
+    pipeline._plan_cache.clear()
+    want = run_sql(TPCH_SQL[3], cat).rows()
+    assert want
+    answers, hits, errors = [], [], []
+
+    def run():
+        try:
+            for _ in range(5):
+                p = SQLPipelineBuilder(TPCH_SQL[3]).with_catalog(cat).create_pipeline()
+                answers.append(p.get_result_table().rows())
+                hits.append(p.pipeline_statements[0].metrics.cache_hit)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not errors, errors
+    assert len(answers) == 20 and all(hits)
+    for got in answers:
+        assert got == want
 
 
 def test_filter_aggregate_chain_becomes_the_fused_operator():
