@@ -221,10 +221,38 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              the tables during the first run, streamed and resident. K3,
              K4, K7 and K9 must have launched; the phase's launches are
              added to the kernels line's.
+11. distribution — parallel/ on the card, with every launch count at 0
+             again before it, on phase 10's SF10 tables and resident answers.
+             shard_tpch puts lineitem, orders, customer, part and partsupp
+             into 4 shards on the one card (the JAX package's keys; the other
+             tables replicated): its seconds, the sharded copies' MB beside
+             the tables', each table's shard imbalance, and partition_hash
+             of every shard's key column equal to the shard's index. The 22
+             hand plans through DistributedQuery (all_to_all) equal phase
+             10's resident answers in order (Q11 answers no rows at SF10,
+             ROADMAP C24, and is not counted as a check), Q1 and Q6 also the
+             numpy oracles: first run and median of 3 beside the resident
+             medians, the join decisions, exchange_stats() and the MB above
+             the tables. Q3, Q5, Q9, Q18 and Q21 through the ring equal the
+             all_to_all answers; dist_q6, dist_q1 and dist_q3_step equal the
+             oracles and phase 10's Q3. BlockedDistributedQuery streams
+             lineitem per shard in blocks of 2^20 rows for Q1, Q3 and Q6,
+             equal to the resident answers. Phase 4's SF1 tables come back
+             onto the card from their CPU copies: the 22 SQL texts with
+             with_distributed_execution equal phase 6's rows. A shuffle join
+             with one hot key (the shape of test_dist_skew.py) must be exact
+             and take the split; one PlacementManager.run_once() on a skewed
+             table must migrate it with the answers unchanged. Last, a
+             process group of one rank with NCCL on the card
+             (initialize_from_env on a free local port): Q1, Q3, Q6 and Q18
+             over its mesh equal the in-process answers. (NCCL refuses two
+             ranks on one card: groups of several ranks run in the CPU tests
+             only.) K1, K3, K4, K5, K7 and K9 must have launched; the
+             phase's launches are added to the kernels line's.
 
 Phases 5 and 6 also print the mean rows per launch of K4, K5, K7 and K9 and
 K5's mean pairs per launch (the wrappers count the rows they are given), so
-their launch counts can be read against sizes. After phase 10 comes the
+their launch counts can be read against sizes. After phase 11 comes the
 script's run time, the build included. The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}} and is printed only when every phase passed.
@@ -1651,20 +1679,21 @@ def check_finite(rows, what: str) -> None:
                 raise AssertionError(f"{what}: non-finite value in {r}")
 
 
-def cpu_copy(tables):
-    """The same tables as CPU tensors (metadata and MVCC state kept)."""
+def copy_to(tables, device):
+    """The same tables as tensors on `device` (metadata and MVCC state
+    kept)."""
     from hyrise_tpu_torch.concurrency.transaction import MvccData
     from hyrise_tpu_torch.storage.column import Column
     from hyrise_tpu_torch.storage.table import Table
     out = {}
     for name, t in tables.items():
-        cols = [Column(c.name, c.dtype, c.data.cpu(),
-                       None if c.validity is None else c.validity.cpu(),
+        cols = [Column(c.name, c.dtype, c.data.to(device),
+                       None if c.validity is None else c.validity.to(device),
                        c.dictionary, unique=c.unique, val_range=c.val_range)
                 for c in t.columns]
         out[name] = Table(cols, t.num_rows, name=name)
         if t.mvcc is not None:
-            out[name].mvcc = MvccData(*(v[:t.capacity].cpu() for v in (
+            out[name].mvcc = MvccData(*(v[:t.capacity].to(device) for v in (
                 t.mvcc.tids, t.mvcc.begin_cids, t.mvcc.end_cids)))
     return out
 
@@ -2111,7 +2140,7 @@ def dml_phase(device, card, cat, tables, hand_rows, sql_wall, wrappers, table_eq
                 base_rf1[name] = np.concatenate([li[name], payload])
         check_oracles(cat, make_pipeline, device, tpch_sql, base_rf1, pool, "after RF1")
         context = tm.new_transaction_context()
-        cpu_cat = catalog_of(cpu_copy({name: cat.get_table(name) for name in tables}))
+        cpu_cat = catalog_of(copy_to({name: cat.get_table(name) for name in tables}, "cpu"))
         t0 = time.perf_counter()
         for qid in CPU_CHECKED:
             rows, _ = mvcc_rows(tpch_sql[qid], cat, make_pipeline, device, context)
@@ -2960,7 +2989,7 @@ def front_end_phase(device, card, tables, hand_rows, hand_wall, sql_rows, sql_wa
     t0 = time.perf_counter()
     got = console_output(console, CONSOLE_SCRIPT)
     script_s = time.perf_counter() - t0
-    cpu_console = Console(catalog_of(cpu_copy(tpcc)), out=io.StringIO())
+    cpu_console = Console(catalog_of(copy_to(tpcc, "cpu")), out=io.StringIO())
     want = console_output(cpu_console, CONSOLE_SCRIPT)
     for line, g, w in zip(CONSOLE_SCRIPT, got, want):
         if g != w or "error" in g:
@@ -3088,11 +3117,13 @@ def streaming_sf1(device, cat, hand_rows, table_eq) -> str:
             f"{time.perf_counter() - t0:.1f} s")
 
 
-def streaming_sf10(device, card, table_eq) -> None:
+def streaming_sf10(device, card, table_eq) -> dict:
     """Phase 10 at SF10: TPC-H generated on the card, the 22 hand plans
     streamed (run_query(via="segmented") with the JAX package's thresholds)
     and resident (run_query), equal to each other; Q1 and Q6 equal the numpy
-    oracles; walls and peak memory of both forms."""
+    oracles; walls and peak memory of both forms. Returns what phase 11
+    reads: the catalog, the resident rows and medians, the MB the tables
+    hold, lineitem's host columns and the date pool."""
     from hyrise_tpu_torch.tpch import dbgen
     from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, run_query
 
@@ -3111,7 +3142,7 @@ def streaming_sf10(device, card, table_eq) -> None:
         + ", ".join(f"{name} {t.num_rows}" for name, t in tables.items())
         + f" rows; {table_mb:.1f} MB allocated on {device} with them")
     t0 = time.perf_counter()
-    lines, streamed_rows, shapes, medians = [], {}, {}, {}
+    lines, streamed_rows, resident_rows, shapes, medians = [], {}, {}, {}, {}
     for qid in sorted(TPCH_PLANS):
         shapes[qid] = stages_of(qid, cat, SF10_STREAMING, TPCH_PLANS)
         s_first, s_med, s_peak, streamed = timed_peak(
@@ -3124,7 +3155,7 @@ def streaming_sf10(device, card, table_eq) -> None:
             raise AssertionError(f"streamed Q{qid} at SF{STREAM_SF} vs resident: {msg}")
         if qid in MULTI_STAGE and shapes[qid][0] < 2:
             raise AssertionError(f"Q{qid} at SF{STREAM_SF} in {shapes[qid][0]} stage")
-        streamed_rows[qid], medians[qid] = streamed, (s_med, r_med)
+        streamed_rows[qid], resident_rows[qid], medians[qid] = streamed, resident, (s_med, r_med)
         lines.append(f"Q{qid} {shapes[qid][0]} stages, {shapes[qid][1]} blocks, streamed "
                      f"{s_first:.3f} / {s_med:.3f} ms, {s_peak:.1f} MB; resident "
                      f"{r_first:.3f} / {r_med:.3f} ms, {r_peak:.1f} MB ({len(streamed)} rows)")
@@ -3146,6 +3177,314 @@ def streaming_sf10(device, card, table_eq) -> None:
     log(f"streaming: SF{STREAM_SF} sums of medians: streamed "
         f"{sum(m for m, _ in medians.values()):.3f} ms, resident "
         f"{sum(m for _, m in medians.values()):.3f} ms {card}")
+    return {"cat": cat, "resident": resident_rows,
+            "medians": {q: r for q, (_, r) in medians.items()}, "table_mb": table_mb,
+            "li": li, "pool": pool}
+
+
+# -- 11. distribution: sharded execution on the card ----------------------------
+
+DIST_SHARDS = 4                # in-process shards, all on the one card
+DIST_RING_QIDS = (3, 5, 9, 18, 21)
+DIST_BLOCK_ROWS = 2**20        # lineitem per shard in blocks (15 a shard at SF10)
+DIST_BLOCKED_QIDS = (1, 3, 6)
+DIST_GROUP_QIDS = (1, 3, 6, 18)
+# the hot-key join of tests/test_dist_skew.py: fact's key 7 on half its rows,
+# a dim too large to broadcast, both sharded by columns that are not the key
+DIST_SKEW = dict(n_fact=120_000, n_dim=70_000, hot_frac=0.5, seed=5)
+# the kernels phase 11 must launch: dist_q6 (K1), group-bys (K3, K7), joins
+# (K4, K5), every filter and compaction (K9)
+DIST_KERNELS = ("q6_scan", "segment_reduce_cells", "lookup_last_eq_lut", "expand_pairs",
+                "segment_reduce_sorted", "compact_indices")
+
+
+def stats_text(stats) -> str:
+    """exchange_stats() as `label sites/rows/moved rows`."""
+    return ", ".join(f"{label} {e['sites']}/{e['rows']}/{e['moved_rows']}"
+                     for label, e in sorted(stats.items())) or "none"
+
+
+def same_rows(got, want, what: str, table_eq, ordered: bool = True) -> None:
+    """Integers and strings equal, floats within 1e-6 relative (in order,
+    unless `ordered` is False)."""
+    ok, msg = table_eq.tables_equal(got, want, ordered=ordered, rel_tol=1e-6, abs_tol=0.0)
+    if not ok:
+        raise AssertionError(f"{what}: {msg}")
+
+
+def skew_tables(device, n_fact: int, n_dim: int, hot_frac: float, seed: int):
+    """fact (n_fact rows, hot_frac of them on key 7) and dim (n_dim rows)."""
+    from hyrise_tpu_torch.storage.column import Column
+    from hyrise_tpu_torch.storage.table import Table
+    from hyrise_tpu_torch.types import DataType
+
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, n_dim, size=n_fact).astype(np.int64)
+    k[rng.random(n_fact) < hot_frac] = 7
+    col = lambda name, t, v: Column.from_numpy(name, t, v, device=device)  # noqa: E731
+    fact = Table([col("k", DataType.INT64, k), col("v", DataType.FLOAT64, rng.normal(size=n_fact))],
+                 n_fact, name="fact")
+    dim = Table([col("k", DataType.INT64, np.arange(n_dim, dtype=np.int64)),
+                 col("w", DataType.FLOAT64, rng.normal(size=n_dim)),
+                 col("salt", DataType.INT64, rng.integers(0, 1 << 30, size=n_dim).astype(np.int64))],
+                n_dim, name="dim")
+    return fact, dim
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def skew_checks(device, mesh, table_eq) -> str:
+    """11d: the hot-key split of a shuffle join, exact, and one migration of
+    a skewed table by PlacementManager, answers unchanged."""
+    from hyrise_tpu_torch.expression import ast
+    from hyrise_tpu_torch.ops.aggregate import Aggregate
+    from hyrise_tpu_torch.ops.base import execute_plan
+    from hyrise_tpu_torch.ops.get_table import GetTable
+    from hyrise_tpu_torch.ops.join import Join
+    from hyrise_tpu_torch.parallel.dist_compiler import DistributedQuery, ShardedCatalog
+    from hyrise_tpu_torch.parallel.placement import PlacementManager
+    from hyrise_tpu_torch.parallel.skew import shard_imbalance
+    from hyrise_tpu_torch.types import JoinMode
+
+    fact, dim = skew_tables(device, **DIST_SKEW)
+    cat = catalog_of({"fact": fact, "dim": dim})
+    sc = ShardedCatalog(mesh)
+    sc.add_sharded("fact", fact, "v")
+    sc.add_sharded("dim", dim, "salt")
+
+    def join_plan():
+        j = Join(GetTable("fact", cat), GetTable("dim", cat), JoinMode.INNER, ("k", "k"))
+        return Aggregate(j, [], [("s", ast.sum_(ast.col("v"))), ("sw", ast.sum_(ast.col("w"))),
+                                 ("n", ast.count_())])
+
+    ref = execute_plan(join_plan()).rows()
+    dq = DistributedQuery(join_plan(), sc)
+    got = dq.run().rows()
+    if not table_eq.tables_equal(got, ref, ordered=True, rel_tol=1e-9, abs_tol=0.0)[0]:
+        raise AssertionError(f"hot-key shuffle join {got} vs single node {ref}")
+    (hot,) = dq._hot_keys.values()
+    if 7 not in hot.tolist() or list(dq._decisions.values()) != ["shuffle"]:
+        raise AssertionError(f"the hot-key split did not engage: {dq.join_decisions()} {hot}")
+    (probe,) = [c for label, c in dq._sites if label == "join.shuffle_p"]
+
+    sc.add_sharded("fact", fact, "k")  # placed BY the skewed key
+    agg_plan = lambda: Aggregate(GetTable("fact", cat), ["k"],  # noqa: E731
+                                 [("s", ast.sum_(ast.col("v")))])
+    agg_ref = execute_plan(agg_plan()).rows()
+    before = shard_imbalance(sc.get("fact"))
+    pm = PlacementManager(cat, sc)
+    dq = DistributedQuery(agg_plan(), sc)
+    same_rows(dq.run().rows(), agg_ref, "skewed aggregate", table_eq, ordered=False)
+    pm.observe(dq)
+    if pm.run_once() != ["fact"]:
+        raise AssertionError("PlacementManager did not migrate the skewed table")
+    after = shard_imbalance(sc.get("fact"))
+    same_rows(DistributedQuery(agg_plan(), sc).run().rows(), agg_ref, "migrated aggregate",
+              table_eq, ordered=False)
+    return (f"hot-key shuffle join ({DIST_SKEW}) exact, key 7 split, probe rows received per "
+            f"shard {probe}; PlacementManager migrated fact (imbalance {before:.3f} -> "
+            f"{after:.3f}), its aggregate unchanged")
+
+
+def group_checks(device, cat, in_process: dict, table_eq) -> str:
+    """11e: a process group of one rank (NCCL on the card, gloo on the CPU)
+    on a free local port: Q1, Q3, Q6 and Q18 over its mesh equal the
+    in-process answers."""
+    import datetime
+    import os
+    import torch.distributed as dist
+    from hyrise_tpu_torch.parallel.dist_compiler import DistributedQuery, shard_tpch
+    from hyrise_tpu_torch.parallel.mesh import make_mesh
+    from hyrise_tpu_torch.parallel.multihost import initialize_from_env, process_info
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS
+
+    env = {"COORDINATOR": f"127.0.0.1:{free_port()}", "NUM_PROCESSES": "1", "PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not initialize_from_env(device.type, timeout=datetime.timedelta(seconds=120)):
+            raise AssertionError("initialize_from_env did not join a group")
+        backend = dist.get_backend()
+        info = process_info()
+        mesh = make_mesh(device=device.type)
+        t0 = time.perf_counter()
+        sc = shard_tpch(cat, mesh)
+        shard_s = time.perf_counter() - t0
+        ms = {}
+        for qid in DIST_GROUP_QIDS:
+            q0 = time.perf_counter()
+            rows = DistributedQuery(TPCH_PLANS[qid](cat), sc).run().rows()
+            ms[qid] = (time.perf_counter() - q0) * 1e3
+            same_rows(rows, in_process[qid], f"Q{qid} over a {backend} group of 1 rank",
+                      table_eq)
+        del sc
+        dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return (f"a {backend} process group of 1 rank ({info['local_devices']}): shard_tpch "
+            f"{shard_s:.1f} s, Q{', Q'.join(map(str, DIST_GROUP_QIDS))} equal the in-process "
+            f"answers (first run ms {', '.join(f'{m:.3f}' for m in ms.values())}); the group is "
+            f"destroyed. NCCL refuses two ranks on one card: groups of several ranks run in the "
+            f"CPU tests (tests/test_torch_process_group.py, 4 gloo ranks)")
+
+
+def distribution_phase(device, card, sf10, sf1_tables, sql_rows, table_eq) -> None:
+    """Phase 11 (see the module docstring), on phase 10's SF10 catalog and
+    resident answers and phase 4's SF1 tables (`sf1_tables`, CPU copies)."""
+    from hyrise_tpu_torch.parallel.blocked_dist import BlockedDistributedQuery
+    from hyrise_tpu_torch.parallel.dist_compiler import (TPCH_PARTITION_KEYS, DistributedQuery,
+                                                         shard_tpch)
+    from hyrise_tpu_torch.parallel.dist_query import dist_q1, dist_q3_step, dist_q6
+    from hyrise_tpu_torch.parallel.exchange import partition_hash
+    from hyrise_tpu_torch.parallel.mesh import make_mesh
+    from hyrise_tpu_torch.parallel.partition import hash_partition
+    from hyrise_tpu_torch.parallel.skew import shard_imbalance
+    from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, TPCH_SQL
+
+    cat, resident = sf10["cat"], sf10["resident"]
+    phase0 = time.perf_counter()
+
+    # 11a. partitioning
+    mesh = make_mesh(DIST_SHARDS, device=device.type)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    sc = shard_tpch(cat, mesh)
+    torch.cuda.synchronize(device)
+    shard_s = time.perf_counter() - t0
+    sharded = {name: sc.get(name) for name in TPCH_PARTITION_KEYS}
+    for name, st in sharded.items():
+        key = TPCH_PARTITION_KEYS[name]
+        for s, t in enumerate(st.shards):
+            if t.device != mesh.devices[s]:
+                raise AssertionError(f"{name} shard {s} on {t.device}")
+            wrong = int((partition_hash(t.column(key).data, DIST_SHARDS) != s).sum())
+            if wrong:
+                raise AssertionError(f"{name} shard {s}: {wrong} rows hash elsewhere")
+    sharded_mb = sum(st.nbytes() for st in sharded.values()) / 1e6
+    log(f"distribution: SF{STREAM_SF} into {DIST_SHARDS} shards on {mesh.devices[0]} by "
+        f"shard_tpch in {shard_s:.2f} s {card}: sharded copies {sharded_mb:.1f} MB beside the "
+        f"tables' {sf10['table_mb']:.1f} MB; rows per shard and imbalance: "
+        + "; ".join(f"{n} {list(map(int, st.counts))} {shard_imbalance(st):.4f}"
+                    for n, st in sharded.items())
+        + "; partition_hash of every shard's key column equals its index")
+
+    # 11b. the 22 hand plans
+    t0 = time.perf_counter()
+    dist_rows, lines, medians = {}, [], {}
+    for qid in sorted(TPCH_PLANS):
+        last = {}
+
+        def run(qid=qid):
+            last["dq"] = DistributedQuery(TPCH_PLANS[qid](cat), sc)
+            return last["dq"].run()
+
+        first, med, peak, rows = timed_peak(run, device)
+        check_finite(rows, f"distributed Q{qid} at SF{STREAM_SF}")
+        same_rows(rows, resident[qid], f"distributed Q{qid} at SF{STREAM_SF} vs resident",
+                  table_eq)
+        dq = last["dq"]
+        dist_rows[qid], medians[qid] = rows, med
+        lines.append(f"Q{qid} {first:.3f} / {med:.3f} ms (resident {sf10['medians'][qid]:.3f}), "
+                     f"{peak:.1f} MB, {len(rows)} rows; joins [{'; '.join(dq.join_decisions())}]; "
+                     f"exchanges {stats_text(dq.exchange_stats())}")
+    expected6 = q6_oracle(sf10["li"], sf10["pool"])
+    got6 = float(dist_rows[6][0][0])
+    if rel_diff(got6, expected6) > 1e-6:
+        raise AssertionError(f"distributed Q6 {got6} vs numpy {expected6}")
+    worst = check_q1(dist_rows[1], q1_oracle(sf10["li"], sf10["pool"]))
+    log(f"distribution: SF{STREAM_SF} all 22 hand plans through DistributedQuery (all_to_all) "
+        f"equal phase 10's resident answers in order (ints and strings exactly, floats within "
+        f"1e-6 relative; Q11 answers {len(dist_rows[11])} rows as resident does: at SF10 none, "
+        f"ROADMAP C24, so it is not counted as a check); Q6 "
+        f"{got6!r} vs numpy {expected6!r}; Q1 equals the numpy oracle (floats within "
+        f"{worst:.3e}); {time.perf_counter() - t0:.1f} s")
+    log(f"distribution: SF{STREAM_SF} per query over {DIST_SHARDS} shards (host clock to rows "
+        f"on the host, first / median of {STREAM_REPS}; MB allocated above the tables and their "
+        f"shards during the first run; exchanges as label sites/rows/moved rows) {card}: "
+        + " | ".join(lines))
+    log(f"distribution: SF{STREAM_SF} sums of medians: distributed "
+        f"{sum(medians.values()):.3f} ms, resident {sum(sf10['medians'].values()):.3f} ms {card}")
+
+    # 11c. the ring, the hand pipelines, blocked distribution
+    t0 = time.perf_counter()
+    for qid in DIST_RING_QIDS:
+        rows = DistributedQuery(TPCH_PLANS[qid](cat), sc, exchange="ring").run().rows()
+        same_rows(rows, dist_rows[qid], f"Q{qid} through the ring vs all_to_all", table_eq)
+    li = sc.get("lineitem")
+    pool = sf10["pool"]
+    lo, hi = int(np.searchsorted(pool, "1994-01-01")), int(np.searchsorted(pool, "1995-01-01"))
+    q6 = float(dist_q6(mesh, li, lo, hi))
+    if rel_diff(q6, expected6) > 1e-6:
+        raise AssertionError(f"dist_q6 {q6} vs numpy {expected6}")
+    q1_hi = int(np.searchsorted(pool, "1998-12-01", side="right")) - 1
+    counts, sum_qty, _, sum_dp, _, _ = dist_q1(mesh, li, q1_hi)
+    rf = li.shards[0].column("l_returnflag")
+    ls = li.shards[0].column("l_linestatus")
+    for row in resident[1]:
+        cell = rf.code_for(row[0]) * len(ls.dictionary) + ls.code_for(row[1])
+        if int(counts[cell]) != row[9] or rel_diff(float(sum_dp[cell]), row[4]) > 1e-6:
+            raise AssertionError(f"dist_q1 cell {row[:2]}: {int(counts[cell])}, "
+                                 f"{float(sum_dp[cell])} vs {row[9]}, {row[4]}")
+    t = cat.get_table("customer")
+    q3_rev, q3_n = dist_q3_step(mesh, sc.get("customer"),
+                                hash_partition(cat.get_table("orders"), "o_custkey", mesh),
+                                li, t.column("c_mktsegment").code_for("BUILDING"),
+                                int(np.searchsorted(pool, "1995-03-15")))
+    want3 = float(sum(r[1] for r in resident[3]))
+    if rel_diff(float(q3_rev), want3) > 1e-6:
+        raise AssertionError(f"dist_q3_step {float(q3_rev)} vs resident Q3's sum {want3}")
+    log(f"distribution: Q{', Q'.join(map(str, DIST_RING_QIDS))} through the ring equal the "
+        f"all_to_all answers; dist_q6 {q6!r} (numpy {expected6!r}); dist_q1's cells equal "
+        f"resident Q1's counts and sums; dist_q3_step {float(q3_rev)!r} over {int(q3_n)} pairs "
+        f"(resident Q3's revenue sum {want3!r}); {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    blocked = []
+    for qid in DIST_BLOCKED_QIDS:
+        bq = BlockedDistributedQuery(TPCH_PLANS[qid](cat), sc, block_rows=DIST_BLOCK_ROWS)
+        q0 = time.perf_counter()
+        rows = bq.run().rows()
+        blocked.append(f"Q{qid} {bq.n_blocks} blocks {(time.perf_counter() - q0) * 1e3:.3f} ms")
+        same_rows(rows, resident[qid], f"blocked distributed Q{qid}", table_eq)
+    log(f"distribution: BlockedDistributedQuery, lineitem in blocks of {DIST_BLOCK_ROWS} rows "
+        f"a shard, equal to the resident answers {card}: {'; '.join(blocked)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 11d. SQL at SF1, skew and placement
+    t0 = time.perf_counter()
+    sf1 = catalog_of(copy_to(sf1_tables, device))
+    sc1 = shard_tpch(sf1, mesh)
+    sql_ms = {}
+    for qid in sorted(TPCH_SQL):
+        q0 = time.perf_counter()
+        pipeline = SQLPipelineBuilder(TPCH_SQL[qid]).with_catalog(sf1) \
+            .with_distributed_execution(sc1).create_pipeline()
+        rows = pipeline.get_result_table().rows()
+        sql_ms[qid] = (time.perf_counter() - q0) * 1e3
+        if pipeline.pipeline_statements[-1].last_dist_query is None:
+            raise AssertionError(f"SQL Q{qid} did not run distributed")
+        check_rows(rows, sql_rows[qid], f"distributed SQL Q{qid} at SF{SF} vs phase 6", table_eq)
+    log(f"distribution: SF{SF} (phase 4's tables back on the card) the 22 SQL texts with "
+        f"with_distributed_execution over {DIST_SHARDS} shards equal phase 6's rows (as row "
+        f"sets: ties of an ORDER BY may fall either way); first-run ms {card}: "
+        + ", ".join(f"Q{q} {m:.3f}" for q, m in sql_ms.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    del sc1, sf1
+    log("distribution: " + skew_checks(device, mesh, table_eq))
+
+    # 11e. a process group
+    log("distribution: " + group_checks(device, cat, dist_rows, table_eq))
+    del sc
+    log(f"distribution: phase 11 took {time.perf_counter() - phase0:.1f} s")
 
 
 def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None:
@@ -3465,7 +3804,7 @@ def main() -> None:
         f"(keys and counts equal, floats within {worst:.3e} relative)")
 
     t0 = time.perf_counter()
-    cpu_cat = catalog_of(cpu_copy(tables))
+    cpu_cat = catalog_of(copy_to(tables, "cpu"))
     before = {name: w.launches for name, w in wrappers.items()}
     for qid in CPU_CHECKED:
         check_rows(results[qid], run_query(qid, cpu_cat).rows(),
@@ -3525,9 +3864,9 @@ def main() -> None:
     # on phase 4's tables as generated: phase 7 wrote into the catalog's
     log("streaming: " + streaming_sf1(device, catalog_of(plain_copies(tables)), results,
                                       table_eq))
-    del tables, cat, cpu_cat, qcols  # the SF1 tables leave the card before SF10's come
+    del tables, cat, qcols  # the SF1 tables leave the card before SF10's come
     torch.cuda.empty_cache()
-    streaming_sf10(device, card, table_eq)
+    sf10 = streaming_sf10(device, card, table_eq)
     stream_launches = {name: w.launches for name, w in wrappers.items()}
     for name in STREAM_KERNELS:
         if stream_launches[name] <= 0:
@@ -3535,6 +3874,19 @@ def main() -> None:
     log(f"streaming: launches in phase 10 {stream_launches}")
     log(f"streaming: phase 10 took {time.perf_counter() - t0:.1f} s")
     for name, count in stream_launches.items():
+        launches[name] += count
+
+    # -- 11. distribution: SF10 over four shards on the card, a process group --
+    reset_counts(wrappers)
+    distribution_phase(device, card, sf10, {name: cpu_cat.get_table(name)
+                                            for name in cpu_cat.table_names()},
+                       sql_rows, table_eq)
+    dist_launches = {name: w.launches for name, w in wrappers.items()}
+    for name in DIST_KERNELS:
+        if dist_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in phase 11")
+    log(f"distribution: launches in phase 11 {dist_launches}")
+    for name, count in dist_launches.items():
         launches[name] += count
 
     csrc = "hyrise_tpu_torch/kernels/csrc/"

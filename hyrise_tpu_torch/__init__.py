@@ -10,6 +10,9 @@ A second package beside the JAX one, with the same module paths:
 - Transactions: MVCC state as tensors beside each table's columns
   (concurrency/), Validate and the read-write operators (ops/rw_ops.py),
   DML through the SQL pipeline.
+- Distribution: plans over hash-partitioned shards in one process or a
+  torch.distributed process group, with the exchanges as collectives
+  (parallel/).
 
 It imports torch and numpy, never jax and nothing of hyrise_tpu; the
 tests/test_torch_*.py files hold it against the JAX package.

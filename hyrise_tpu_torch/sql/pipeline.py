@@ -1,8 +1,12 @@
 """SQL pipeline: parse -> translate -> optimize -> physical plan -> execute.
 
 Port of hyrise_tpu/sql/pipeline.py. Not carried over: whole-plan compiled
-execution and its capacity seeds (the port runs eagerly) and distributed
-execution (a later slice). There is no default catalog: create_pipeline()
+execution and its capacity seeds (the port runs eagerly). Distributed
+execution (with_distributed_execution) runs each read-only statement's plan
+through parallel/dist_compiler.py's DistributedQuery over a ShardedCatalog,
+a query object per caller on the tree translated for that caller (the JAX
+form keeps one on the shared plan object: ROADMAP C19). A plan it cannot
+distribute runs single-node. There is no default catalog: create_pipeline()
 without with_catalog() raises, and the catalog's own TransactionManager
 serves its transactions unless with_transaction_manager() names another.
 
@@ -181,7 +185,7 @@ class SQLPipelineStatement:
                  optimizer: Optional[Optimizer], use_cache: bool,
                  params: Optional[List[object]] = None, position: int = 0,
                  use_mvcc: bool = False, transaction_manager=None, context=None,
-                 prepared: Optional[Dict[str, object]] = None):
+                 prepared: Optional[Dict[str, object]] = None, dist_catalog=None):
         self.stmt = stmt
         self.sql_text = sql_text
         self.position = position  # of the statement within sql_text
@@ -193,6 +197,9 @@ class SQLPipelineStatement:
         self.tm = transaction_manager or catalog.transaction_manager
         self.context = context
         self.prepared = _prepared if prepared is None else prepared
+        self.dist_catalog = dist_catalog
+        # the DistributedQuery of the last execution, or None (single-node)
+        self.last_dist_query = None
         self.metrics = StatementMetrics()
 
     # -- stages --------------------------------------------------------------
@@ -352,7 +359,8 @@ class SQLPipelineStatement:
                 inner, self.sql_text + repr(vals), self.catalog,
                 self.optimizer, use_cache=False, params=vals,
                 use_mvcc=self.use_mvcc, transaction_manager=self.tm,
-                context=self.context, prepared=self.prepared)
+                context=self.context, prepared=self.prepared,
+                dist_catalog=self.dist_catalog)
             out = sub.execute()
             self.metrics = sub.metrics
             return out
@@ -367,7 +375,7 @@ class SQLPipelineStatement:
             plan = self.get_physical_plan(context)
             self.last_plan = plan  # retained for profiling / visualization
             t0 = time.perf_counter()
-            result = execute_plan(plan, context)
+            result = self._execute_plan(plan, context, is_dml or self.use_mvcc)
             if result.device.type == "cuda":
                 torch.cuda.synchronize(result.device)
         except BaseException:
@@ -380,6 +388,27 @@ class SQLPipelineStatement:
         return result
 
 
+    def _execute_plan(self, plan, context, needs_tx: bool) -> Table:
+        """A read-only plan over the ShardedCatalog when one is set, its
+        copies are current (ShardedCatalog.is_current: a write since they
+        were taken, this pipeline's own too, is not in them) and the plan
+        can be distributed; otherwise, and for statements that need a
+        transaction, on one device."""
+        self.last_dist_query = None
+        if self.dist_catalog is not None and not needs_tx and \
+                self.dist_catalog.is_current(self.catalog):
+            from hyrise_tpu_torch.parallel.dist_compiler import DistributedQuery
+            from hyrise_tpu_torch.plan.blocked import PlanNotCompilable
+            try:
+                dq = DistributedQuery(plan, self.dist_catalog)
+            except PlanNotCompilable:
+                pass
+            else:
+                self.last_dist_query = dq
+                return dq.run()
+        return execute_plan(plan, context)
+
+
 class SQLPipeline:
     """Multi-statement pipeline (reference: sql_pipeline.cpp)."""
 
@@ -387,7 +416,7 @@ class SQLPipeline:
                  optimizer: Optional[Optimizer], use_cache: bool,
                  params: Optional[List[object]] = None, use_mvcc: bool = False,
                  transaction_manager=None, context=None,
-                 prepared: Optional[Dict[str, object]] = None):
+                 prepared: Optional[Dict[str, object]] = None, dist_catalog=None):
         t0 = time.perf_counter()
         self.statements = P.parse_sql(sql)
         self.parse_s = time.perf_counter() - t0
@@ -395,7 +424,8 @@ class SQLPipeline:
         self._args = (catalog, optimizer, use_cache, params)
         self._transactions = dict(use_mvcc=use_mvcc,
                                   transaction_manager=transaction_manager,
-                                  context=context, prepared=prepared)
+                                  context=context, prepared=prepared,
+                                  dist_catalog=dist_catalog)
         self.pipeline_statements: List[SQLPipelineStatement] = []
 
     def execute_statements(self) -> Iterator[Tuple[SQLPipelineStatement, Table]]:
@@ -432,6 +462,7 @@ class SQLPipelineBuilder:
         self._tm = None
         self._context = None
         self._prepared: Optional[Dict[str, object]] = None
+        self._dist_catalog = None
 
     def with_catalog(self, catalog: Catalog) -> "SQLPipelineBuilder":
         self._catalog = catalog
@@ -469,6 +500,17 @@ class SQLPipelineBuilder:
         self._use_cache = False
         return self
 
+    def with_distributed_execution(self, shard_catalog) -> "SQLPipelineBuilder":
+        """Run read-only statements over a ShardedCatalog taken from this
+        pipeline's catalog (parallel/dist_compiler.py shard_tpch). A
+        statement runs on one device where it needs a transaction, where
+        the plan cannot be distributed or reads a table the ShardedCatalog
+        does not hold, and once the catalog was written after the copies
+        were taken (an INSERT is read back): shard it again to distribute
+        again."""
+        self._dist_catalog = shard_catalog
+        return self
+
     def with_params(self, params: Optional[List[object]]
                     ) -> "SQLPipelineBuilder":
         """Typed values for `?` placeholders, substituted as literal AST
@@ -484,7 +526,8 @@ class SQLPipelineBuilder:
         return SQLPipeline(self.sql, self._catalog, self._optimizer,
                            self._use_cache, params=self._params,
                            use_mvcc=self._use_mvcc, transaction_manager=self._tm,
-                           context=self._context, prepared=self._prepared)
+                           context=self._context, prepared=self._prepared,
+                           dist_catalog=self._dist_catalog)
 
 
 def run_sql(sql: str, catalog: Catalog, context=None, use_mvcc: bool = False) -> Table:
