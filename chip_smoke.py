@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --cells [--kernels-from DIR]
     python3 chip_smoke.py --kernels K2,K8 [--kernels-from DIR]
+    python3 chip_smoke.py --compiled
 
 The second form runs phases 1 and 2, then only K3's and K6's checks and
 timings (`cells_phase`); the third builds only q6_scan.cu, hash_lookup.cu
@@ -12,7 +13,10 @@ K2, K8 or both (`kernels_phase`). With
 --kernels-from either imports the package of the checkout in DIR instead (an
 older commit unpacked there), for its timings beside this one's in the same
 call; the checks of phase 3 are then left out, but each timed shape is still
-held against its plain version.
+held against its plain version. The fourth runs phases 1 and 2, generates
+phase 4's SF1 tables, takes the eager rows and walls of the 22 hand plans and
+SQL texts that phase 12 compares with, then phase 12 alone
+(`compiled_only_run`).
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -249,6 +253,30 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              ranks on one card: groups of several ranks run in the CPU tests
              only.) K1, K3, K4, K5, K7 and K9 must have launched; the
              phase's launches are added to the kernels line's.
+12. compiled — whole-plan compiled execution (plan/compiler.py), run right
+             after phase 9 on copies of phase 4's SF1 tables, with every
+             launch count at 0 before it. The 22 hand plans through
+             run_query(via="compiled"): each learned under
+             set_sync_debug_mode("error"), captured as one CUDA graph and
+             equal to phase 5's rows, first run and median of 5 replays
+             beside phase 5's eager median, with retries, captures, capacity
+             sites, the graph pool's MB and one replay's device events and
+             busy ms from torch.profiler. The 22 SQL texts through
+             with_compiled_execution() equal phase 6's rows, each compiled.
+             A replay makes no eager oracle read; lineitem replaced by its
+             first half under Q6 is captured again and answered anew; four
+             threads run one cached compiled text three times each. K9's and
+             K5's capacity forms equal their plain versions at the four
+             sizes at exact, loose and overflowed capacities (at the
+             overflow the C call writes into a guarded buffer whose guards
+             must stay), K5's refuses a negative count on the device; both
+             are timed beside their plain versions (and
+             torch.nonzero_static for K9), with their kernels' own device
+             time. bench/micro.py runs its micros as replayed graphs.
+             Launches inside graphs count once per replay; K3, K4, K6, K7,
+             K8, K9c and K5c must have launched; the phase's launches are
+             added to the kernels line's, which lists the two capacity forms
+             after K1-K9.
 
 Phases 5 and 6 also print the mean rows per launch of K4, K5, K7 and K9 and
 K5's mean pairs per launch (the wrappers count the rows they are given), so
@@ -258,6 +286,8 @@ script's run time, the build included. The line before the last is
 {"ok": true, "device": {...}} and is printed only when every phase passed.
 """
 
+import gc
+import io
 import json
 import re
 import statistics
@@ -3487,6 +3517,384 @@ def distribution_phase(device, card, sf10, sf1_tables, sql_rows, table_eq) -> No
     log(f"distribution: phase 11 took {time.perf_counter() - phase0:.1f} s")
 
 
+# -- 12. whole-plan compiled execution: CUDA graphs ----------------------------
+
+COMPILED_REPS = 5              # replays timed after the first run
+COMPILED_SQL_REPS = 3          # cached SQL runs timed after the first
+COMPILED_THREADS = 4           # callers of one cached compiled text at once
+COMPILED_THREAD_QID = 3
+COMPILED_REPLACED_QID = 6      # its lineitem is replaced by half of it
+COMPILED_KERNELS = ("segment_reduce_cells", "lookup_last_eq_lut", "fused_cells_reduce",
+                    "segment_reduce_sorted", "lookup_last_eq", "compact_indices_cap",
+                    "expand_pairs_cap")
+MICRO_ROWS = 1 << 22
+MICRO_RUNS = 3
+
+
+def replay_profile(run, floor: int) -> tuple:
+    """(device events, device busy ms) of one run() under torch.profiler, or
+    (0, None). A profiler run that comes back with fewer than `floor` device
+    events (the kernels the wrappers launch in one replay) lost some, as it
+    does once in some tens of runs, and is made again, three times at most."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            run()
+            torch.cuda.synchronize()
+        events, busy_us = 0, 0.0
+        for avg in prof.key_averages():
+            if avg.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            total_us = getattr(avg, "self_device_time_total", None)
+            if total_us is None:
+                total_us = avg.self_cuda_time_total
+            events += avg.count
+            busy_us += total_us
+        if events >= max(floor, 1):
+            return events, busy_us / 1e3
+    return 0, None
+
+
+def graph_launches(before, wrappers, queries) -> dict:
+    """The launches each wrapper's kernels made since `before`: the
+    wrappers' own counts (uncaptured runs, and captures, which record
+    launches without running them) less what the captures recorded, plus
+    what the replays ran."""
+    out = {}
+    for name, w in wrappers.items():
+        n = w.launches - before.get(name, 0)
+        for cq in queries:
+            n += cq.launches_replayed.get(name, 0) - cq.launches_captured.get(name, 0)
+        out[name] = n
+    return out
+
+
+def guarded_call(fn, words: int, device) -> torch.Tensor:
+    """A buffer of `words` int64 with 64 guard words on either side, all set
+    to a pattern; fn(view of the middle words); the whole buffer back."""
+    buf = torch.full((words + 128,), -0x5A5A5A5A5A5A5A5B, dtype=torch.int64, device=device)
+    fn(buf[64:64 + words])
+    torch.cuda.synchronize()
+    return buf
+
+
+def check_guards(buf, what: str) -> None:
+    pattern = -0x5A5A5A5A5A5A5A5B
+    if bool((buf[:64] != pattern).any()) or bool((buf[-64:] != pattern).any()):
+        raise AssertionError(f"{what}: a write landed past the buffer")
+
+
+def check_cap_forms(device, compact, join_probe, bucket_capacity) -> tuple:
+    """K9's and K5's capacity forms against their plain versions at every
+    size of KERNEL_SIZES, at an exact, a loose and an overflowed capacity;
+    at the overflow the raw C call writes into a guarded buffer, which must
+    keep its guards. Returns the largest differences (both 0 when equal)."""
+    import ctypes
+    err9 = err5 = 0.0
+    lib9, lib5 = compact._library(), join_probe._library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for n in KERNEL_SIZES:
+        mask = k9_mask(n, 0.5, device)
+        count = int(mask.sum())
+        for cap in sorted({max(count, 1), bucket_capacity(count + 1), max(count // 2, 1)}):
+            got_i, got_n = compact.compact_indices_cap(mask, cap)
+            ref_i, ref_n = compact.compact_indices_cap_plain(mask, cap)
+            torch.cuda.synchronize()
+            if int(got_n) != int(ref_n) or not torch.equal(got_i, ref_i):
+                raise AssertionError(f"K9 cap form at n={n}, cap={cap}: count {int(got_n)} "
+                                     f"vs {int(ref_n)}, positions differ")
+            err9 = max(err9, float((got_i - ref_i).abs().max()))
+        if count >= 2:
+            cap = count // 2
+            tiles = -(-n // compact._tile_rows())
+            scratch = torch.empty(lib9.compact_scratch_words(tiles), dtype=torch.int64,
+                                  device=device)
+            word = torch.empty(1, dtype=torch.int64, device=device)
+            buf = guarded_call(lambda out: lib9.compact_select_cap(
+                mask.view(torch.uint8).data_ptr(), n, tiles, scratch.data_ptr(),
+                out.data_ptr(), cap, word.data_ptr(), ctypes.c_void_p(stream)), cap, device)
+            check_guards(buf, f"K9 cap form at n={n}, count {count} > cap {cap}")
+            if int(word) != count:
+                raise AssertionError(f"K9 cap form count {int(word)} vs {count}")
+        lo, counts, perm = k5_inputs(n, device)
+        total = int(counts.sum())
+        for cap in sorted({max(total, 1), bucket_capacity(total + 1), max(total // 2, 1)}):
+            got = join_probe.expand_pairs_cap(lo, counts, perm, cap)
+            ref = join_probe.expand_pairs_cap_plain(lo, counts, perm, cap)
+            torch.cuda.synchronize()
+            if int(got[2]) != total or int(ref[2]) != total or bool(got[3]) or bool(ref[3]) \
+                    or not torch.equal(got[0], ref[0]) or not torch.equal(got[1], ref[1]):
+                raise AssertionError(f"K5 cap form at n={n}, cap={cap}: totals "
+                                     f"{int(got[2])} / {int(ref[2])} of {total}")
+            err5 = max(err5, float((got[1] - ref[1]).abs().max()))
+        if total >= 2:
+            cap = total // 2 + 1  # odd or even, the build rows start 16-byte aligned
+            cap += cap % 2
+            scratch = torch.empty(lib5.expand_scratch_words(n) + lib5.expand_stats_words(),
+                                  dtype=torch.int64, device=device)
+            stats = scratch[-lib5.expand_stats_words():]
+            buf = guarded_call(lambda out: lib5.expand_pairs_cap(
+                lo.data_ptr(), counts.data_ptr(), n, perm.data_ptr(), perm.shape[0],
+                scratch.data_ptr(), stats.data_ptr(), out[:cap].data_ptr(),
+                out[cap:].data_ptr(), cap, ctypes.c_void_p(stream)), 2 * cap, device)
+            check_guards(buf, f"K5 cap form at n={n}, total {total} > cap {cap}")
+            if int(stats[0]) != total:
+                raise AssertionError(f"K5 cap form total {int(stats[0])} vs {total}")
+        # a negative count is refused on the device: no pair, the flag set
+        bad = counts.clone()
+        bad[n // 2] = -1
+        got = join_probe.expand_pairs_cap(lo, bad, perm, 1024)
+        ref = join_probe.expand_pairs_cap_plain(lo, bad, perm, 1024)
+        if not (bool(got[3]) and bool(ref[3]) and not bool(got[0].any())
+                and not bool(got[1].any())):
+            raise AssertionError(f"K5 cap form at n={n}: a negative count was not refused")
+    return err9, err5
+
+
+def kernel_only_or_not_measured(fn, device) -> tuple:
+    """kernel_only_ms(fn, device) as text and kernels a call, or "not
+    measured" when three torch.profiler runs lost device events: the
+    profiler's loss, on which the kernel's checks and CUDA-event times do
+    not depend."""
+    try:
+        ms, per_call = kernel_only_ms(fn, device)
+    except AssertionError:
+        return "not measured (torch.profiler lost device events)", "not measured"
+    return listed(ms), per_call
+
+
+def time_cap_forms(device, card, time_ms, compact, join_probe, bucket_capacity) -> dict:
+    """K9's and K5's capacity forms at n = KERNEL_SIZES[-1], in turns with
+    their plain versions (and torch.nonzero_static for K9), CUDA events
+    after an L2 flush, and their kernels' own device time."""
+    n = KERNEL_SIZES[-1]
+    mask = k9_mask(n, 0.5, device)
+    cap9 = bucket_capacity(int(mask.sum()))
+    lo, counts, perm = k5_inputs(n, device)
+    total = int(counts.sum())
+    cap5 = bucket_capacity(total)
+    k9 = lambda i: compact.compact_indices_cap(mask, cap9)  # noqa: E731
+    k9_plain = lambda i: compact.compact_indices_cap_plain(mask, cap9)  # noqa: E731
+    k9_lib = lambda i: torch.nonzero_static(mask, size=cap9)  # noqa: E731
+    k5 = lambda i: join_probe.expand_pairs_cap(lo, counts, perm, cap5)  # noqa: E731
+    k5_plain = lambda i: join_probe.expand_pairs_cap_plain(lo, counts, perm, cap5)  # noqa: E731
+    ms = turns((("k9_plain", k9_plain), ("k9", k9), ("k9_lib", k9_lib), ("k9", k9),
+                ("k9_plain", k9_plain), ("k9_lib", k9_lib),
+                ("k5_plain", k5_plain), ("k5", k5), ("k5", k5), ("k5_plain", k5_plain)),
+               device, time_ms)
+    only9, per9 = kernel_only_or_not_measured(k9, device)
+    only5, per5 = kernel_only_or_not_measured(k5, device)
+    bound9 = (n + cap9 * 8 + 8) / PEAK_BYTES_PER_S * 1e3
+    bound5 = (n * 8 + perm.shape[0] * 8 + cap5 * 16 + 40) / PEAK_BYTES_PER_S * 1e3
+    log(f"compiled: K9 cap form at n={n}, half True, cap {cap9} {card}: "
+        f"{ms['k9']:.4f} ms vs plain {ms['k9_plain']:.4f}, torch.nonzero_static "
+        f"{ms['k9_lib']:.4f}, bound {bound9:.4f}; kernel-only {only9} ({per9} a call)")
+    log(f"compiled: K5 cap form at n={n} ranges, {total} pairs, cap {cap5} {card}: "
+        f"{ms['k5']:.4f} ms vs plain {ms['k5_plain']:.4f}, bound {bound5:.4f}; "
+        f"kernel-only {only5} ({per5} a call)")
+    return {"K9c": {"kernel": ms["k9"], "plain": ms["k9_plain"], "bound": bound9,
+                    "library": ms["k9_lib"]},
+            "K5c": {"kernel": ms["k5"], "plain": ms["k5_plain"], "bound": bound5,
+                    "library": None}}
+
+
+def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrappers,
+                   table_eq, tpch_sql) -> tuple:
+    """Phase 12 on copies of phase 4's SF1 tables: the 22 hand plans through
+    run_query(via="compiled") against phase 5's rows, the 22 SQL texts with
+    with_compiled_execution() against phase 6's, that a replay reads no
+    count eagerly, that a replaced table is re-captured, four threads on one
+    cached text, K9's and K5's capacity forms against their plain versions,
+    and bench/micro.py on the card. Returns (the phase's launches, the
+    capacity forms' timings, their largest differences)."""
+    import threading
+
+    from hyrise_tpu_torch.bench import micro
+    from hyrise_tpu_torch.kernels import compact, join_probe
+    from hyrise_tpu_torch.ops.base import execute_plan
+    from hyrise_tpu_torch.plan.compiler import bucket_capacity, eager_reads
+    from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, compiled_query, run_query
+
+    t_phase = time.perf_counter()
+    cat = catalog_of(plain_copies(tables))
+    before = {name: w.launches for name, w in wrappers.items()}
+    queries = []
+    lines, replay_sum, eager_sum = [], 0.0, 0.0
+    for qid in sorted(TPCH_PLANS):
+        t0 = time.perf_counter()
+        rows = run_query(qid, cat, via="compiled").rows()
+        first = (time.perf_counter() - t0) * 1e3
+        cq = compiled_query(qid, cat)
+        queries.append(cq)
+        retries, captures = cq.last_retries, cq.captures
+        if not cq.sync_checked:
+            raise AssertionError(f"compiled Q{qid}: the learning run was not sync-checked; "
+                                 f"threads {[t.name for t in threading.enumerate()]}")
+        check_rows(rows, hand_rows[qid], f"compiled Q{qid} at SF{SF} vs phase 5", table_eq)
+        times = []
+        for _ in range(COMPILED_REPS):
+            t0 = time.perf_counter()
+            rows = run_query(qid, cat, via="compiled").rows()
+            times.append((time.perf_counter() - t0) * 1e3)
+        check_rows(rows, hand_rows[qid], f"compiled Q{qid} replayed vs phase 5", table_eq)
+        if cq.captures != captures or cq.last_retries:
+            raise AssertionError(f"compiled Q{qid}: a replay captured again or retried")
+        events, busy = replay_profile(lambda: run_query(qid, cat, via="compiled").rows(),
+                                      sum(cq.capture_launches.values()))
+        med = statistics.median(times)
+        replay_sum += med
+        eager_sum += hand_wall[qid][1]
+        lines.append(f"Q{qid} {first:.3f} / {med:.3f} vs eager {hand_wall[qid][1]:.3f} "
+                     f"(retries {retries}, captures {cq.captures}, sites {len(cq.caps)}, pool "
+                     f"{cq.pool_mb:.1f} MB, {events} device events, busy "
+                     + ("not traced" if busy is None else f"{busy:.3f} ms") + ")")
+    log(f"compiled: SF{SF} hand plans through run_query(via='compiled'), every one "
+        f"captured and equal to phase 5's rows; host ms to rows on the host, first run "
+        f"(learn under set_sync_debug_mode('error'), capture, replay) / median of "
+        f"{COMPILED_REPS} replays vs phase 5's eager median {card}: " + "; ".join(lines))
+    log(f"compiled: SF{SF} sums of medians: compiled {replay_sum:.3f} ms, eager "
+        f"{eager_sum:.3f} ms {card}")
+
+    # the 22 SQL texts, compiled and cached
+    lines, sql_sum = [], 0.0
+    for qid in sorted(tpch_sql):
+        def sql_run():
+            p = SQLPipelineBuilder(tpch_sql[qid]).with_catalog(cat) \
+                .with_compiled_execution().create_pipeline()
+            out = p.get_result_table().rows()
+            return out, p.pipeline_statements[-1]
+        t0 = time.perf_counter()
+        rows, st = sql_run()
+        first = (time.perf_counter() - t0) * 1e3
+        if not st.last_compiled:
+            raise AssertionError(f"SQL Q{qid} did not run compiled")
+        check_rows(rows, sql_rows[qid], f"compiled SQL Q{qid} vs phase 6", table_eq)
+        times = []
+        for _ in range(COMPILED_SQL_REPS):
+            t0 = time.perf_counter()
+            rows, st = sql_run()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not st.last_compiled:
+                raise AssertionError(f"SQL Q{qid} did not run compiled again")
+        check_rows(rows, sql_rows[qid], f"compiled SQL Q{qid} cached vs phase 6", table_eq)
+        queries.append(st.last_compiled_query)
+        sql_sum += statistics.median(times)
+        lines.append(f"Q{qid} {first:.3f} / {statistics.median(times):.3f}")
+    log(f"compiled: SF{SF} the 22 SQL texts with with_compiled_execution(), each compiled "
+        f"and equal to phase 6's rows; ms first / median of {COMPILED_SQL_REPS} cached "
+        f"{card}: " + "; ".join(lines) + f"; sum of medians {sql_sum:.3f}")
+
+    # capture stays honest
+    reads = eager_reads()
+    cq1 = compiled_query(1, cat)
+    replays = cq1.replays
+    run_query(1, cat, via="compiled").rows()
+    if eager_reads() != reads or cq1.replays != replays + cq1.on_cuda:
+        raise AssertionError("a replay read a count eagerly or did not replay")
+    qid = COMPILED_REPLACED_QID
+    half = catalog_of({name: cat.get_table(name) for name in cat.table_names()})
+    first_rows = run_query(qid, half, via="compiled").rows()
+    cq = compiled_query(qid, half)
+    queries.append(cq)
+    li = half.get_table("lineitem")
+    half.replace_table("lineitem", li.block(0, li.num_rows // 2))
+    want = execute_plan(TPCH_PLANS[qid](half)).rows()
+    got = run_query(qid, half, via="compiled").rows()
+    check_rows(got, want, f"compiled Q{qid} over a replaced lineitem", table_eq)
+    if cq.captures != 2 * cq.on_cuda or got == first_rows:
+        raise AssertionError(f"compiled Q{qid}: {cq.captures} captures after replacing "
+                             f"lineitem, answer changed: {got != first_rows}")
+    sql = tpch_sql[COMPILED_THREAD_QID]
+    answers, errors = [], []
+
+    def caller():
+        try:
+            for _ in range(3):
+                answers.append(SQLPipelineBuilder(sql).with_catalog(cat)
+                               .with_compiled_execution().create_pipeline()
+                               .get_result_table().rows())
+        except Exception as exc:  # raised below, in the phase's thread
+            errors.append(exc)
+    threads = [threading.Thread(target=caller) for _ in range(COMPILED_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for rows in answers:
+        check_rows(rows, sql_rows[COMPILED_THREAD_QID],
+                   f"compiled SQL Q{COMPILED_THREAD_QID} on {COMPILED_THREADS} threads", table_eq)
+    log(f"compiled: a replay reads no count eagerly; replacing lineitem under Q{qid} "
+        f"captured again and answered the new table; {COMPILED_THREADS} threads x 3 runs "
+        f"of SQL Q{COMPILED_THREAD_QID}, one cached CompiledQuery, all equal to phase 6")
+    launches = graph_launches(before, wrappers, queries)
+    del cat, half, queries, cq, cq1
+    gc.collect()  # a catalog and its CompiledQuerys refer to each other
+    torch.cuda.empty_cache()
+
+    err9, err5 = check_cap_forms(device, compact, join_probe, bucket_capacity)
+    log(f"compiled: K9 and K5 capacity forms equal to their plain versions at "
+        f"{KERNEL_SIZES} (exact, loose and overflowed capacities; at the overflow nothing "
+        f"written past the buffer; K5 refuses a negative count on the device)")
+    timed = time_cap_forms(device, card, time_ms_of(), compact, join_probe, bucket_capacity)
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    report = micro.run_micros(MICRO_ROWS, MICRO_RUNS, device, out=out)
+    for line in out.getvalue().splitlines():
+        log(f"compiled: micro {line}")
+    withheld = [r["name"] for r in report if r.get("withheld")]
+    log(f"compiled: bench/micro.py at {MICRO_ROWS} rows {card} in "
+        f"{time.perf_counter() - t0:.1f} s; withheld: {withheld or 'none'}")
+    log(f"compiled: launches in phase 12 (graph replays counted) {launches}")
+    log(f"compiled: phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, timed, (err9, err5)
+
+
+def compiled_only_run(device, card, started: float) -> None:
+    """`--compiled`: phase 4's SF1 tables, the eager rows and walls of phase
+    5's hand plans and phase 6's SQL texts that phase 12 compares with, then
+    phase 12."""
+    from hyrise_tpu_torch.kernels import (compact, fused_reduce, group_reduce, hash_lookup,
+                                          join_probe, segment_reduce)
+    from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
+    from hyrise_tpu_torch.tpch import dbgen
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, TPCH_SQL, run_query
+    from hyrise_tpu_torch.utils import table_eq
+
+    tables = dbgen.generate_tables(SF, SEED, device=device)
+    cat = catalog_of(tables)
+    results, wall, sql_rows = {}, {}, {}
+    for qid in sorted(TPCH_PLANS):
+        first, median, rows = timed_query(lambda: run_query(qid, cat).rows())
+        results[qid], wall[qid] = rows, (first, median)
+        sql_rows[qid] = SQLPipelineBuilder(TPCH_SQL[qid]).with_catalog(cat) \
+            .create_pipeline().get_result_table().rows()
+    log(f"main: SF{SF} eager wall ms (first / median of {QUERY_REPS}) {card}: "
+        + "; ".join(f"Q{q} {wall[q][0]:.3f} / {wall[q][1]:.3f}" for q in sorted(wall)))
+    wrappers = {"segment_reduce_cells": group_reduce.segment_reduce_cells,
+                "lookup_last_eq_lut": join_probe.lookup_last_eq_lut,
+                "expand_pairs": join_probe.expand_pairs,
+                "fused_cells_reduce": fused_reduce.fused_cells_reduce,
+                "segment_reduce_sorted": segment_reduce.segment_reduce_sorted,
+                "lookup_last_eq": hash_lookup.lookup_last_eq,
+                "compact_indices": compact.compact_indices,
+                "compact_indices_cap": compact.compact_indices_cap,
+                "expand_pairs_cap": join_probe.expand_pairs_cap}
+    reset_counts(wrappers)
+    launches, timed, errs = compiled_phase(device, card, tables, results, wall, sql_rows,
+                                           wrappers, table_eq, TPCH_SQL)
+    for name in COMPILED_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in phase 12")
+    log(f"elapsed: {time.perf_counter() - started:.1f} s, the build included")
+    log(json.dumps({"compiled_kernels": {
+        label: dict(t, max_abs_err=err) for (label, t), err in zip(timed.items(), errs)}}))
+
+
 def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None:
     """`--cells`: K3 and K6 alone. With `checked` (this checkout's kernels)
     every check of phase 3 for them, then their timed shapes; without (the
@@ -3547,6 +3955,7 @@ def main() -> None:
     started = time.perf_counter()
     argv = sys.argv[1:]
     cells_only = "--cells" in argv
+    compiled_only = "--compiled" in argv
     kernels = argv[argv.index("--kernels") + 1].split(",") if "--kernels" in argv else None
     if kernels is not None and not set(kernels) <= {"K2", "K8"}:
         raise SystemExit(f"chip_smoke: --kernels takes K2 and K8, got {kernels}")
@@ -3605,6 +4014,9 @@ def main() -> None:
     if cells_only:
         cells_phase(device, card, group_reduce, fused_reduce, checked=other is None)
         log(f"elapsed: {time.perf_counter() - started:.1f} s, the build included")
+        return
+    if compiled_only:
+        compiled_only_run(device, card, started)
         return
 
     # -- 3. kernels against their plain versions -----------------------------
@@ -3858,6 +4270,18 @@ def main() -> None:
     for name, count in front_launches.items():
         launches[name] += count
 
+    # -- 12. whole-plan compiled execution: the plans as CUDA graphs ---------
+    wrappers.update(compact_indices_cap=compact.compact_indices_cap,
+                    expand_pairs_cap=join_probe.expand_pairs_cap)
+    reset_counts(wrappers)
+    compiled_launches, cap_timed, (k9c_err, k5c_err) = compiled_phase(
+        device, card, tables, results, wall, sql_rows, wrappers, table_eq, TPCH_SQL)
+    for name in COMPILED_KERNELS:
+        if compiled_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in phase 12")
+    for name, count in compiled_launches.items():
+        launches[name] = launches.get(name, 0) + count
+
     # -- 10. streaming: blocked and segmented execution at SF1 and SF10 --------
     reset_counts(wrappers)
     t0 = time.perf_counter()
@@ -3923,6 +4347,10 @@ def main() -> None:
                   "hyrise_tpu/kernels/tpu_prims.py:383", k8_err, k2_k8["K8"]),
         new_entry("compact_indices", "compact.cu",
                   "hyrise_tpu/kernels/tpu_prims.py:144", k9_err, new["K9 share 0.5"]),
+        new_entry("compact_indices_cap", "compact.cu",
+                  "hyrise_tpu/kernels/tpu_prims.py:144", k9c_err, cap_timed["K9c"]),
+        new_entry("expand_pairs_cap", "join_probe.cu", "hyrise_tpu/ops/join.py:140",
+                  k5c_err, cap_timed["K5c"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

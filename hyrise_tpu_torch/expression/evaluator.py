@@ -114,7 +114,9 @@ class _Compiler:
         self.device = table.device
 
     def _const(self, values, dtype: torch.dtype) -> torch.Tensor:
-        return torch.as_tensor(values, dtype=dtype, device=self.device)
+        # uploaded once per compiled query in capacity mode (plan/compiler.py)
+        from hyrise_tpu_torch.plan.compiler import device_constant
+        return device_constant(values, dtype, self.device)
 
     def _full(self, value, dtype: torch.dtype) -> torch.Tensor:
         return torch.full((self.table.capacity,), value, dtype=dtype,
@@ -516,6 +518,9 @@ class _Compiler:
                                                       DataType.INT64):
             # CAST(int AS TEXT): the output dictionary depends on the DATA,
             # so the argument is evaluated now and read back to the host.
+            from hyrise_tpu_torch.plan.compiler import PlanNotCompilable, tracing
+            if tracing():
+                raise PlanNotCompilable("CAST of an integer AS TEXT reads the data")
             env = make_env(self.table, e.value.columns())
             data, v = vc.fn(env)
             strs = data.cpu().numpy().astype(np.int64).astype(str)

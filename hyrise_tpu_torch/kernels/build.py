@@ -123,6 +123,7 @@ def load(name: str) -> ctypes.CDLL:
 
 
 _counts_lock = threading.Lock()
+_counted: dict = {}  # wrapper name -> wrapper, each that has launched
 
 
 def count_launch(wrapper, **counts: int) -> None:
@@ -131,9 +132,16 @@ def count_launch(wrapper, **counts: int) -> None:
     launch from several threads (server sessions, the operator scheduler),
     and `x.launches += 1` is a read and a write that threads can interleave."""
     with _counts_lock:
+        _counted[wrapper.__name__] = wrapper
         wrapper.launches += 1
         for name, n in counts.items():
             setattr(wrapper, name, getattr(wrapper, name) + n)
+
+
+def launch_counts() -> dict:
+    """`launches` of every wrapper that has launched, by its name."""
+    with _counts_lock:
+        return {name: w.launches for name, w in _counted.items()}
 
 
 def build_log(name: str) -> str:

@@ -14,6 +14,11 @@ n, and the kernel's scratch behind them) and one C call that clears the
 scratch, launches the one kernel and returns the number of True rows, which
 the kernel's last tile writes into pinned host memory: the host learns the
 length after all the counting, without a stream synchronisation.
+
+`compact_indices_cap` is the capacity form (plan/compiler.py), the port of
+tpu_prims.compact_indices(mask, cap): positions padded with 0 to `cap`
+entries and the count as a 0-dim int64 tensor, nothing read on the host, so
+that a CUDA graph can capture it; plain version `compact_indices_cap_plain`.
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ def _library() -> ctypes.CDLL:
     lib.compact_tile_rows.restype = i32
     lib.compact_scratch_words.argtypes = [i64]
     lib.compact_scratch_words.restype = i64
+    lib.compact_select_cap.argtypes = [ptr, i64, i64, ptr, ptr, i64, ptr, ptr]
+    lib.compact_select_cap.restype = i32
     return lib
 
 
@@ -101,3 +108,57 @@ def compact_indices(mask: torch.Tensor) -> torch.Tensor:
 
 compact_indices.launches = 0
 compact_indices.rows_seen = 0
+
+
+# -- the capacity form -----------------------------------------------------------
+
+
+def compact_indices_cap_plain(mask: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of compact_indices_cap: torch.nonzero, cut or
+    padded with 0 to cap entries."""
+    build.check_tensor(mask, torch.bool, mask.device, "mask")
+    if cap < 1:
+        raise ValueError(f"capacity {cap} < 1")
+    found = torch.nonzero(mask).squeeze(1)
+    out = torch.zeros(cap, dtype=torch.int64, device=mask.device)
+    kept = found[:cap]
+    out[:kept.shape[0]] = kept
+    return out, torch.tensor(found.shape[0], dtype=torch.int64, device=mask.device)
+
+
+def compact_indices_cap(mask: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(positions, count): the int64 positions of the True entries of a 1-D
+    contiguous bool mask in ascending order, the first min(count, cap) of
+    them, then 0 up to cap entries; and the number of True entries, which
+    may exceed cap, as a 0-dim int64 tensor. CPU tensors take
+    compact_indices_cap_plain; CUDA tensors launch the K9 kernel's capacity
+    form (memsets and one kernel, no host wait) or raise."""
+    dev = mask.device
+    if dev.type == "cpu":
+        return compact_indices_cap_plain(mask, cap)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    build.check_tensor(mask, torch.bool, dev, "mask")
+    if cap < 1:
+        raise ValueError(f"capacity {cap} < 1")
+    n = mask.shape[0]
+    if n == 0:
+        return (torch.zeros(cap, dtype=torch.int64, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+    lib = _library()
+    tiles = -(-n // _tile_rows())
+    # positions [0, cap), the count, then the kernel's scratch
+    buffer = torch.empty(cap + 1 + lib.compact_scratch_words(tiles), dtype=torch.int64,
+                         device=dev)
+    with torch.cuda.device(dev):
+        err = lib.compact_select_cap(mask.view(torch.uint8).data_ptr(), n, tiles,
+                                     buffer.data_ptr() + 8 * (cap + 1), buffer.data_ptr(),
+                                     cap, buffer.data_ptr() + 8 * cap,
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch(err, "compact_select_cap")
+    build.count_launch(compact_indices_cap, rows_seen=n)
+    return buffer[:cap], buffer[cap]
+
+
+compact_indices_cap.launches = 0
+compact_indices_cap.rows_seen = 0

@@ -32,6 +32,15 @@
 // call returns it as soon as it is there: the host learns the length
 // without a stream synchronisation, and whatever uses the positions is
 // ordered behind the kernel by the stream as usual.
+//
+// compact_select_cap is the capacity form (plan/compiler.py; JAX
+// compact_indices(mask, cap), nonzero(size=cap, fill_value=0)): the same
+// kernel writes the first min(count, cap) positions into an output of cap
+// int64, never past it, after a memset of the output to 0, and the count
+// into device memory. Nothing waits on the host, so a CUDA graph can capture
+// the call; the host reads the count later, with the other sites' counts.
+// What bounds it: n mask bytes in, cap x 8 bytes out (the memset and the
+// positions).
 
 #include <cstdint>
 
@@ -105,7 +114,8 @@ __device__ __forceinline__ int block_inclusive_scan(int v, int* warp_sums,
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const unsigned char* __restrict__ mask, long long n, bool aligned,
               long long tiles, unsigned long long* __restrict__ scratch,
-              long long* __restrict__ out, volatile long long* host_total) {
+              long long* __restrict__ out, long long cap,
+              volatile long long* total_out) {
   __shared__ int warp_sums[kThreads / 32];
   __shared__ short staged[kTile];  // the tile's True rows, as offsets into it
   __shared__ long long shared_tile;
@@ -148,14 +158,16 @@ select_kernel(const unsigned char* __restrict__ mask, long long n, bool aligned,
       if (tile != 0) {
         store_status(status + tile, status_word(kHasPrefix, before + total));
       }
-      if (tile == tiles - 1) *host_total = before + total;
+      if (tile == tiles - 1) *total_out = before + total;
       shared_before = before;
     }
   }
   __syncthreads();
-  // neighbouring threads write neighbouring positions
+  // neighbouring threads write neighbouring positions, none at or past cap
   long long* dst = out + shared_before;
-  for (int k = threadIdx.x; k < total; k += kThreads) {
+  const long long room = cap - shared_before;
+  const int written = room < total ? static_cast<int>(max(room, 0LL)) : total;
+  for (int k = threadIdx.x; k < written; k += kThreads) {
     dst[k] = tile_first + staged[k];
   }
 }
@@ -192,13 +204,38 @@ long long compact_select(const void* mask, long long n, long long tiles,
   const bool aligned = reinterpret_cast<uintptr_t>(mask) % 8 == 0;
   select_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, stream>>>(
       static_cast<const unsigned char*>(mask), n, aligned, tiles,
-      static_cast<unsigned long long*>(scratch), static_cast<long long*>(out),
+      static_cast<unsigned long long*>(scratch), static_cast<long long*>(out), n,
       total_on_device);
   err = cudaGetLastError();
   if (err != cudaSuccess) return -static_cast<long long>(err);
   err = lookback::wait_for_slot(total, stream);
   if (err != cudaSuccess) return -static_cast<long long>(err);
   return *total;
+}
+
+// The capacity form: the positions of the nonzero bytes of mask[0..n),
+// ascending, into out[0..min(count, cap)), the rest of `out` (cap int64) 0,
+// and the count into *count (device memory). `scratch` as for
+// compact_select. Enqueues two memsets and the kernel on `stream`; returns
+// the first CUDA error, or 0. Neither waits nor allocates.
+int compact_select_cap(const void* mask, long long n, long long tiles, void* scratch,
+                       void* out, long long cap, void* count, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n < 1 || cap < 1 || tiles != (n + kTile - 1) / kTile || tiles > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaMemsetAsync(out, 0, cap * 8, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (tiles > 1) {
+    err = cudaMemsetAsync(scratch, 0, (kStatusWords + tiles) * 8, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const bool aligned = reinterpret_cast<uintptr_t>(mask) % 8 == 0;
+  select_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, stream>>>(
+      static_cast<const unsigned char*>(mask), n, aligned, tiles,
+      static_cast<unsigned long long*>(scratch), static_cast<long long*>(out), cap,
+      static_cast<long long*>(count));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -62,6 +62,15 @@
 //   the marks then gives every position its range without any search. Each
 //   thread emits 8 pairs: all build_perm gathers started before any is used,
 //   both outputs written by 16-byte stores.
+//
+//   expand_pairs_cap is the capacity form (plan/compiler.py; JAX
+//   _expand_pairs(lo, counts, build_perm, out_cap)): the scan writes the
+//   total and the range check's verdict into device memory instead of the
+//   host slot, the outputs (cap pairs, memset to 0 first) are the caller's,
+//   and the expansion's grid is sized from cap: each block reads the total
+//   and stops past it (past cap too). A refused range writes no pair and
+//   sets the verdict's bit, which the host reads with the other counts.
+//   Nothing waits on the host, so a CUDA graph can capture the call.
 
 #include <algorithm>
 #include <climits>
@@ -443,8 +452,8 @@ __global__ void __launch_bounds__(kThreads)
 expand_kernel(const int* __restrict__ lo, const int* __restrict__ counts,
               long long n_probe, bool aligned, const long long* __restrict__ seg_end,
               long long segments, const long long* __restrict__ build_perm,
-              long long total, long long* __restrict__ probe_out,
-              long long* __restrict__ build_out) {
+              long long total, const long long* __restrict__ total_word, long long cap,
+              long long* __restrict__ probe_out, long long* __restrict__ build_out) {
   // a mark: the range in the high half, and in the low half the position in
   // build_perm of the range's pair at the block's first output (it may lie
   // up to kOutTile before the range, so it is signed); -1 where no range begins
@@ -454,7 +463,12 @@ expand_kernel(const int* __restrict__ lo, const int* __restrict__ counts,
   __shared__ long long shared_base;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  if (total_word != nullptr) {  // the capacity form: the scan's word, cut to cap
+    const long long word = *total_word;
+    total = (word & kRefused) != 0 ? 0 : min(word, cap);
+  }
   const long long out_first = static_cast<long long>(blockIdx.x) * kOutTile;
+  if (out_first >= total) return;  // the whole block: no barrier is skipped
   const long long out_end = min(out_first + kOutTile, total);
   const int n_out = static_cast<int>(out_end - out_first);
   for (int q = threadIdx.x; q < kMarkWords; q += kThreads) marks[q] = -1;
@@ -684,9 +698,51 @@ int expand_pairs(const void* lo, const void* counts, long long n_probe,
   const long long* seg_end = static_cast<const long long*>(scratch) + kStatusWords + tiles;
   expand_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const int*>(lo), static_cast<const int*>(counts), n_probe, aligned,
-      seg_end, segments, static_cast<const long long*>(build_perm), total,
+      seg_end, segments, static_cast<const long long*>(build_perm), total, nullptr, 0,
       static_cast<long long*>(outputs[0]), static_cast<long long*>(outputs[1]));
   return static_cast<int>(cudaGetLastError());
 }
+
+// K5, the capacity form. The pairs of the n_probe >= 1 ranges into
+// probe_out[0..min(total, cap)) and build_out, both of cap >= 1 int64,
+// 16-byte aligned and otherwise 0. `stats` (device memory, kStats int64)
+// receives the total in word 0, with bit 62 set if a count is negative or a
+// range leaves [0, n_build] (then no pair is written), and the ranges'
+// bounds in words 1..4. `scratch` as for expand_pairs. Enqueues memsets and
+// two kernels on `stream`; returns the first CUDA error, or 0. Neither
+// waits nor allocates.
+int expand_pairs_cap(const void* lo, const void* counts, long long n_probe,
+                     const void* build_perm, long long n_build, void* scratch, void* stats,
+                     void* probe_out, void* build_out, long long cap, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const long long tiles = ceil_div(n_probe, kScanTile);
+  const long long segments = ceil_div(n_probe, kSegRows);
+  const long long blocks = ceil_div(cap, kOutTile);
+  if (n_probe < 1 || cap < 1 || tiles > INT_MAX || blocks > INT_MAX ||
+      !aligned16(probe_out) || !aligned16(build_out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaMemsetAsync(probe_out, 0, cap * 8, stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(build_out, 0, cap * 8, stream);
+  if (err == cudaSuccess && tiles > 1) {
+    err = cudaMemsetAsync(scratch, 0, (kStatusWords + tiles) * 8, stream);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool aligned = aligned16(lo) && aligned16(counts);
+  long long* words = static_cast<long long*>(stats);
+  ranges_scan_kernel<<<static_cast<unsigned>(tiles), kScanThreads, 0, stream>>>(
+      static_cast<const int*>(lo), static_cast<const int*>(counts), n_probe, n_build,
+      aligned, tiles, segments, static_cast<unsigned long long*>(scratch), words);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long* seg_end = static_cast<const long long*>(scratch) + kStatusWords + tiles;
+  expand_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const int*>(lo), static_cast<const int*>(counts), n_probe, aligned,
+      seg_end, segments, static_cast<const long long*>(build_perm), 0, words, cap,
+      static_cast<long long*>(probe_out), static_cast<long long*>(build_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int expand_stats_words() { return kStats; }
 
 }  // extern "C"

@@ -25,8 +25,9 @@ import torch
 from hyrise_tpu_torch.expression.ast import AggregateExpr, Expr
 from hyrise_tpu_torch.expression.evaluator import compile_expression, make_env
 from hyrise_tpu_torch.kernels.fused_reduce import MAX_KEYS, fused_cells_reduce
-from hyrise_tpu_torch.kernels.prims import DENSE_CELL_MAX, compact_indices
+from hyrise_tpu_torch.kernels.prims import DENSE_CELL_MAX
 from hyrise_tpu_torch.ops.base import AbstractOperator, execute_plan
+from hyrise_tpu_torch.ops.materialize import mask_to_indices
 from hyrise_tpu_torch.storage.column import Column
 from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.types import (AggregateFunction, DataType,
@@ -110,7 +111,7 @@ class FusedFilterAggregate(AbstractOperator):
             mask = d.to(torch.bool)
             if v is not None:
                 mask = mask & v
-        if table.live is not None or table.num_rows < table.capacity:
+        if table.has_dead_rows:
             live = table.live_mask()
             mask = live if mask is None else (mask & live)
         if mask is None:
@@ -138,10 +139,12 @@ class FusedFilterAggregate(AbstractOperator):
         n_cells = counts.shape[0]
         if sizes:
             # ascending cell ids are key-sorted group order (codes preserve
-            # order); reading their number is the host sync
-            sel = compact_indices(counts > 0)
+            # order); reading their number is the host sync (an oracle site
+            # in capacity mode)
+            sel, n_groups = mask_to_indices(counts > 0, "aggregate.groups")
         else:
             sel = torch.zeros(1, dtype=torch.int64, device=dev)  # always one row
+            n_groups = 1
 
         cols: List[Column] = []
         stride = n_cells
@@ -162,7 +165,7 @@ class FusedFilterAggregate(AbstractOperator):
                 # no valid input: SUM/MIN/MAX/AVG are NULL, not 0
                 valid = n_valid > 0
             cols.append(Column(out_name, out_dt, data.to(out_dt.torch_dtype), valid))
-        out = Table(cols, sel.shape[0], name=table.name)
+        out = Table(cols, n_groups, name=table.name)
         if len(self.groupby) == 1:
             out.column(self.groupby[0]).unique = True  # each group appears once
         return out

@@ -19,6 +19,12 @@ side from pinned host memory that the scan's last tile writes (no stream
 synchronisation), has the outputs allocated and launches the expansion. Row
 ids come out as int64, ready for index_select; the lookup table itself is
 int32 (it is the largest allocation of a join).
+
+`expand_pairs_cap` is K5's capacity form (plan/compiler.py; JAX
+_expand_pairs(lo, counts, build_perm, out_cap)): cap pairs padded with 0,
+the total and the range check's verdict as device tensors, nothing read on
+the host, so that a CUDA graph can capture it; plain version
+`expand_pairs_cap_plain`.
 """
 
 from __future__ import annotations
@@ -53,7 +59,10 @@ def _library() -> ctypes.CDLL:
     lib.expand_pairs.argtypes = [ptr, ptr, i64, ptr, i64, ptr, _ALLOCATE,
                                  ctypes.POINTER(i64), ptr]
     lib.expand_pairs.restype = i32
-    for tile in (lib.expand_scan_tile_rows, lib.expand_out_tile_pairs):
+    lib.expand_pairs_cap.argtypes = [ptr, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, i64, ptr]
+    lib.expand_pairs_cap.restype = i32
+    for tile in (lib.expand_scan_tile_rows, lib.expand_out_tile_pairs,
+                 lib.expand_stats_words):
         tile.argtypes = []
         tile.restype = i32
     return lib
@@ -262,3 +271,86 @@ def expand_pairs(lo: torch.Tensor, counts: torch.Tensor,
 expand_pairs.launches = 0
 expand_pairs.rows_seen = 0
 expand_pairs.pairs_out = 0
+
+
+# -- K5, the capacity form ------------------------------------------------------
+
+_REFUSED_BIT = 62
+
+
+def expand_pairs_cap_plain(lo: torch.Tensor, counts: torch.Tensor, build_perm: torch.Tensor,
+                           cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Plain torch version of expand_pairs_cap: the inclusive prefix sum of
+    the counts, and per output position its range by searchsorted and its
+    rank by subtraction; no host read."""
+    _check_ranges(lo, counts, build_perm)
+    if cap < 1:
+        raise ValueError(f"capacity {cap} < 1")
+    dev = lo.device
+    n_probe, n_build = lo.shape[0], build_perm.shape[0]
+    zeros = torch.zeros(cap, dtype=torch.int64, device=dev)
+    if n_probe == 0:
+        none = torch.zeros((), dtype=torch.int64, device=dev)
+        return zeros, zeros.clone(), none, none.to(torch.bool)
+    counts64 = counts.to(torch.int64)
+    ends = torch.cumsum(counts64, 0)
+    total = ends[-1]
+    # int32 ends, as the kernel and expand_pairs_plain take them
+    min_end, max_end = torch.aminmax(lo + counts)
+    refused = ((counts.min() < 0) | (lo.min() < 0) | (min_end < 0)
+               | (max_end.to(torch.int64) > n_build))
+    n_out = torch.where(refused, 0, total.clamp(max=cap))
+    pos = torch.arange(cap, dtype=torch.int64, device=dev)
+    kept = pos < n_out
+    probe = torch.searchsorted(ends, pos, right=True).clamp(max=n_probe - 1)
+    rank = pos - (ends - counts64).index_select(0, probe)
+    at = (lo.to(torch.int64).index_select(0, probe) + rank).clamp(0, max(n_build - 1, 0))
+    build_rows = build_perm.index_select(0, at) if n_build else zeros
+    return (torch.where(kept, probe, 0), torch.where(kept, build_rows, 0), total, refused)
+
+
+def expand_pairs_cap(lo: torch.Tensor, counts: torch.Tensor, build_perm: torch.Tensor,
+                     cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(probe rows, build rows, total, refused): the first min(total, cap)
+    pairs of expand_pairs in order, then 0 up to cap entries each; the
+    number of pairs the ranges make (int64, 0-dim, may exceed cap); and
+    whether a count is negative or a range leaves build_perm (bool, 0-dim;
+    then no pair is written). CPU tensors take expand_pairs_cap_plain; CUDA
+    tensors launch the K5 kernels' capacity form (memsets, the scan, the
+    expansion; no host wait) or raise."""
+    _check_ranges(lo, counts, build_perm)
+    dev = lo.device
+    if dev.type == "cpu":
+        return expand_pairs_cap_plain(lo, counts, build_perm, cap)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if cap < 1:
+        raise ValueError(f"capacity {cap} < 1")
+    n_probe = lo.shape[0]
+    # the build rows start 16-byte aligned: an odd cap gets one more column
+    outputs = torch.empty((2, cap + cap % 2), dtype=torch.int64, device=dev)
+    if n_probe == 0:
+        outputs.zero_()
+        none = torch.zeros((), dtype=torch.int64, device=dev)
+        return outputs[0, :cap], outputs[1, :cap], none, none.to(torch.bool)
+    lib = _library()
+    scratch = torch.empty(lib.expand_scratch_words(n_probe) + lib.expand_stats_words(),
+                          dtype=torch.int64, device=dev)
+    stats = scratch[-lib.expand_stats_words():]
+    with torch.cuda.device(dev):
+        err = lib.expand_pairs_cap(lo.data_ptr(), counts.data_ptr(), n_probe,
+                                   build_perm.data_ptr(), build_perm.shape[0],
+                                   scratch.data_ptr(), stats.data_ptr(),
+                                   outputs[0].data_ptr(), outputs[1].data_ptr(), cap,
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch(err, "expand_pairs_cap")
+    build.count_launch(expand_pairs_cap, rows_seen=n_probe)
+    word = stats[0]
+    refused = (word >> _REFUSED_BIT) & 1
+    return (outputs[0, :cap], outputs[1, :cap], word & ((1 << _REFUSED_BIT) - 1),
+            refused.to(torch.bool))
+
+
+expand_pairs_cap.launches = 0
+expand_pairs_cap.rows_seen = 0

@@ -32,11 +32,10 @@ import torch
 from hyrise_tpu_torch.expression.ast import AggregateExpr
 from hyrise_tpu_torch.expression.evaluator import compile_expression, make_env
 from hyrise_tpu_torch.kernels.group_reduce import extreme
-from hyrise_tpu_torch.kernels.prims import (DENSE_CELL_MAX, compact_indices,
-                                            segment_reduce_cells,
+from hyrise_tpu_torch.kernels.prims import (DENSE_CELL_MAX, segment_reduce_cells,
                                             segment_reduce_sorted)
-from hyrise_tpu_torch.ops.base import AbstractOperator
-from hyrise_tpu_torch.ops.materialize import ensure_prefix, gather_table
+from hyrise_tpu_torch.ops.base import AbstractOperator, capacity_mode
+from hyrise_tpu_torch.ops.materialize import ensure_prefix, gather_table, mask_to_indices
 from hyrise_tpu_torch.ops.sort_util import (group_boundaries, group_permutation,
                                             lexsort)
 from hyrise_tpu_torch.storage.column import Column
@@ -48,6 +47,17 @@ def _distinct_key(data: torch.Tensor, in_dt: DataType) -> torch.Tensor:
     if in_dt.is_integral or in_dt is DataType.STRING:
         return data.to(torch.int64)
     return data.to(torch.float64)
+
+
+def _distinct_count(key: torch.Tensor, selected: torch.Tensor) -> torch.Tensor:
+    """The number of distinct values among key[selected], as a 1-element
+    int64 tensor, without a host read: the selected rows first, in key
+    order, then count the starts of their runs."""
+    order = lexsort([key, (~selected).to(torch.int32)])
+    k, sel = key.index_select(0, order), selected.index_select(0, order)
+    new = sel.clone()
+    new[1:] &= k[1:] != k[:-1]
+    return new.sum().reshape(1).to(torch.int64)
 
 
 class Aggregate(AbstractOperator):
@@ -123,16 +133,17 @@ class Aggregate(AbstractOperator):
         cell = torch.zeros(table.capacity, dtype=torch.int32, device=dev)
         for name, size in zip(self.groupby, sizes):
             cell = cell * size + table.column(name).data
-        if table.live is not None or table.num_rows < table.capacity:
+        if table.has_dead_rows:
             cell = torch.where(table.live_mask(), cell, cells)  # dead rows: outside
 
         rows_per_cell = segment_reduce_cells(None, cell, cells, "count")
         if self.groupby:
             # ascending cell ids are key-sorted group order (codes preserve
             # order), as in the general form; reading them is the host sync
-            cell_ids = compact_indices(rows_per_cell > 0)
+            cell_ids, n_groups = mask_to_indices(rows_per_cell > 0, "aggregate.groups")
         else:
             cell_ids = torch.zeros(1, dtype=torch.int64, device=dev)  # always one row
+            n_groups = 1
 
         out_cols: List[Column] = []
         stride = cells
@@ -187,13 +198,12 @@ class Aggregate(AbstractOperator):
             elif fn is AggregateFunction.COUNT_DISTINCT:
                 # global only (_dense_sizes): sort the valid values, count runs
                 key = _distinct_key(data, in_dt)
-                vals = torch.sort(key[cell_a == 0]).values
-                distinct = (vals[1:] != vals[:-1]).sum() + min(vals.shape[0], 1)
+                distinct = _distinct_count(key, cell_a == 0)
                 out_cols.append(Column(out_name, DataType.INT64,
                                        distinct.reshape(1).to(torch.int64)))
             else:
                 raise NotImplementedError(fn)
-        return Table(out_cols, cell_ids.shape[0], name=table.name)
+        return Table(out_cols, n_groups, name=table.name)
 
     # -- general ----------------------------------------------------------------
 
@@ -202,12 +212,13 @@ class Aggregate(AbstractOperator):
         n = table.num_rows
         perm = group_permutation(table, self.groupby)
         flags = group_boundaries(table, self.groupby, perm)
+        if capacity_mode():
+            return self._general_capacity(table, perm, flags)
         # dead rows sort last: keep the first n of every permuted array
         rows = perm[:n]
         # group g is positions [starts[g], starts[g + 1]) of `rows`; reading
         # the number of groups is the host sync
-        first = compact_indices(flags[:n])
-        n_groups = first.shape[0]
+        first, n_groups = mask_to_indices(flags[:n])
         starts = torch.cat([first, torch.full((1,), n, dtype=torch.int64,
                                               device=first.device)])
         # group-by key columns: representative = first row of each group
@@ -217,6 +228,32 @@ class Aggregate(AbstractOperator):
             out_cols.append(self._compute_aggregate(
                 out_name, fn, data, validity, in_dt, dictionary, rows, starts,
                 flags[:n]))
+        return Table(out_cols, n_groups, name=table.name)
+
+    def _general_capacity(self, table: Table, perm: torch.Tensor,
+                          flags: torch.Tensor) -> Table:
+        """The general form in capacity mode: every sorted position is kept
+        (dead rows last, never flagged), the group starts come from the
+        oracle's compaction, and the groups past the live count start and end
+        at the live row count."""
+        dev = table.device
+        n = table.num_rows
+        if not isinstance(n, torch.Tensor):
+            n = torch.full((), n, dtype=torch.int64, device=dev)
+        live_sorted = torch.arange(table.capacity, device=dev) < n
+        flags = flags & live_sorted
+        first, n_groups = mask_to_indices(flags, "aggregate.groups")
+        in_use = torch.arange(first.shape[0], device=dev) < n_groups
+        starts = torch.cat([torch.where(in_use, first, n), n.reshape(1)])
+        rep = gather_table(table, perm.index_select(0, first), num_rows=n_groups)
+        out_cols: List[Column] = [rep.column(name) for name in self.groupby]
+        for out_name, fn, data, validity, in_dt, dictionary in self._compiled(table):
+            if fn is AggregateFunction.COUNT_DISTINCT:
+                # dead rows, which the last group's run takes in, count as NULL
+                live = table.live_mask()
+                validity = live if validity is None else validity & live
+            out_cols.append(self._compute_aggregate(
+                out_name, fn, data, validity, in_dt, dictionary, perm, starts, flags))
         return Table(out_cols, n_groups, name=table.name)
 
     @staticmethod

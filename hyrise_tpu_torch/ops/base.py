@@ -16,6 +16,13 @@ import torch
 from hyrise_tpu_torch.storage.table import Table
 
 
+def capacity_mode() -> bool:
+    """Whether this thread runs a plan in capacity mode (plan/compiler.py,
+    imported here when called: plan/ imports the operators)."""
+    from hyrise_tpu_torch.plan.compiler import tracing
+    return tracing()
+
+
 class OperatorPerformanceData:
     """Reference: src/lib/operators/operator_performance_data.hpp:12-19."""
 
@@ -58,7 +65,7 @@ class AbstractOperator:
         t0 = time.perf_counter()
         self._output = self._on_execute(context)
         device = self._output.device
-        if device.type == "cuda":
+        if device.type == "cuda" and not capacity_mode():
             # Wait for the device so walltime measures the operator's device
             # work, like the reference's per-operator timing. Lazy (not yet
             # materialized) columns are not forced: their cost lands on the

@@ -2,8 +2,9 @@
 
 Port of hyrise_tpu/ops/get_table.py (reference: src/lib/operators/
 get_table.{hpp,cpp} and table_wrapper.cpp): fetch a table from a catalog,
-or wrap a literal table. The port runs eagerly, so both return the table
-itself.
+or wrap a literal table. Both return the table itself. In capacity mode
+(plan/compiler.py) a catalog table must be one the CompiledQuery pinned: a
+table replaced under a run raises PlanNotCompilable.
 """
 
 from __future__ import annotations
@@ -22,7 +23,14 @@ class GetTable(AbstractOperator):
         self.catalog = catalog
 
     def _on_execute(self, context) -> Table:
-        return self.catalog.get_table(self.table_name)
+        from hyrise_tpu_torch.plan.compiler import PlanNotCompilable, active
+
+        t = self.catalog.get_table(self.table_name)
+        ctx = active()
+        if ctx is not None and id(t) not in ctx.sources:
+            raise PlanNotCompilable(f"table {t.name!r} was not pinned as a source "
+                                    f"(the catalog changed under the run)")
+        return t
 
 
 class TableWrapper(AbstractOperator):

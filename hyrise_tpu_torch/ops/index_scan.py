@@ -48,6 +48,11 @@ class IndexScan(AbstractOperator):
         self.extra_equals = list(extra_equals or [])
 
     def _on_execute(self, context) -> Table:
+        from hyrise_tpu_torch.plan.compiler import PlanNotCompilable, tracing
+
+        if tracing():
+            # an index range is read on the host
+            raise PlanNotCompilable("IndexScan")
         table = self.input_table(0)
         if self.extra_equals:
             if self.cond is P.EQUALS:

@@ -27,7 +27,11 @@ One engine, two paths:
 Output order: probe-major; within a probe row the build rows in ascending
 (key, row) order; then unmatched probe rows; then unmatched build rows.
 Sizes are read eagerly (one host sync per variable-size step); there is no
-capacity padding.
+capacity padding. In capacity mode (plan/compiler.py) every such step is an
+oracle site instead: the pair expansion takes K5's capacity form (estimated
+at one match a probe row, as in the JAX package), the compactions K9's,
+the parts are joined by one more compaction, and a lookup join's row count
+stays on the device.
 
 Join-key NULL semantics match the reference (join_hash.cpp probe /
 probe_semi_anti): NULL keys never match; LEFT/RIGHT/OUTER emit them with a
@@ -48,10 +52,12 @@ from hyrise_tpu_torch.kernels.prims import (LUT_MAX_ENTRIES, compact_indices,
                                             expand_pairs, lookup_last_eq,
                                             lookup_last_eq_lut, rank_in_sorted,
                                             ranks_lo_hi, sort_valid_keys)
-from hyrise_tpu_torch.ops.base import AbstractOperator, execute_plan
+from hyrise_tpu_torch.kernels.join_probe import expand_pairs_cap
+from hyrise_tpu_torch.ops.base import AbstractOperator, capacity_mode, execute_plan
 from hyrise_tpu_torch.ops.get_table import TableWrapper
 from hyrise_tpu_torch.ops.materialize import (ensure_prefix, filter_table,
-                                              gather_columns_at)
+                                              gather_columns_at, mask_to_indices)
+from hyrise_tpu_torch.ops.sort_util import lexsort
 from hyrise_tpu_torch.ops.table_scan import TableScan
 from hyrise_tpu_torch.storage.column import Column, merge_dictionaries
 from hyrise_tpu_torch.storage.index import SortedIndex, get_index
@@ -92,9 +98,20 @@ def _key_space(pc: Column, bc: Column) -> _KeySpace:
 
 
 def _keys_in(c: Column, remap: Optional[np.ndarray], dtype: torch.dtype) -> torch.Tensor:
+    from hyrise_tpu_torch.plan.compiler import device_constant
+
     if remap is None:
         return c.data.to(dtype)
-    return torch.as_tensor(remap, dtype=torch.int64, device=c.device)[c.data.to(torch.int64)]
+    return device_constant(remap, torch.int64, c.device)[c.data.to(torch.int64)]
+
+
+def _rows(mask: torch.Tensor, label: str):
+    """The number of True rows of a masked-layout output: read on the host
+    eagerly (oracle_capacity), kept on the device in capacity mode, where
+    the mask needs no capacity."""
+    from hyrise_tpu_torch.plan.compiler import oracle_capacity
+
+    return mask.sum() if capacity_mode() else oracle_capacity(mask.sum(), label=label)[0]
 
 
 def _join_key_arrays(lt: Table, rt: Table, left_col: str, right_col: str):
@@ -112,19 +129,23 @@ def _valid_rows(table: Table, validity: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def _probe_ranges(sorted_keys: torch.Tensor, probe_keys: torch.Tensor,
-                  probe_valid: torch.Tensor, cond: PredicateCondition):
+                  probe_valid: torch.Tensor, cond: PredicateCondition, n_valid=None):
     """Per probe row, the contiguous match range over the sorted valid
     build keys, as int32 (lo, counts); invalid probe rows get count 0. The
-    condition reads `probe cond build`."""
-    n_valid = sorted_keys.shape[0]
+    condition reads `probe cond build`. In capacity mode the sorted keys
+    are a buffer whose first `n_valid` (a device count) entries are the
+    keys: the ranges are cut there, as in the JAX package."""
+    padded = isinstance(n_valid, torch.Tensor)
+    if not padded:
+        n_valid = sorted_keys.shape[0]
     if cond is PredicateCondition.EQUALS:
         lo, hi = ranks_lo_hi(sorted_keys, probe_keys)
     elif cond is PredicateCondition.LESS_THAN:          # probe < build
         lo = rank_in_sorted(sorted_keys, probe_keys, "right")
-        hi = torch.full_like(lo, n_valid)
+        hi = torch.full_like(lo, sorted_keys.shape[0])
     elif cond is PredicateCondition.LESS_THAN_EQUALS:
         lo = rank_in_sorted(sorted_keys, probe_keys, "left")
-        hi = torch.full_like(lo, n_valid)
+        hi = torch.full_like(lo, sorted_keys.shape[0])
     elif cond is PredicateCondition.GREATER_THAN:       # probe > build
         hi = rank_in_sorted(sorted_keys, probe_keys, "left")
         lo = torch.zeros_like(hi)
@@ -133,6 +154,10 @@ def _probe_ranges(sorted_keys: torch.Tensor, probe_keys: torch.Tensor,
         lo = torch.zeros_like(hi)
     else:
         raise ValueError(cond)
+    if padded:
+        n32 = n_valid.to(torch.int32)
+        lo, hi = torch.minimum(lo, n32), torch.minimum(hi, n32)
+        return lo, torch.where(probe_valid, (hi - lo).clamp(min=0), 0)
     counts = torch.where(probe_valid, hi - lo, 0)
     return lo, counts
 
@@ -153,6 +178,7 @@ class _BuildSide:
     bounds: Optional[Tuple[int, int]] = None  # lookup path: the LUT's, else None
     sorted_keys: Optional[torch.Tensor] = None  # ranges path
     perm: Optional[torch.Tensor] = None
+    n_valid: object = None  # ranges path in capacity mode: the device count
 
 
 class BuildCache:
@@ -246,7 +272,7 @@ class Join(AbstractOperator):
             build.bounds = self._lut_bounds(table, build_col, keys, build.valid,
                                             space.remap_len)
         else:
-            build.sorted_keys, build.perm = self._sorted_build(
+            build.sorted_keys, build.perm, build.n_valid = self._sorted_build(
                 table, build_col, keys, bc.validity, space.remap_len)
         if self.build_cache is not None:
             self.build_cache.put(key, (build_t, probe_dict), build)
@@ -288,6 +314,8 @@ class Join(AbstractOperator):
             bounds = (0, max(len(bc.dictionary) - 1, 0))
         elif bc.val_range is not None:
             bounds = bc.val_range
+        elif capacity_mode():
+            return None  # no host read in capacity mode: the hash lookup (K8)
         else:
             info = torch.iinfo(torch.int64)
             bounds = tuple(torch.stack([
@@ -323,13 +351,13 @@ class Join(AbstractOperator):
                     keep = keep & (lv | ~b_live.any())
                 if build.validity is not None:
                     keep = keep & ~(b_live & ~build.validity).any()
-            return Table(probe_t.columns, int(keep.sum()), name=probe_t.name,
+            return Table(probe_t.columns, _rows(keep, "join.lookup"), name=probe_t.name,
                          live=keep)
         out_live = matched if mode is JoinMode.INNER else live
         build_cols = gather_columns_at(
             build.table, build_row, matched if mode is JoinMode.LEFT else None)
         return Table(_concat_columns(probe_t.columns, build_cols, swap_output),
-                     int(out_live.sum()), name=probe_t.name, live=out_live)
+                     _rows(out_live, "join.lookup"), name=probe_t.name, live=out_live)
 
     # -- sorted-range path -------------------------------------------------------
 
@@ -344,14 +372,18 @@ class Join(AbstractOperator):
             conds = (PredicateCondition.GREATER_THAN, PredicateCondition.LESS_THAN)
         else:
             conds = (cond,)
-        ranges = [_probe_ranges(build.sorted_keys, lk, probe_valid, c) for c in conds]
+        ranges = [_probe_ranges(build.sorted_keys, lk, probe_valid, c, build.n_valid)
+                  for c in conds]
         return ranges, probe_valid
 
     def _sorted_build(self, build_t: Table, build_col: str, rk: torch.Tensor,
                       rv: Optional[torch.Tensor], remap_len: Optional[int]):
         """The build side's valid rows in ascending (key, row) order: (sorted
-        keys, their rows)."""
-        return sort_valid_keys(rk, _valid_rows(build_t, rv))
+        keys, their rows, None), or in capacity mode (a buffer of sorted
+        keys, their rows, the device count of valid rows)."""
+        if capacity_mode():
+            return _sort_valid_capacity(rk, _valid_rows(build_t, rv))
+        return (*sort_valid_keys(rk, _valid_rows(build_t, rv)), None)
 
     @staticmethod
     def _emit(probe_t: Table, build_t: Table, build_col: str, ranges: Ranges,
@@ -378,8 +410,15 @@ class Join(AbstractOperator):
                     keep = keep & ~(b_live & ~bcol.validity).any()
             return filter_table(probe_t, keep)
 
+        if capacity_mode():
+            return _emit_capacity(probe_t, build_t, ranges, build_perm, total_counts,
+                                  live, mode, swap_output)
+        from hyrise_tpu_torch.plan.compiler import note_eager_read
+
         dev = probe_t.device
         expanded = [expand_pairs(lo, counts, build_perm) for lo, counts in ranges]
+        for _ in expanded:
+            note_eager_read()  # K5 handed the number of pairs to the host
         probe_parts = [p for p, _ in expanded]
         build_parts = [b for _, b in expanded]
         n_pairs = sum(p.shape[0] for p in probe_parts)
@@ -415,6 +454,76 @@ class Join(AbstractOperator):
             torch.cat(build_ok) if mode in (JoinMode.LEFT, JoinMode.OUTER) else None)
         return Table(_concat_columns(probe_cols, build_cols, swap_output),
                      probe_idx.shape[0], name=probe_t.name)
+
+
+def _sort_valid_capacity(keys: torch.Tensor, valid: torch.Tensor):
+    """sort_valid_keys in capacity mode: (sorted keys, their rows, the
+    device count of valid rows). The valid rows' positions come from the
+    oracle's compaction and sort first, in the order sort_valid_keys gives;
+    the padding behind them repeats the last valid key, so the buffer stays
+    sorted whatever the keys (NaN included), and _probe_ranges cuts the
+    ranges at the count."""
+    rows, n_valid = mask_to_indices(valid, "join.build_valid")
+    in_use = torch.arange(rows.shape[0], device=rows.device) < n_valid
+    k = keys.index_select(0, rows)
+    order = lexsort([k, (~in_use).to(torch.int32)])
+    k = k.index_select(0, order)
+    last = k.index_select(0, (n_valid - 1).clamp(min=0).reshape(1))
+    return torch.where(in_use, k, last), rows.index_select(0, order), n_valid
+
+
+def _capacity_parts(parts, dev):
+    """Join the parts of a capacity-mode join output, each (probe rows,
+    build rows, device count, flag: 1 both sides real, 0 build side NULL, 2
+    probe side NULL), into (probe rows, build rows, flags or None, count):
+    one part as it is, several by one more oracle compaction."""
+    if len(parts) == 1:
+        p, b, n, _ = parts[0]
+        return p, b, None, n
+    keep = torch.cat([torch.arange(p.shape[0], device=dev) < n for p, _, n, _ in parts])
+    sel, n_out = mask_to_indices(keep, "join.out")
+    flags = torch.cat([torch.full((p.shape[0],), f, dtype=torch.int32, device=dev)
+                       for p, _, _, f in parts])
+    return (torch.cat([p for p, _, _, _ in parts]).index_select(0, sel),
+            torch.cat([b for _, b, _, _ in parts]).index_select(0, sel),
+            flags.index_select(0, sel), n_out)
+
+
+def _emit_capacity(probe_t: Table, build_t: Table, ranges: Ranges, build_perm: torch.Tensor,
+                   total_counts: torch.Tensor, live: torch.Tensor, mode: JoinMode,
+                   swap_output: bool) -> Table:
+    """Join._emit in capacity mode (the JAX package's _emit): each range
+    list expands through K5's capacity form at a site estimated at one pair
+    a probe row, then the unmatched probe rows (LEFT/OUTER) and build rows
+    (OUTER) through K9's."""
+    from hyrise_tpu_torch.plan.compiler import active
+
+    ctx = active()
+    dev = probe_t.device
+    parts = []
+    for lo, counts in ranges:
+        cap = ctx.reserve(None, probe_t.capacity, "join.expand")
+        p, b, total, refused = expand_pairs_cap(lo, counts, build_perm, cap)
+        ctx.check(refused, "join.expand ranges")
+        parts.append((p, b, ctx.record(total, cap), 1))
+    if mode in (JoinMode.LEFT, JoinMode.OUTER):
+        u, n_u = mask_to_indices((total_counts == 0) & live, "join.unmatched")
+        parts.append((u, torch.zeros_like(u), n_u, 0))
+    if mode is JoinMode.OUTER:
+        seen = torch.zeros(build_t.capacity + 1, dtype=torch.bool, device=dev)
+        for _, b, n, _ in parts[:len(ranges)]:
+            in_use = torch.arange(b.shape[0], device=dev) < n
+            seen.index_fill_(0, torch.where(in_use, b, build_t.capacity), True)
+        bu, n_bu = mask_to_indices(~seen[:-1] & build_t.live_mask(), "join.build_unmatched")
+        parts.append((torch.zeros_like(bu), bu, n_bu, 2))
+    probe_idx, build_idx, flags, n_out = _capacity_parts(parts, dev)
+    probe_cols = gather_columns_at(probe_t, probe_idx,
+                                   flags != 2 if mode is JoinMode.OUTER else None)
+    build_cols = gather_columns_at(build_t, build_idx,
+                                   flags >= 1 if mode in (JoinMode.LEFT, JoinMode.OUTER)
+                                   else None)
+    return Table(_concat_columns(probe_cols, build_cols, swap_output), n_out,
+                 name=probe_t.name)
 
 
 class JoinHash(Join):
@@ -471,7 +580,7 @@ class JoinIndex(Join):
         self.performance_data.extra["index_used"] = used
         if not used:
             return super()._sorted_build(build_t, build_col, rk, rv, remap_len)
-        return values.to(rk.dtype), idx.perm
+        return values.to(rk.dtype), idx.perm, None
 
 
 PACKED_LEFT, PACKED_RIGHT = "__packed_key_left", "__packed_key_right"
@@ -598,6 +707,8 @@ class JoinNestedLoop(AbstractOperator):
 
         # matched pairs, flat left-major
         dev = lt.device
+        if capacity_mode():
+            return self._capacity_form(lt, rt, pair, l_counts)
         sel = compact_indices(pair.reshape(-1))
         left_parts = [sel // max(rt.capacity, 1)]
         right_parts = [sel % max(rt.capacity, 1)]
@@ -630,6 +741,27 @@ class JoinNestedLoop(AbstractOperator):
             torch.cat(right_ok) if mode in (JoinMode.LEFT, JoinMode.OUTER) else None)
         return Table(left_cols + right_cols, left_idx.shape[0], name=lt.name)
 
+    def _capacity_form(self, lt: Table, rt: Table, pair: torch.Tensor,
+                       l_counts: torch.Tensor) -> Table:
+        """The pairs and the unmatched rows through the oracle's compactions."""
+        mode, dev = self.mode, lt.device
+        m = max(rt.capacity, 1)
+        sel, n = mask_to_indices(pair.reshape(-1), "join.pairs")
+        parts = [(sel // m, sel % m, n, 1)]
+        if mode in (JoinMode.LEFT, JoinMode.OUTER):
+            u, n_u = mask_to_indices((l_counts == 0) & lt.live_mask(), "join.unmatched")
+            parts.append((u, torch.zeros_like(u), n_u, 0))
+        if mode in (JoinMode.RIGHT, JoinMode.OUTER):
+            u, n_u = mask_to_indices((pair.sum(dim=0) == 0) & rt.live_mask(),
+                                     "join.build_unmatched")
+            parts.append((torch.zeros_like(u), u, n_u, 2))
+        left_idx, right_idx, flags, n_out = _capacity_parts(parts, dev)
+        left_cols = gather_columns_at(
+            lt, left_idx, flags != 2 if mode in (JoinMode.RIGHT, JoinMode.OUTER) else None)
+        right_cols = gather_columns_at(
+            rt, right_idx, flags >= 1 if mode in (JoinMode.LEFT, JoinMode.OUTER) else None)
+        return Table(left_cols + right_cols, n_out, name=lt.name)
+
 
 class Product(AbstractOperator):
     """Cross join (reference product.cpp): every left row beside every right
@@ -644,6 +776,13 @@ class Product(AbstractOperator):
         lt = ensure_prefix(self.input_table(0))
         rt = ensure_prefix(self.input_table(1))
         n, m = lt.num_rows, rt.num_rows
+        if isinstance(n, torch.Tensor) or isinstance(m, torch.Tensor):
+            # capacity mode: every pair of positions, the live ones in a mask
+            nc, mc = lt.capacity, max(rt.capacity, 1)
+            idx = torch.arange(nc * rt.capacity, device=lt.device)
+            live = (idx // mc < n) & (idx % mc < m)
+            cols = gather_columns_at(lt, idx // mc) + gather_columns_at(rt, idx % mc)
+            return Table(cols, n * m, name=lt.name, live=live)
         idx = torch.arange(n * m, device=lt.device)
         cols = gather_columns_at(lt, idx // max(m, 1)) + \
             gather_columns_at(rt, idx % max(m, 1))

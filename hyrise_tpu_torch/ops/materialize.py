@@ -4,8 +4,10 @@ Port of hyrise_tpu/ops/materialize.py (reference:
 src/lib/storage/reference_column.hpp:19-51 and PosList, types.hpp:138). A
 selection is a dense int64 index tensor whose length is the row count:
 counting its rows is one device->host sync per variable-size operator,
-matching the reference's per-operator barrier. There is no capacity
-padding and no capacity oracle: the count is read eagerly.
+matching the reference's per-operator barrier. Eagerly there is no
+capacity padding: the K9 kernel hands the count to the host. In capacity
+mode (plan/compiler.py) the compaction goes through the oracle: the indices
+are padded with 0 to the site's capacity and the count stays on the device.
 """
 
 from __future__ import annotations
@@ -20,9 +22,17 @@ from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.utils.asserts import assert_indices_in_range
 
 
-def mask_to_indices(mask: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """Compact a bool mask into (indices of its True rows, their count)."""
+def mask_to_indices(mask: torch.Tensor, label: str = "filter") -> Tuple[torch.Tensor, object]:
+    """Compact a bool mask into (indices of its True rows, their count):
+    exactly as many indices and a host count eagerly; in capacity mode a
+    capacity's worth of indices and the count as a device tensor (a filter
+    cannot grow: the mask's length bounds the site)."""
+    from hyrise_tpu_torch.plan.compiler import note_eager_read, oracle_compact, tracing
+
+    if tracing():
+        return oracle_compact(mask, label)
     indices = compact_indices(mask)
+    note_eager_read()  # K9 handed the count to the host
     return indices, indices.shape[0]
 
 
@@ -66,18 +76,19 @@ def gather_columns_at(table: Table, indices: torch.Tensor,
 
 
 def gather_table(table: Table, indices: torch.Tensor,
-                 preserve_unique: bool = False) -> Table:
-    """table[indices] as a new prefix-layout table (see gather_columns_at)."""
+                 preserve_unique: bool = False, num_rows=None) -> Table:
+    """table[indices] as a new prefix-layout table (see gather_columns_at)
+    of `num_rows` rows, by default every index."""
     return Table(gather_columns_at(table, indices,
                                    preserve_unique=preserve_unique),
-                 indices.shape[0], name=table.name)
+                 indices.shape[0] if num_rows is None else num_rows, name=table.name)
 
 
 def filter_table(table: Table, mask: torch.Tensor) -> Table:
     """Rows of `table` where `mask` (capacity,) holds, ANDed with the live
     rows, compacted into a prefix-layout table with lazy columns."""
-    indices, _ = mask_to_indices(mask & table.live_mask())
-    return gather_table(table, indices, preserve_unique=True)
+    indices, n = mask_to_indices(mask & table.live_mask())
+    return gather_table(table, indices, preserve_unique=True, num_rows=n)
 
 
 def ensure_prefix(table: Table) -> Table:
@@ -88,4 +99,5 @@ def ensure_prefix(table: Table) -> Table:
     table, so the two are one function here."""
     if table.live is None:
         return table
-    return gather_table(table, compact_indices(table.live), preserve_unique=True)
+    indices, n = mask_to_indices(table.live, "compact")
+    return gather_table(table, indices, preserve_unique=True, num_rows=n)

@@ -16,7 +16,8 @@ import torch
 
 from hyrise_tpu_torch.kernels.prims import lookup_last_eq
 from hyrise_tpu_torch.ops.base import AbstractOperator, execute_plan
-from hyrise_tpu_torch.ops.materialize import ensure_prefix, filter_table
+from hyrise_tpu_torch.ops.materialize import (ensure_prefix, filter_table, gather_table,
+                                              mask_to_indices)
 from hyrise_tpu_torch.storage.column import Column, merge_dictionaries
 from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.types import DataType, common_numeric_type
@@ -33,7 +34,10 @@ class Limit(AbstractOperator):
 
     def _on_execute(self, context) -> Table:
         t = self.input_table(0)
-        n = min(t.num_rows, self.n)
+        if isinstance(t.num_rows, torch.Tensor):  # capacity mode
+            n = t.num_rows.clamp(max=self.n)
+        else:
+            n = min(t.num_rows, self.n)
         if t.live is not None:
             # masked layout: keep the first n live rows in the mask
             live = t.live & (torch.cumsum(t.live, 0) <= self.n)
@@ -76,14 +80,16 @@ class Alias(AbstractOperator):
 def _align_columns(a: Column, b: Column):
     """Make two columns concatenable: (a, b, dictionary) with a common dtype
     and, for strings, both code sets rewritten into one merged dictionary."""
+    from hyrise_tpu_torch.plan.compiler import device_constant
+
     if (a.dtype is DataType.STRING) != (b.dtype is DataType.STRING):
         raise TypeError("cannot union string with non-string")
     if a.dtype is DataType.STRING:
         if a.dictionary is b.dictionary or np.array_equal(a.dictionary, b.dictionary):
             return a, b, a.dictionary
         merged, ra, rb = merge_dictionaries(a.dictionary, b.dictionary)
-        da = torch.as_tensor(ra, device=a.device)[a.data.to(torch.int64)]
-        db = torch.as_tensor(rb, device=b.device)[b.data.to(torch.int64)]
+        da = device_constant(ra, torch.int64, a.device)[a.data.to(torch.int64)]
+        db = device_constant(rb, torch.int64, b.device)[b.data.to(torch.int64)]
         return (Column(a.name, a.dtype, da, a.validity, merged),
                 Column(b.name, b.dtype, db, b.validity, merged), merged)
     if a.dtype != b.dtype:
@@ -104,6 +110,8 @@ class UnionAll(AbstractOperator):
         rt = ensure_prefix(self.input_table(1))
         if len(lt.columns) != len(rt.columns):
             raise ValueError("UnionAll inputs differ in column count")
+        if isinstance(lt.num_rows, torch.Tensor) or isinstance(rt.num_rows, torch.Tensor):
+            return self._capacity_form(lt, rt)
         nl, nr = lt.num_rows, rt.num_rows
         cols: List[Column] = []
         for ca, cb in zip(lt.columns, rt.columns):
@@ -120,6 +128,28 @@ class UnionAll(AbstractOperator):
             cols.append(Column(ca.name, ca.dtype, data, validity,
                                merged if merged is not None else ca.dictionary))
         return Table(cols, nl + nr, name=lt.name)
+
+    @staticmethod
+    def _capacity_form(lt: Table, rt: Table) -> Table:
+        """Capacity mode: both buffers whole, one after the other, and their
+        live rows compacted through the oracle (the JAX package's site)."""
+        dev = lt.device
+        cols: List[Column] = []
+        for ca, cb in zip(lt.columns, rt.columns):
+            ca, cb, merged = _align_columns(ca, cb)
+            validity = None
+            if ca.validity is not None or cb.validity is not None:
+                va = ca.validity if ca.validity is not None \
+                    else torch.ones(lt.capacity, dtype=torch.bool, device=dev)
+                vb = cb.validity if cb.validity is not None \
+                    else torch.ones(rt.capacity, dtype=torch.bool, device=dev)
+                validity = torch.cat([va, vb])
+            cols.append(Column(ca.name, ca.dtype, torch.cat([ca.data, cb.data]), validity,
+                               merged if merged is not None else ca.dictionary))
+        live = torch.cat([lt.live_mask(), rt.live_mask()])
+        indices, n = mask_to_indices(live, "union_all")
+        return gather_table(Table(cols, lt.capacity + rt.capacity, name=lt.name),
+                            indices, num_rows=n)
 
 
 class UnionPositions(AbstractOperator):

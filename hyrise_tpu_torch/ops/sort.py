@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import List, Sequence, Tuple, Union
 
+import torch
+
 from hyrise_tpu_torch.ops.base import AbstractOperator
 from hyrise_tpu_torch.ops.materialize import gather_table
 from hyrise_tpu_torch.ops.sort_util import sort_permutation
@@ -33,5 +35,8 @@ class Sort(AbstractOperator):
         table = self.input_table(0)
         perm = sort_permutation(table, self.sort_defs)
         # dead rows sort last, so the live rows are the first num_rows
-        # and a permutation repeats no row, so unique flags survive
+        # and a permutation repeats no row, so unique flags survive; in
+        # capacity mode the whole permutation is kept with the device count
+        if isinstance(table.num_rows, torch.Tensor):
+            return gather_table(table, perm, preserve_unique=True, num_rows=table.num_rows)
         return gather_table(table, perm[:table.num_rows], preserve_unique=True)

@@ -81,7 +81,12 @@ def group_boundaries(table: Table, groupby: Sequence[str],
     flags = torch.zeros(perm.shape[0], dtype=torch.bool, device=perm.device)
     if perm.shape[0] == 0:
         return flags
-    flags[0] = table.num_rows > 0
+    # slices, not flags[0] = ...: a Python value set into a CUDA tensor is a
+    # copy from the host, which a captured plan may not make
+    if isinstance(table.num_rows, torch.Tensor):
+        flags[:1].copy_((table.num_rows > 0).reshape(1))
+    else:
+        flags[:1].fill_(table.num_rows > 0)
     for name in groupby:
         c = table.column(name)
         v = c.data.index_select(0, perm)
@@ -95,6 +100,6 @@ def group_boundaries(table: Table, groupby: Sequence[str],
             val = c.validity.index_select(0, perm)
             val_prev = torch.roll(val, 1)
             differs = (differs & val & val_prev) | (val != val_prev)
-        differs[0] = False
+        differs[:1].zero_()
         flags = flags | differs
     return flags

@@ -61,13 +61,9 @@ from hyrise_tpu_torch.ops.materialize import ensure_prefix, gather_table
 from hyrise_tpu_torch.ops.misc import Limit, UnionAll
 from hyrise_tpu_torch.ops.projection import Projection
 from hyrise_tpu_torch.ops.sort import Sort
+from hyrise_tpu_torch.plan.compiler import PlanNotCompilable
 from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.types import EXISTENCE_MODES, AggregateFunction, DataType, JoinMode
-
-
-class PlanNotCompilable(Exception):
-    """A plan that streamed execution cannot run as asked (the JAX package
-    raises its compiler's exception of this name)."""
 
 
 # ops that may sit between the root and the split Aggregate; they run on the

@@ -28,6 +28,7 @@ Reference: src/lib/sql/ —
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 import weakref
@@ -155,6 +156,24 @@ class SQLQueryCache:
 
 
 _plan_cache = SQLQueryCache()
+# CompiledQuerys of cacheable read-only statements per catalog (kept on it,
+# Catalog.compiled), at most this many a catalog, least recently used out
+COMPILED_CACHE_CAPACITY = 64
+_compiled_cache_lock = threading.Lock()
+
+
+def _compiled_cache(catalog: Catalog) -> SQLQueryCache:
+    """The catalog's cache of compiled statements: (text, statement) ->
+    (catalog version, CompiledQuery). Each CompiledQuery holds its captured
+    graph and a lock, so callers of one entry run one after another and
+    never share its buffers."""
+    with _compiled_cache_lock:
+        cache = catalog.compiled.get("sql")
+        if cache is None:
+            cache = catalog.compiled["sql"] = SQLQueryCache(capacity=COMPILED_CACHE_CAPACITY)
+        return cache
+
+
 # the prepared statements of callers that bring no map of their own
 # (SQLPipelineBuilder.with_prepared); a session keeps its own, as
 # PostgreSQL scopes prepared statements to a session
@@ -185,7 +204,8 @@ class SQLPipelineStatement:
                  optimizer: Optional[Optimizer], use_cache: bool,
                  params: Optional[List[object]] = None, position: int = 0,
                  use_mvcc: bool = False, transaction_manager=None, context=None,
-                 prepared: Optional[Dict[str, object]] = None, dist_catalog=None):
+                 prepared: Optional[Dict[str, object]] = None, dist_catalog=None,
+                 use_compiled: bool = False):
         self.stmt = stmt
         self.sql_text = sql_text
         self.position = position  # of the statement within sql_text
@@ -200,6 +220,10 @@ class SQLPipelineStatement:
         self.dist_catalog = dist_catalog
         # the DistributedQuery of the last execution, or None (single-node)
         self.last_dist_query = None
+        self.use_compiled = use_compiled
+        # whether the last execution ran as a CompiledQuery (plan/compiler.py)
+        self.last_compiled = False
+        self.last_compiled_query = None
         self.metrics = StatementMetrics()
 
     # -- stages --------------------------------------------------------------
@@ -360,9 +384,10 @@ class SQLPipelineStatement:
                 self.optimizer, use_cache=False, params=vals,
                 use_mvcc=self.use_mvcc, transaction_manager=self.tm,
                 context=self.context, prepared=self.prepared,
-                dist_catalog=self.dist_catalog)
+                dist_catalog=self.dist_catalog, use_compiled=self.use_compiled)
             out = sub.execute()
             self.metrics = sub.metrics
+            self.last_compiled = sub.last_compiled
             return out
 
         is_dml = isinstance(self.stmt, _DML)
@@ -372,10 +397,12 @@ class SQLPipelineStatement:
             context = self.tm.new_transaction_context()
             auto_commit = is_dml
         try:
-            plan = self.get_physical_plan(context)
+            needs_tx = is_dml or self.use_mvcc
+            compiled = self._cached_compiled(needs_tx)
+            plan = compiled.root if compiled is not None else self.get_physical_plan(context)
             self.last_plan = plan  # retained for profiling / visualization
             t0 = time.perf_counter()
-            result = self._execute_plan(plan, context, is_dml or self.use_mvcc)
+            result = self._execute_plan(plan, context, needs_tx, compiled)
             if result.device.type == "cuda":
                 torch.cuda.synchronize(result.device)
         except BaseException:
@@ -387,14 +414,30 @@ class SQLPipelineStatement:
             context.commit()
         return result
 
+    def _cached_compiled(self, needs_tx: bool):
+        """The cached CompiledQuery of this statement, when compiled
+        execution applies and one was made at this catalog version."""
+        if not self.use_compiled or needs_tx or self.params is not None or \
+                not self.use_cache or isinstance(self.stmt, _DML) or \
+                (self.dist_catalog is not None and self.dist_catalog.is_current(self.catalog)):
+            return None
+        entry = _compiled_cache(self.catalog).get((self.sql_text, self.position))
+        if entry is None or entry[0] != self.catalog.version:
+            return None
+        self.metrics.cache_hit = True
+        return entry[1]
 
-    def _execute_plan(self, plan, context, needs_tx: bool) -> Table:
+    def _execute_plan(self, plan, context, needs_tx: bool, compiled=None) -> Table:
         """A read-only plan over the ShardedCatalog when one is set, its
         copies are current (ShardedCatalog.is_current: a write since they
         were taken, this pipeline's own too, is not in them) and the plan
-        can be distributed; otherwise, and for statements that need a
-        transaction, on one device."""
+        can be distributed; else with compiled execution on, as a
+        CompiledQuery (plan/compiler.py), cached with its captured graph
+        for the next caller of the text; otherwise, and for statements that
+        need a transaction or cannot compile, eagerly on one device."""
         self.last_dist_query = None
+        self.last_compiled = False
+        self.last_compiled_query = None
         if self.dist_catalog is not None and not needs_tx and \
                 self.dist_catalog.is_current(self.catalog):
             from hyrise_tpu_torch.parallel.dist_compiler import DistributedQuery
@@ -406,6 +449,20 @@ class SQLPipelineStatement:
             else:
                 self.last_dist_query = dq
                 return dq.run()
+        if self.use_compiled and not needs_tx:
+            from hyrise_tpu_torch.plan.compiler import CompiledQuery, PlanNotCompilable, _walk
+            try:
+                cq = compiled if compiled is not None else CompiledQuery(plan, self.catalog)
+                out = cq.run()
+            except PlanNotCompilable:
+                for op in _walk(plan):
+                    op.clear_output()
+            else:
+                if compiled is None and self.use_cache and self.params is None:
+                    _compiled_cache(self.catalog).put((self.sql_text, self.position),
+                                                      (self.catalog.version, cq))
+                self.last_compiled, self.last_compiled_query = True, cq
+                return out
         return execute_plan(plan, context)
 
 
@@ -416,7 +473,8 @@ class SQLPipeline:
                  optimizer: Optional[Optimizer], use_cache: bool,
                  params: Optional[List[object]] = None, use_mvcc: bool = False,
                  transaction_manager=None, context=None,
-                 prepared: Optional[Dict[str, object]] = None, dist_catalog=None):
+                 prepared: Optional[Dict[str, object]] = None, dist_catalog=None,
+                 use_compiled: bool = False):
         t0 = time.perf_counter()
         self.statements = P.parse_sql(sql)
         self.parse_s = time.perf_counter() - t0
@@ -425,7 +483,7 @@ class SQLPipeline:
         self._transactions = dict(use_mvcc=use_mvcc,
                                   transaction_manager=transaction_manager,
                                   context=context, prepared=prepared,
-                                  dist_catalog=dist_catalog)
+                                  dist_catalog=dist_catalog, use_compiled=use_compiled)
         self.pipeline_statements: List[SQLPipelineStatement] = []
 
     def execute_statements(self) -> Iterator[Tuple[SQLPipelineStatement, Table]]:
@@ -463,6 +521,7 @@ class SQLPipelineBuilder:
         self._context = None
         self._prepared: Optional[Dict[str, object]] = None
         self._dist_catalog = None
+        self._use_compiled = os.environ.get("HYRISE_COMPILED", "") == "1"
 
     def with_catalog(self, catalog: Catalog) -> "SQLPipelineBuilder":
         self._catalog = catalog
@@ -500,6 +559,15 @@ class SQLPipelineBuilder:
         self._use_cache = False
         return self
 
+    def with_compiled_execution(self, enabled: bool = True) -> "SQLPipelineBuilder":
+        """Execute read-only statements as CompiledQuerys (plan/compiler.py):
+        on the card one captured CUDA graph a statement, replayed by later
+        callers of the text at the same catalog version. A statement that
+        needs a transaction, or whose plan cannot compile, runs eagerly.
+        Default from the environment: HYRISE_COMPILED=1."""
+        self._use_compiled = enabled
+        return self
+
     def with_distributed_execution(self, shard_catalog) -> "SQLPipelineBuilder":
         """Run read-only statements over a ShardedCatalog taken from this
         pipeline's catalog (parallel/dist_compiler.py shard_tpch). A
@@ -527,7 +595,7 @@ class SQLPipelineBuilder:
                            self._use_cache, params=self._params,
                            use_mvcc=self._use_mvcc, transaction_manager=self._tm,
                            context=self._context, prepared=self._prepared,
-                           dist_catalog=self._dist_catalog)
+                           dist_catalog=self._dist_catalog, use_compiled=self._use_compiled)
 
 
 def run_sql(sql: str, catalog: Catalog, context=None, use_mvcc: bool = False) -> Table:

@@ -27,6 +27,10 @@ class Catalog:
         # counts writes: tables added, replaced or dropped, rows inserted or
         # deleted (the plan cache re-resolves scalar subqueries after one)
         self.version = 0
+        # CompiledQuerys (plan/compiler.py) over this catalog's tables, kept
+        # by their makers (tpch/queries.py, sql/pipeline.py) for the next
+        # caller; they go with the catalog, captured graphs and all
+        self.compiled: Dict[object, object] = {}
 
     def mark_changed(self) -> None:
         self.version += 1

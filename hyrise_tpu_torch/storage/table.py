@@ -9,6 +9,11 @@ Row layouts: by default rows [0, num_rows) are live (PREFIX layout). A table
 may instead carry an explicit `live` bool mask (MASKED layout); operators
 read live_mask() either way, and ops/materialize.ensure_prefix compacts a
 masked table where an operator needs a prefix.
+
+In capacity mode (plan/compiler.py) a variable-size output is a buffer of
+capacity rows whose `num_rows` is a 0-dim int64 tensor on the device;
+live_mask() compares positions with it there, and rows() / to_pandas read
+it once.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ class Table:
         devices = {c.device for c in columns}
         assert len(devices) == 1, f"columns on several devices: {devices}"
         self.columns: List[Column] = list(columns)
-        self.num_rows = int(num_rows)
+        # a host int, or in capacity mode a 0-dim int64 tensor on the device
+        self.num_rows = num_rows if isinstance(num_rows, torch.Tensor) else int(num_rows)
         self.live = live  # None = prefix layout
         self.name = name
         self.mvcc = None  # concurrency.transaction.MvccData of an MVCC table
@@ -102,6 +108,13 @@ class Table:
     def is_prefix(self) -> bool:
         return self.live is None
 
+    @property
+    def has_dead_rows(self) -> bool:
+        """Whether some position of the capacity may hold no live row, known
+        without reading the device."""
+        return (self.live is not None or isinstance(self.num_rows, torch.Tensor)
+                or self.num_rows < self.capacity)
+
     def live_mask(self) -> torch.Tensor:
         """Bool (capacity,): the live rows (mask layout) or rows < num_rows
         (prefix layout)."""
@@ -133,27 +146,36 @@ class Table:
 
     def _decode_col(self, c: Column) -> np.ndarray:
         if self.live is None:
-            return c.decode(self.num_rows)
+            return c.decode(int(self.num_rows))
         m = self.live.cpu().numpy()
         return c.decode(self.capacity)[m]
+
+    def _decoded(self) -> List[np.ndarray]:
+        """Every column's live rows on the host (the live mask or the row
+        count is read once)."""
+        if self.live is None:
+            n = int(self.num_rows)  # one read of a device count
+            return [c.decode(n) for c in self.columns]
+        m = self.live.cpu().numpy()
+        return [c.decode(self.capacity)[m] for c in self.columns]
 
     def to_pandas(self):
         import pandas as pd
 
         data = {}
-        for c in self.columns:
+        for c, values in zip(self.columns, self._decoded()):
             # Keep duplicate output names distinct for pandas.
             k = c.name
             suffix = 1
             while k in data:
                 k = f"{c.name}.{suffix}"
                 suffix += 1
-            data[k] = self._decode_col(c)
+            data[k] = values
         return pd.DataFrame(data)
 
     def rows(self) -> List[tuple]:
         """All live rows as python tuples (tests / printing)."""
-        decoded = [self._decode_col(c) for c in self.columns]
+        decoded = self._decoded()
         n = len(decoded[0])
         return [tuple(col[i] for col in decoded) for i in range(n)]
 

@@ -19,6 +19,7 @@ unlike the reference's SUBSTR(x, 0, 4) quirk.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict
 
 from hyrise_tpu_torch.expression.ast import (Case, avg_, col, count_,
@@ -33,6 +34,7 @@ from hyrise_tpu_torch.ops.projection import Projection
 from hyrise_tpu_torch.ops.sort import Sort
 from hyrise_tpu_torch.ops.table_scan import TableScan
 from hyrise_tpu_torch.plan.blocked import BlockedQuery
+from hyrise_tpu_torch.plan.compiler import CompiledQuery
 from hyrise_tpu_torch.plan.segmented import SegmentedQuery
 from hyrise_tpu_torch.storage.catalog import Catalog
 from hyrise_tpu_torch.storage.table import Table
@@ -795,9 +797,13 @@ def run_query(qid: int, catalog: Catalog, via: str = "plans",
     (plan/blocked.py BlockedQuery, which refuses plans it cannot split);
     via="segmented" streams every table of more than `resident_rows` rows
     through as many stages as the plan needs (plan/segmented.py). The last
-    two mirror the JAX package's scripts/tpch_bench.py --via."""
+    two mirror the JAX package's scripts/tpch_bench.py --via. via="compiled"
+    runs the plan as a CompiledQuery (plan/compiler.py), kept per query and
+    catalog, so a second call replays its captured graph on the card."""
     if qid not in TPCH_PLANS:
         raise NotImplementedError(f"TPC-H has no Q{qid}; the plans are Q1 to Q22")
+    if via == "compiled":
+        return compiled_query(qid, catalog).run()
     plan = TPCH_PLANS[qid](catalog)
     if via == "plans":
         return execute_plan(plan)
@@ -806,4 +812,20 @@ def run_query(qid: int, catalog: Catalog, via: str = "plans",
     if via == "segmented":
         return SegmentedQuery(plan, catalog, block_rows=block_rows,
                               resident_rows=resident_rows).run()
-    raise ValueError(f"via must be 'plans', 'blocked' or 'segmented', got {via!r}")
+    raise ValueError(f"via must be 'plans', 'compiled', 'blocked' or 'segmented', "
+                     f"got {via!r}")
+
+
+_compiled_lock = threading.Lock()
+
+
+def compiled_query(qid: int, catalog: Catalog) -> CompiledQuery:
+    """The CompiledQuery of `qid`'s hand plan over `catalog`, made once and
+    kept on the catalog for the next call (its graph is replayed; a table
+    replaced in the catalog is pinned anew by CompiledQuery.run)."""
+    with _compiled_lock:
+        cq = catalog.compiled.get(("tpch", qid))
+        if cq is None:
+            cq = CompiledQuery(TPCH_PLANS[qid](catalog), catalog)
+            catalog.compiled[("tpch", qid)] = cq
+        return cq

@@ -36,8 +36,8 @@ class GroupFailed(Exception):
 
 def run_group(target, tmp_path, world=WORLD, deadline=DEADLINE_S):
     """Start `world` spawned ranks of target(rank, world, tmp_path) and wait
-    for all of them; kill every rank and raise GroupFailed when one exits
-    non-zero or the deadline passes."""
+    for all of them; kill every rank and raise GroupFailed, with every
+    rank's error, when one exits non-zero or the deadline passes."""
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=target, args=(rank, world, str(tmp_path)))
              for rank in range(world)]
@@ -49,7 +49,9 @@ def run_group(target, tmp_path, world=WORLD, deadline=DEADLINE_S):
             codes = [p.exitcode for p in procs]
             failed = [(r, c) for r, c in enumerate(codes) if c not in (None, 0)]
             if failed:
-                errors = [(tmp_path / f"error{r}.txt") for r, _ in failed]
+                # every rank's error, not only the failed ranks': a rank whose
+                # peer exited can abort before the peer's exit code is seen
+                errors = [(tmp_path / f"error{r}.txt") for r in range(world)]
                 raise GroupFailed(f"ranks {failed} failed: " + " ".join(
                     e.read_text() for e in errors if e.exists()))
             if all(c == 0 for c in codes):
