@@ -3,20 +3,20 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cells [--kernels-from DIR]
-    python3 chip_smoke.py --kernels K2,K8 [--kernels-from DIR]
-    python3 chip_smoke.py --compiled
+    python3 chip_smoke.py --kernels K2,K8,K9c,K5c [--kernels-from DIR]
+    python3 chip_smoke.py --compiled [--kernels-from DIR]
 
 The second form runs phases 1 and 2, then only K3's and K6's checks and
-timings (`cells_phase`); the third builds only q6_scan.cu, hash_lookup.cu
-and compact.cu and runs only the checks and timings of the kernels named,
-K2, K8 or both (`kernels_phase`). With
---kernels-from either imports the package of the checkout in DIR instead (an
-older commit unpacked there), for its timings beside this one's in the same
-call; the checks of phase 3 are then left out, but each timed shape is still
-held against its plain version. The fourth runs phases 1 and 2, generates
-phase 4's SF1 tables, takes the eager rows and walls of the 22 hand plans and
-SQL texts that phase 12 compares with, then phase 12 alone
-(`compiled_only_run`).
+timings (`cells_phase`); the third builds only the sources of the kernels
+named (any of K2, K8, K9c and K5c; KERNEL_SOURCES) and runs only their
+checks and timings (`kernels_phase`). With --kernels-from these import the
+package of the checkout in DIR instead (an older commit unpacked there), for
+its timings beside this one's in the same call; the checks of phase 3 are
+then left out, but each timed shape is still held against its plain
+version. The fourth runs phases 1 and 2, generates phase 4's SF1 tables,
+takes the eager rows and walls of the 22 hand plans and SQL texts that phase
+12 compares with, then phase 12 alone (`compiled_only_run`), with DIR's
+package where --kernels-from names one.
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -102,7 +102,22 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              at the size of Q20's call); and for K2-K9 the kernels' own device
              time from one torch.profiler run per shape, which for K4, K5
              and K8 must show at most two kernels and a memset a call and
-             for K2 and K6 one kernel;
+             for K2 and K6 one kernel. K9c and K5c, the capacity forms
+             (compact_indices_cap, expand_pairs_cap: every output byte
+             written by the kernels, no memset of an output), equal to
+             their plain versions at k9c_shapes and k5c_shapes (capacities
+             at, around and under the count, a count of 0 under 2^20, one
+             row and one entry, the tiles +-1, odd capacities, a third of
+             the pairs in one range, views), through the wrappers and
+             through the raw C calls into outputs filled with 0xFF and
+             guarded on either side, and in 200 raw launches in a row at
+             changing (n, cap) into one buffer never cleared; every refused
+             kind of range sets K5c's flag and leaves its outputs 0. Then
+             timed: K9c at 2 / 50 / 98% True beside
+             torch.nonzero_static(fill_value=0), K5c over three kinds of
+             ranges beside K5 on the same ranges; torch.profiler must show
+             one memset a call, no longer than the scratch (its bytes from
+             the trace), and no torch op;
 4. data    — all 8 TPC-H tables at SF1 generated and uploaded to the card;
 5. main    — all 22 TPC-H queries through the operator DAG on the card at
              SF 0.01 (Q20 at 0.05, where it returns rows) against a sqlite
@@ -265,14 +280,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              with_compiled_execution() equal phase 6's rows, each compiled.
              A replay makes no eager oracle read; lineitem replaced by its
              first half under Q6 is captured again and answered anew; four
-             threads run one cached compiled text three times each. K9's and
-             K5's capacity forms equal their plain versions at the four
-             sizes at exact, loose and overflowed capacities (at the
-             overflow the C call writes into a guarded buffer whose guards
-             must stay), K5's refuses a negative count on the device; both
-             are timed beside their plain versions (and
-             torch.nonzero_static for K9), with their kernels' own device
-             time. bench/micro.py runs its micros as replayed graphs.
+             threads run one cached compiled text three times each. K9c's
+             and K5c's nodes in one replay of each plan beside its busy ms
+             (cap_nodes), and their calls by (n, cap, count) size class
+             over the 22 plans (census_line). bench/micro.py runs its
+             micros as replayed graphs.
              Launches inside graphs count once per replay; K3, K4, K6, K7,
              K8, K9c and K5c must have launched; the phase's launches are
              added to the kernels line's, which lists the two capacity forms
@@ -1619,6 +1631,427 @@ def time_k4_k5_more(n: int, device, card: str, time_ms, join_probe, k4_args, k5_
     log(f"kernels n={n} K4 lookup_last_eq_lut, probe keys in order, median device ms "
         f"{card}: kernel {t['kernel']:.4f}, plain {t['plain']:.4f}; "
         + profiled("K4 in order", kernel))
+
+
+# -- K9c and K5c: the capacity forms, each output byte written once ------------
+
+GUARD = -0x5A5A5A5A5A5A5A5B    # the guard words around a raw call's output
+CAP_REPEATS = 200              # raw launches in a row into one buffer at changing (n, cap)
+K9_TILE, K9C_TILE, K5_OUT_TILE = 8192, 16384, 2048   # K9's, K9c's and K5's tiles
+K5_SCAN_TILE = 16384
+CAP_KERNELS = {"K9c": ("select_cap_kernel",), "K5c": ("ranges_scan_kernel", "expand_kernel")}
+CAP_SHARES = (0.02, 0.5, 0.98)
+
+
+def guarded_buffer(words: int, device) -> torch.Tensor:
+    """`words` int64 with every byte 0xFF, and 64 guard words on either side."""
+    buf = torch.full((words + 128,), -1, dtype=torch.int64, device=device)
+    buf[:64].fill_(GUARD)
+    buf[-64:].fill_(GUARD)
+    return buf
+
+
+def guarded_call(fn, words: int, device) -> torch.Tensor:
+    """fn(the middle words of a guarded_buffer); the whole buffer back."""
+    buf = guarded_buffer(words, device)
+    fn(buf[64:64 + words])
+    torch.cuda.synchronize()
+    return buf
+
+
+def check_guards(buf, what: str) -> None:
+    if bool((buf[:64] != GUARD).any()) or bool((buf[-64:] != GUARD).any()):
+        raise AssertionError(f"{what}: a write landed past the buffer")
+
+
+def k9c_raw(lib, mask, cap: int, out, count, scratch, stream) -> None:
+    """K9c's C call: positions into out[:cap], the count into count[0]."""
+    import ctypes
+    n = mask.shape[0]
+    err = lib.compact_select_cap(mask.view(torch.uint8).data_ptr(), n,
+                                 -(-n // lib.compact_cap_tile_rows()), scratch.data_ptr(),
+                                 out.data_ptr(), cap, count.data_ptr(), ctypes.c_void_p(stream))
+    if err != 0:
+        raise AssertionError(f"compact_select_cap: CUDA error {err}")
+
+
+def k5c_raw(lib, args, cap: int, out, stats, scratch, stream) -> None:
+    """K5c's C call: probe rows into out[:cap], build rows into
+    out[cap + cap % 2:][:cap] (16-byte aligned, as the wrapper lays them out),
+    the stats into `stats`."""
+    import ctypes
+    lo, counts, perm = args
+    err = lib.expand_pairs_cap(lo.data_ptr(), counts.data_ptr(), lo.shape[0], perm.data_ptr(),
+                               perm.shape[0], scratch.data_ptr(), stats.data_ptr(),
+                               out.data_ptr(), out[cap + cap % 2:].data_ptr(), cap,
+                               ctypes.c_void_p(stream))
+    if err != 0:
+        raise AssertionError(f"expand_pairs_cap: CUDA error {err}")
+
+
+def k9c_shapes(device, bucket_capacity):
+    """(what, mask, cap) at the edges of K9c's design: capacities at,
+    around, under and over the count, a count of 0 under 2^20 entries, one
+    row and one entry, lengths at K9's and K9c's select tiles, capacities at
+    K9c's fill slices, masks one byte into their buffers."""
+    cases = []
+    for n in KERNEL_SIZES:
+        mask = k9_mask(n, 0.5, device)
+        count = int(mask.sum())
+        for cap in sorted({count, count - 1, count + 1, count // 2, bucket_capacity(count + 1)}):
+            if cap >= 1:
+                cases.append((f"n={n}, cap {cap}", mask, cap))
+    for cap in (1 << 20, (1 << 20) + 1):
+        cases.append((f"nothing True, cap {cap}", torch.zeros(1000, dtype=torch.bool,
+                                                              device=device), cap))
+    for n, true, cap in ((1, True, 1), (1, False, 1), (1, True, 5), (7, True, 1),
+                         (100_003, True, 1)):
+        cases.append((f"n={n} all {true}, cap {cap}",
+                      torch.full((n,), true, dtype=torch.bool, device=device), cap))
+    for n in (K9_TILE - 1, K9_TILE, K9_TILE + 1, K9C_TILE - 1, K9C_TILE, K9C_TILE + 1,
+              2 * K9C_TILE - 1, 2 * K9C_TILE + 1):
+        for share in (0.5, 1.0):
+            mask = k9_mask(n, share, device)
+            count = int(mask.sum())
+            for cap in sorted({count, count + 1, K9C_TILE, 2 * K9C_TILE + 1}):
+                cases.append((f"n={n} at share {share}, cap {cap}", mask, cap))
+    for cap in (K9_TILE - 1, K9_TILE, K9_TILE + 1, K9C_TILE - 1, K9C_TILE, K9C_TILE + 1,
+                2 * K9C_TILE - 1, 2 * K9C_TILE, 2 * K9C_TILE + 1):
+        for n, share in ((40_000, 0.25), (40_000, 0.5), (70_001, 0.5)):
+            cases.append((f"n={n} at share {share}, cap {cap}", k9_mask(n, share, device), cap))
+    for n in (65_543, REPEAT_ROWS):
+        mask = k9_mask(n + 1, 0.5, device)[1:]
+        cases.append((f"n={n} one byte into its buffer", mask, int(mask.sum())))
+    return cases
+
+
+def k5c_ranges(n: int, seed: int, device, max_count: int = 4):
+    """n ranges of 0 to max_count - 1 rows over a build side of n // 4 + 4
+    (tests/test_torch_kernels_slice14.py's)."""
+    rng = np.random.default_rng(seed)
+    nb = n // 4 + 4
+    counts = np.minimum(rng.integers(0, max_count, n), nb).astype(np.int32)
+    lo = (rng.integers(0, nb, n) % (nb - counts + 1)).astype(np.int32)
+    up = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return up(lo), up(counts), up(rng.permutation(nb).astype(np.int64))
+
+
+def k5c_shapes(device, bucket_capacity):
+    """(what, (lo, counts, perm), cap) at the edges of K5c's design: the
+    capacities of k9c_shapes against the total, no pair under 2^20 entries,
+    one range, capacities (odd ones too) at the output tile of 2,048 pairs,
+    totals at that tile, range counts at the expansion's chunk and the
+    scan's tile, a third of the pairs in one range, ranges one element into
+    their buffers."""
+    cases = []
+    for n in KERNEL_SIZES:
+        args = k5_inputs(n, device)
+        total = int(args[1].sum())
+        for cap in sorted({total, total - 1, total + 1, total // 2, bucket_capacity(total + 1)}):
+            if cap >= 1:
+                cases.append((f"n={n}, cap {cap}", args, cap))
+    lo, _, perm = k5c_ranges(1000, 3, device)
+    for cap in (1 << 20, (1 << 20) + 1):
+        cases.append((f"no pair, cap {cap}", (lo, torch.zeros_like(lo), perm), cap))
+    one = torch.tensor([1], dtype=torch.int32, device=device)
+    five = torch.tensor([4, 3, 2, 1, 0], dtype=torch.int64, device=device)
+    for count, cap in ((1, 1), (0, 1), (1, 2), (3, 1), (3, 3)):
+        cases.append((f"one range of {count}, cap {cap}",
+                      (one, torch.tensor([count], dtype=torch.int32, device=device), five),
+                      cap))
+    for cap in (K5_OUT_TILE - 1, K5_OUT_TILE, K5_OUT_TILE + 1, 2 * K5_OUT_TILE - 1,
+                2 * K5_OUT_TILE + 1, 3 * K5_OUT_TILE, 5 * K5_OUT_TILE + 3):
+        for n, seed in ((1500, 1), (3000, 2), (8000, 3)):
+            cases.append((f"{n} ranges, cap {cap}", k5c_ranges(n, cap + seed, device), cap))
+    for total in (K5_OUT_TILE - 1, K5_OUT_TILE, K5_OUT_TILE + 1):
+        rng = np.random.default_rng(total)
+        counts = np.zeros(5000, dtype=np.int32)
+        np.add.at(counts, rng.integers(0, 5000, total), 1)
+        args = (torch.as_tensor(rng.integers(0, 1246, 5000).astype(np.int32), device=device),
+                torch.as_tensor(counts, device=device),
+                torch.as_tensor(rng.permutation(1254).astype(np.int64), device=device))
+        for cap in (4 * K5_OUT_TILE + 1, 1 << 15):
+            cases.append((f"a total of {total}, cap {cap}", args, cap))
+    for n in (K5_OUT_TILE - 1, K5_OUT_TILE, K5_OUT_TILE + 1, K5_SCAN_TILE - 1, K5_SCAN_TILE,
+              K5_SCAN_TILE + 1):
+        args = k5c_ranges(n, n, device)
+        total = int(args[1].sum())
+        cases.append((f"{n} ranges, cap {total + 1 + total % 2}", args, total + 1 + total % 2))
+    args = k5_skewed_inputs(65_543, device)
+    total = int(args[1].sum())
+    for cap in (total, total // 3, total + 2049):
+        cases.append((f"a third of the pairs in one range, cap {cap}", args, cap))
+    lo, counts, perm = k5_inputs(65_544, device)
+    args = (lo[1:], counts[1:], perm)
+    cases.append(("ranges one element into their buffers", args, int(args[1].sum()) + 1))
+    return cases
+
+
+def same_k9c(lib, mask, cap: int, compact, device, stream, what: str) -> float:
+    """The wrapper and the raw C call into a 0xFF-filled guarded buffer, both
+    equal to the plain version in every entry of [0, cap); the count exact."""
+    ref, ref_n = compact.compact_indices_cap_plain(mask, cap)
+    got, got_n = compact.compact_indices_cap(mask, cap)
+    torch.cuda.synchronize()
+    if int(got_n) != int(ref_n) or not torch.equal(got, ref):
+        raise AssertionError(f"K9c at {what}: count {int(got_n)} vs {int(ref_n)}, "
+                             "positions differ")
+    tiles = -(-mask.shape[0] // lib.compact_cap_tile_rows())
+    scratch = torch.empty(lib.compact_scratch_words(tiles), dtype=torch.int64, device=device)
+    count = torch.empty(1, dtype=torch.int64, device=device)
+    buf = guarded_call(lambda out: k9c_raw(lib, mask, cap, out, count, scratch, stream), cap,
+                       device)
+    check_guards(buf, f"K9c at {what}")
+    if int(count) != int(ref_n) or not torch.equal(buf[64:64 + cap], ref):
+        raise AssertionError(f"K9c at {what}: from a 0xFF-filled output, not every entry "
+                             "of [0, cap) equals the plain version")
+    return float((got - ref).abs().max())
+
+
+def same_k5c(lib, args, cap: int, join_probe, device, stream, what: str) -> float:
+    """As same_k9c for K5c: both outputs in every entry of [0, cap), the
+    word between them (an odd cap's) untouched, total and verdict exact."""
+    ref = join_probe.expand_pairs_cap_plain(*args, cap)
+    got = join_probe.expand_pairs_cap(*args, cap)
+    torch.cuda.synchronize()
+    # under a refusal the total is not part of the contract
+    if (not bool(ref[3]) and int(got[2]) != int(ref[2])) or bool(got[3]) != bool(ref[3]) \
+            or not torch.equal(got[0], ref[0]) or not torch.equal(got[1], ref[1]):
+        raise AssertionError(f"K5c at {what}: total {int(got[2])} vs {int(ref[2])}, "
+                             f"refused {bool(got[3])} vs {bool(ref[3])}, or pairs differ")
+    n = args[0].shape[0]
+    scratch = torch.empty(lib.expand_scratch_words(n), dtype=torch.int64, device=device)
+    stats = torch.empty(lib.expand_stats_words(), dtype=torch.int64, device=device)
+    wide = cap + cap % 2
+    buf = guarded_call(lambda out: k5c_raw(lib, args, cap, out, stats, scratch, stream),
+                       2 * wide, device)
+    check_guards(buf, f"K5c at {what}")
+    mid = buf[64:64 + 2 * wide]
+    refused = int(stats[lib.expand_refused_word()])
+    if not (torch.equal(mid[:cap], ref[0]) and torch.equal(mid[wide:wide + cap], ref[1])
+            and bool((mid[cap:wide] == -1).all()) and bool((mid[wide + cap:] == -1).all())
+            and refused == int(ref[3]) and (refused or int(stats[0]) == int(ref[2]))):
+        raise AssertionError(f"K5c at {what}: from 0xFF-filled outputs, not every entry "
+                             "of [0, cap) equals the plain version, or one past cap was "
+                             "written")
+    return float((got[1] - ref[1]).abs().max())
+
+
+def check_cap_repeats(device, compact, join_probe, bucket_capacity, stream) -> None:
+    """CAP_REPEATS raw C calls of each of K9c and K5c in a row, at changing
+    (n, cap), into one buffer (and one scratch) that is never cleared: after
+    each, the whole buffer must equal what the earlier calls left with
+    [0, cap) replaced by the plain version, so an entry the call did not
+    write, or one it wrote at or past cap, shows."""
+    lib9, lib5 = compact._library(), join_probe._library()
+    configs9, configs5 = [], []
+    for n in (10_007, 65_543, REPEAT_ROWS):  # one tile (K9c: one block), several, many
+        for share in CAP_SHARES:
+            mask = k9_mask(n, share, device)
+            count = int(mask.sum())
+            for cap in (count, count // 2 + 1, bucket_capacity(count), count + 3):
+                configs9.append((mask, cap, compact.compact_indices_cap_plain(mask, cap)))
+        args = k5_inputs(n, device)
+        total = int(args[1].sum())
+        for cap in (total, total // 2 + 1, bucket_capacity(total), total + 3):
+            configs5.append((args, cap, join_probe.expand_pairs_cap_plain(*args, cap)))
+    count = torch.empty(1, dtype=torch.int64, device=device)
+    tiles = -(-REPEAT_ROWS // lib9.compact_cap_tile_rows())
+    scratch = torch.empty(lib9.compact_scratch_words(tiles), dtype=torch.int64, device=device)
+    buf = guarded_buffer(max(cap for _, cap, _ in configs9), device)
+    want = buf.clone()
+    for i in range(CAP_REPEATS):
+        mask, cap, (ref, ref_n) = configs9[(7 * i) % len(configs9)]
+        k9c_raw(lib9, mask, cap, buf[64:64 + cap], count, scratch, stream)
+        want[64:64 + cap] = ref
+        if not torch.equal(buf, want) or int(count) != int(ref_n):
+            raise AssertionError(f"K9c: raw launch {i} of {CAP_REPEATS} at n={mask.shape[0]}, "
+                                 f"cap {cap} left its buffer unlike the plain version")
+    stats = torch.empty(lib5.expand_stats_words(), dtype=torch.int64, device=device)
+    scratch = torch.empty(lib5.expand_scratch_words(REPEAT_ROWS), dtype=torch.int64,
+                          device=device)
+    buf = guarded_buffer(max(2 * (cap + cap % 2) for _, cap, _ in configs5), device)
+    want = buf.clone()
+    for i in range(CAP_REPEATS):
+        args, cap, ref = configs5[(7 * i) % len(configs5)]
+        wide = cap + cap % 2
+        k5c_raw(lib5, args, cap, buf[64:], stats, scratch, stream)
+        want[64:64 + cap] = ref[0]
+        want[64 + wide:64 + wide + cap] = ref[1]
+        if not torch.equal(buf, want) or int(stats[0]) != int(ref[2]):
+            raise AssertionError(f"K5c: raw launch {i} of {CAP_REPEATS} at "
+                                 f"n={args[0].shape[0]}, cap {cap} left its buffer unlike "
+                                 "the plain version")
+
+
+def check_cap_forms(device, compact, join_probe, bucket_capacity) -> tuple:
+    """K9c and K5c against their plain versions at k9c_shapes and k5c_shapes,
+    through the wrappers and through the raw C calls into 0xFF-filled
+    guarded buffers; the kinds of refused ranges (K5_BAD_RANGES) under a
+    capacity far above the total set the flag and leave every entry 0;
+    then check_cap_repeats. Returns the largest differences (both 0 when
+    equal) and the number of shapes."""
+    lib9, lib5 = compact._library(), join_probe._library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err9 = err5 = 0.0
+    shapes9, shapes5 = k9c_shapes(device, bucket_capacity), k5c_shapes(device, bucket_capacity)
+    for what, mask, cap in shapes9:
+        err9 = max(err9, same_k9c(lib9, mask, cap, compact, device, stream, what))
+    for what, args, cap in shapes5:
+        err5 = max(err5, same_k5c(lib5, args, cap, join_probe, device, stream, what))
+    perm = torch.arange(4, dtype=torch.int64, device=device)
+    for what, (lo, counts) in K5_BAD_RANGES.items():
+        args = (torch.tensor(lo, dtype=torch.int32, device=device),
+                torch.tensor(counts, dtype=torch.int32, device=device), perm)
+        for cap in (1 << 12, (1 << 20) + 1):
+            same_k5c(lib5, args, cap, join_probe, device, stream, f"{what}, cap {cap}")
+            if not bool(join_probe.expand_pairs_cap(*args, cap)[3]):
+                raise AssertionError(f"K5c: ranges with {what} were not refused")
+    check_cap_repeats(device, compact, join_probe, bucket_capacity, stream)
+    return err9, err5, len(shapes9), len(shapes5) + 2 * len(K5_BAD_RANGES)
+
+
+def memset_bytes(fn, device, calls: int = 5) -> list:
+    """The bytes of every memset that `calls` calls of fn(i) enqueue, from a
+    torch.profiler trace (each gpu_memset event's "bytes"; None where the
+    trace does not give them). The trace is written into the kernels' build
+    directory, which git ignores."""
+    from hyrise_tpu_torch.kernels import build
+    fn(0)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+    path = build.BUILD_DIR / "cap_memsets.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [e.get("args", {}).get("bytes") for e in events if e.get("cat") == "gpu_memset"]
+
+
+def cap_profile(label: str, fn, device, cap: int, scratch_bytes, checked: bool):
+    """The kernels' own device ms of a K9c or K5c call (kernel_only_ms, fills
+    kept) and the bytes of its memsets (memset_bytes). With `checked`
+    (this checkout's kernels) a call must run only its kernels
+    (CAP_KERNELS) and at most one memset, of no more than `scratch_bytes`:
+    no torch op, no memset of an output. Where the trace gives no bytes, the
+    memsets must take less time than cap x 8 bytes take at the card's memory
+    rate (so they cannot have written an output)."""
+    ms, per_call = kernel_only_ms(fn, device, keep_fills=True)
+    sizes = memset_bytes(fn, device)
+    kernels = CAP_KERNELS[label.split()[0]]
+    if checked:
+        others = [k for k in ms if k != "sum" and "Memset" not in k and not k.startswith(kernels)]
+        if others:
+            raise AssertionError(f"{label}: {others} ran inside a call (a torch op?)")
+        if per_call > len(kernels) + 1 or len(sizes) > 5:
+            raise AssertionError(f"{label}: {per_call} device operations a call, "
+                                 f"{len(sizes) / 5} memsets")
+        known = [b for b in sizes if b is not None]
+        memset_ms = sum(v for k, v in ms.items() if "Memset" in k)
+        if known and max(known) > scratch_bytes:
+            raise AssertionError(f"{label}: a memset of {max(known)} bytes, more than the "
+                                 f"scratch's {scratch_bytes}: an output was cleared")
+        if not known and memset_ms >= cap * 8 / PEAK_BYTES_PER_S * 1e3:
+            raise AssertionError(f"{label}: memsets of {memset_ms:.4f} ms a call, as long as "
+                                 f"clearing cap x 8 bytes takes")
+    return ms, per_call, sizes
+
+
+def time_cap_forms(device, card, time_ms, compact, join_probe, bucket_capacity,
+                   checked: bool) -> dict:
+    """Median device ms (CUDA events, L2 flushed, in turns) of K9c at
+    n = KERNEL_SIZES[-1] at CAP_SHARES True, cap the count's bucket, beside
+    its plain version and torch.nonzero_static(mask, size=cap, fill_value=0);
+    of K5c over k5_inputs, k5_skewed_inputs and SMALL_RANGES ranges, cap the
+    total's bucket, beside its plain version and K5 (expand_pairs) on the
+    same ranges; each shape first held against its plain version; with the
+    kernels' own device ms and memset bytes (cap_profile). Returns {label:
+    times}."""
+    n = KERNEL_SIZES[-1]
+    out = {}
+    for share in CAP_SHARES:
+        mask = k9_mask(n, share, device)
+        count = int(mask.sum())
+        cap = bucket_capacity(count)
+        ref, _ = compact.compact_indices_cap_plain(mask, cap)
+        got, _ = compact.compact_indices_cap(mask, cap)
+        library = torch.nonzero_static(mask, size=cap, fill_value=0)
+        if not (torch.equal(got, ref) and torch.equal(library.squeeze(1), ref)):
+            raise AssertionError(f"K9c timed at share {share} differs from its plain version "
+                                 "or nonzero_static")
+        kernel = lambda i, m=mask, c=cap: compact.compact_indices_cap(m, c)  # noqa: E731
+        plain = lambda i, m=mask, c=cap: compact.compact_indices_cap_plain(m, c)  # noqa: E731
+        lib = lambda i, m=mask, c=cap: torch.nonzero_static(m, size=c, fill_value=0)  # noqa: E731
+        t = turns((("plain", plain), ("kernel", kernel), ("library", lib), ("kernel", kernel),
+                   ("library", lib), ("plain", plain)), device, time_ms)
+        t["bound"] = (n + cap * 8 + 8) / PEAK_BYTES_PER_S * 1e3
+        tiles = -(-n // K9C_TILE)
+        t["kernel_only"], t["per_call"], sizes = cap_profile(
+            f"K9c share {share}", kernel, device, cap, (1 + tiles) * 8, checked)
+        label = f"K9c share {share}"
+        out[label] = t
+        log(f"kernels n={n} {label} ({count} True, cap {cap}) median device ms {card}: "
+            f"kernel {t['kernel']:.4f}, plain {t['plain']:.4f}, torch.nonzero_static("
+            f"fill_value=0) {t['library']:.4f}, bound {t['bound']:.4f}; kernel-only "
+            f"device ms (torch.profiler, {t['per_call']} a call) {listed(t['kernel_only'])}; "
+            f"memset bytes {sizes[:1]} x {len(sizes)} in 5 calls")
+    for label, args in (("K5c", k5_inputs(n, device)),
+                        ("K5c a third of the pairs in one range", k5_skewed_inputs(n, device)),
+                        (f"K5c {SMALL_RANGES} ranges", k5_inputs(SMALL_RANGES, device))):
+        total = int(args[1].sum())
+        cap = bucket_capacity(total)
+        ref = join_probe.expand_pairs_cap_plain(*args, cap)
+        got = join_probe.expand_pairs_cap(*args, cap)
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+                and int(got[2]) == total and not bool(got[3])):
+            raise AssertionError(f"{label} timed differs from its plain version")
+        kernel = lambda i, a=args, c=cap: join_probe.expand_pairs_cap(*a, c)  # noqa: E731
+        plain = lambda i, a=args, c=cap: join_probe.expand_pairs_cap_plain(*a, c)  # noqa: E731
+        exact = lambda i, a=args: join_probe.expand_pairs(*a)  # noqa: E731
+        t = turns((("plain", plain), ("kernel", kernel), ("exact", exact), ("kernel", kernel),
+                   ("exact", exact), ("plain", plain)), device, time_ms)
+        rows = args[0].shape[0]
+        t["bound"] = (rows * 8 + args[2].shape[0] * 8 + cap * 16 + 48) / PEAK_BYTES_PER_S * 1e3
+        t["exact_bound"] = (rows * 8 + args[2].shape[0] * 8 + total * 16) \
+            / PEAK_BYTES_PER_S * 1e3
+        t["library"] = None
+        scan_tiles = -(-rows // K5_SCAN_TILE)
+        t["kernel_only"], t["per_call"], sizes = cap_profile(
+            label, kernel, device, cap, (5 + scan_tiles + -(-rows // 512)) * 8, checked)
+        # the exact form's own kernels: its CUDA-event time holds the host's
+        # wait for the total between them
+        t["exact_only"], _ = kernel_only_ms(exact, device)
+        out[label] = t
+        log(f"kernels n={rows} {label} ({total} pairs, cap {cap}) median device ms {card}: "
+            f"kernel {t['kernel']:.4f}, plain {t['plain']:.4f}, bound {t['bound']:.4f}; "
+            f"K5 expand_pairs on the same ranges {t['exact']:.4f} (bound "
+            f"{t['exact_bound']:.4f}; kernel-only {listed(t['exact_only'])}); kernel-only "
+            f"device ms (torch.profiler, "
+            f"{t['per_call']} a call) {listed(t['kernel_only'])}; memset bytes "
+            f"{sizes[:1]} x {len(sizes)} in 5 calls")
+    return out
+
+
+def cap_phase(device, card, time_ms, compact, join_probe, checked: bool) -> tuple:
+    """Phase 3's part for K9c and K5c: with `checked`, check_cap_forms; then
+    time_cap_forms. Returns (timings, (largest K9c difference, K5c's))."""
+    from hyrise_tpu_torch.plan.compiler import bucket_capacity
+    errs = (0.0, 0.0)
+    if checked:
+        err9, err5, n9, n5 = check_cap_forms(device, compact, join_probe, bucket_capacity)
+        errs = (err9, err5)
+        log(f"kernels: K9c equal to plain at {n9} shapes and K5c at {n5} (capacities at, "
+            f"around and under the count, a count of 0 under 2^20, one row and one entry, "
+            f"lengths and capacities at the tiles +-1, odd capacities, a third of the pairs "
+            f"in one range, views, every refused kind of range), through the wrappers and "
+            f"through the raw C calls into 0xFF-filled guarded outputs (every entry of "
+            f"[0, cap) written, none past it); {CAP_REPEATS} raw launches in a row of each "
+            f"at changing (n, cap) into one buffer")
+    return time_cap_forms(device, card, time_ms, compact, join_probe, bucket_capacity,
+                          checked), errs
 
 
 def reset_counts(wrappers) -> None:
@@ -3529,13 +3962,51 @@ COMPILED_KERNELS = ("segment_reduce_cells", "lookup_last_eq_lut", "fused_cells_r
                     "expand_pairs_cap")
 MICRO_ROWS = 1 << 22
 MICRO_RUNS = 3
+CAP_NODE_QIDS = (18, 21)       # the device-bound replays: K9c's and K5c's share
+
+
+CAP_NODE = {"K9c": re.compile(r"\bselect(_cap)?_kernel\b"),
+            "K5c": re.compile(r"\branges_scan_kernel\b")}
+EXPAND_NODE = re.compile(r"\bexpand_kernel\b")
+MEMSETS_BEFORE = {"K9c": 2, "K5c": 3}  # a form that clears its outputs: theirs, the scratch's
+
+
+def cap_nodes(prof) -> dict:
+    """{"K9c": [calls, device ms], "K5c": [...]} among a profiled run's
+    device events in the order they ran: a K9c call is a select kernel
+    (select_cap_kernel, or select_kernel in the form before it) with the
+    memsets right before it (at most MEMSETS_BEFORE), a K5c call a
+    ranges_scan_kernel with the memsets right before it and the
+    expand_kernel after it. The form before ran two torch element-wise ops
+    after the expansion too, which are not counted here (they cannot be
+    told from the plan's own)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = sorted((e for e in prof.events() if e.device_type == cuda),
+                    key=lambda e: e.time_range.start)
+    out = {"K9c": [0, 0.0], "K5c": [0, 0.0]}
+    for i, e in enumerate(events):
+        us = e.time_range.end - e.time_range.start
+        if EXPAND_NODE.search(e.name):
+            out["K5c"][1] += us / 1e3
+            continue
+        kind = next((k for k, pattern in CAP_NODE.items() if pattern.search(e.name)), None)
+        if kind is None:
+            continue
+        j = i - 1
+        while j >= 0 and i - j <= MEMSETS_BEFORE[kind] and "Memset" in events[j].name:
+            us += events[j].time_range.end - events[j].time_range.start
+            j -= 1
+        out[kind][0] += 1
+        out[kind][1] += us / 1e3
+    return out
 
 
 def replay_profile(run, floor: int) -> tuple:
-    """(device events, device busy ms) of one run() under torch.profiler, or
-    (0, None). A profiler run that comes back with fewer than `floor` device
-    events (the kernels the wrappers launch in one replay) lost some, as it
-    does once in some tens of runs, and is made again, three times at most."""
+    """(device events, device busy ms, cap_nodes) of one run() under
+    torch.profiler, or (0, None, None). A profiler run that comes back with
+    fewer than `floor` device events (the kernels the wrappers launch in one
+    replay) lost some, as it does once in some tens of runs, and is made
+    again, three times at most."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(3):
         torch.cuda.synchronize()
@@ -3552,8 +4023,8 @@ def replay_profile(run, floor: int) -> tuple:
             events += avg.count
             busy_us += total_us
         if events >= max(floor, 1):
-            return events, busy_us / 1e3
-    return 0, None
+            return events, busy_us / 1e3, cap_nodes(prof)
+    return 0, None, None
 
 
 def graph_launches(before, wrappers, queries) -> dict:
@@ -3570,133 +4041,69 @@ def graph_launches(before, wrappers, queries) -> dict:
     return out
 
 
-def guarded_call(fn, words: int, device) -> torch.Tensor:
-    """A buffer of `words` int64 with 64 guard words on either side, all set
-    to a pattern; fn(view of the middle words); the whole buffer back."""
-    buf = torch.full((words + 128,), -0x5A5A5A5A5A5A5A5B, dtype=torch.int64, device=device)
-    fn(buf[64:64 + words])
-    torch.cuda.synchronize()
-    return buf
+def recording_capacity_calls(calls: list):
+    """A context in which every K9c and K5c call that a graph capture records
+    appends (kind, n, cap, site) to `calls`: n the mask's rows or the
+    ranges, site the index of its count among the plan's site counts
+    (CompiledQuery.last_counts). The calls are caught where the plan makes
+    them, compiler.oracle_compact and ops/join.py's expand_pairs_cap (the
+    wrappers themselves must stay, since they count their own launches)."""
+    import contextlib
+
+    from hyrise_tpu_torch.ops import join as join_ops
+    from hyrise_tpu_torch.plan import compiler
+
+    def capturing(t) -> bool:
+        return (compiler.active() is not None and t.is_cuda
+                and torch.cuda.is_current_stream_capturing())
+
+    def oracle_compact(mask, label):
+        site = len(compiler.active().counts)
+        indices, count = saved[0](mask, label)
+        if capturing(mask):
+            calls.append(("K9c", mask.shape[0], indices.shape[0], site))
+        return indices, count
+
+    def expand_pairs_cap(lo, counts, build_perm, cap):
+        if capturing(lo):
+            calls.append(("K5c", lo.shape[0], cap, len(compiler.active().counts)))
+        return saved[1](lo, counts, build_perm, cap)
+
+    saved = compiler.oracle_compact, join_ops.expand_pairs_cap
+
+    @contextlib.contextmanager
+    def recording():
+        compiler.oracle_compact, join_ops.expand_pairs_cap = oracle_compact, expand_pairs_cap
+        try:
+            yield
+        finally:
+            compiler.oracle_compact, join_ops.expand_pairs_cap = saved
+    return recording()
 
 
-def check_guards(buf, what: str) -> None:
-    pattern = -0x5A5A5A5A5A5A5A5B
-    if bool((buf[:64] != pattern).any()) or bool((buf[-64:] != pattern).any()):
-        raise AssertionError(f"{what}: a write landed past the buffer")
+def pow2_class(v: int) -> int:
+    """The least k with v <= 2^k."""
+    return max(int(v) - 1, 0).bit_length()
 
 
-def check_cap_forms(device, compact, join_probe, bucket_capacity) -> tuple:
-    """K9's and K5's capacity forms against their plain versions at every
-    size of KERNEL_SIZES, at an exact, a loose and an overflowed capacity;
-    at the overflow the raw C call writes into a guarded buffer, which must
-    keep its guards. Returns the largest differences (both 0 when equal)."""
-    import ctypes
-    err9 = err5 = 0.0
-    lib9, lib5 = compact._library(), join_probe._library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    for n in KERNEL_SIZES:
-        mask = k9_mask(n, 0.5, device)
-        count = int(mask.sum())
-        for cap in sorted({max(count, 1), bucket_capacity(count + 1), max(count // 2, 1)}):
-            got_i, got_n = compact.compact_indices_cap(mask, cap)
-            ref_i, ref_n = compact.compact_indices_cap_plain(mask, cap)
-            torch.cuda.synchronize()
-            if int(got_n) != int(ref_n) or not torch.equal(got_i, ref_i):
-                raise AssertionError(f"K9 cap form at n={n}, cap={cap}: count {int(got_n)} "
-                                     f"vs {int(ref_n)}, positions differ")
-            err9 = max(err9, float((got_i - ref_i).abs().max()))
-        if count >= 2:
-            cap = count // 2
-            tiles = -(-n // compact._tile_rows())
-            scratch = torch.empty(lib9.compact_scratch_words(tiles), dtype=torch.int64,
-                                  device=device)
-            word = torch.empty(1, dtype=torch.int64, device=device)
-            buf = guarded_call(lambda out: lib9.compact_select_cap(
-                mask.view(torch.uint8).data_ptr(), n, tiles, scratch.data_ptr(),
-                out.data_ptr(), cap, word.data_ptr(), ctypes.c_void_p(stream)), cap, device)
-            check_guards(buf, f"K9 cap form at n={n}, count {count} > cap {cap}")
-            if int(word) != count:
-                raise AssertionError(f"K9 cap form count {int(word)} vs {count}")
-        lo, counts, perm = k5_inputs(n, device)
-        total = int(counts.sum())
-        for cap in sorted({max(total, 1), bucket_capacity(total + 1), max(total // 2, 1)}):
-            got = join_probe.expand_pairs_cap(lo, counts, perm, cap)
-            ref = join_probe.expand_pairs_cap_plain(lo, counts, perm, cap)
-            torch.cuda.synchronize()
-            if int(got[2]) != total or int(ref[2]) != total or bool(got[3]) or bool(ref[3]) \
-                    or not torch.equal(got[0], ref[0]) or not torch.equal(got[1], ref[1]):
-                raise AssertionError(f"K5 cap form at n={n}, cap={cap}: totals "
-                                     f"{int(got[2])} / {int(ref[2])} of {total}")
-            err5 = max(err5, float((got[1] - ref[1]).abs().max()))
-        if total >= 2:
-            cap = total // 2 + 1  # odd or even, the build rows start 16-byte aligned
-            cap += cap % 2
-            scratch = torch.empty(lib5.expand_scratch_words(n) + lib5.expand_stats_words(),
-                                  dtype=torch.int64, device=device)
-            stats = scratch[-lib5.expand_stats_words():]
-            buf = guarded_call(lambda out: lib5.expand_pairs_cap(
-                lo.data_ptr(), counts.data_ptr(), n, perm.data_ptr(), perm.shape[0],
-                scratch.data_ptr(), stats.data_ptr(), out[:cap].data_ptr(),
-                out[cap:].data_ptr(), cap, ctypes.c_void_p(stream)), 2 * cap, device)
-            check_guards(buf, f"K5 cap form at n={n}, total {total} > cap {cap}")
-            if int(stats[0]) != total:
-                raise AssertionError(f"K5 cap form total {int(stats[0])} vs {total}")
-        # a negative count is refused on the device: no pair, the flag set
-        bad = counts.clone()
-        bad[n // 2] = -1
-        got = join_probe.expand_pairs_cap(lo, bad, perm, 1024)
-        ref = join_probe.expand_pairs_cap_plain(lo, bad, perm, 1024)
-        if not (bool(got[3]) and bool(ref[3]) and not bool(got[0].any())
-                and not bool(got[1].any())):
-            raise AssertionError(f"K5 cap form at n={n}: a negative count was not refused")
-    return err9, err5
-
-
-def kernel_only_or_not_measured(fn, device) -> tuple:
-    """kernel_only_ms(fn, device) as text and kernels a call, or "not
-    measured" when three torch.profiler runs lost device events: the
-    profiler's loss, on which the kernel's checks and CUDA-event times do
-    not depend."""
-    try:
-        ms, per_call = kernel_only_ms(fn, device)
-    except AssertionError:
-        return "not measured (torch.profiler lost device events)", "not measured"
-    return listed(ms), per_call
-
-
-def time_cap_forms(device, card, time_ms, compact, join_probe, bucket_capacity) -> dict:
-    """K9's and K5's capacity forms at n = KERNEL_SIZES[-1], in turns with
-    their plain versions (and torch.nonzero_static for K9), CUDA events
-    after an L2 flush, and their kernels' own device time."""
-    n = KERNEL_SIZES[-1]
-    mask = k9_mask(n, 0.5, device)
-    cap9 = bucket_capacity(int(mask.sum()))
-    lo, counts, perm = k5_inputs(n, device)
-    total = int(counts.sum())
-    cap5 = bucket_capacity(total)
-    k9 = lambda i: compact.compact_indices_cap(mask, cap9)  # noqa: E731
-    k9_plain = lambda i: compact.compact_indices_cap_plain(mask, cap9)  # noqa: E731
-    k9_lib = lambda i: torch.nonzero_static(mask, size=cap9)  # noqa: E731
-    k5 = lambda i: join_probe.expand_pairs_cap(lo, counts, perm, cap5)  # noqa: E731
-    k5_plain = lambda i: join_probe.expand_pairs_cap_plain(lo, counts, perm, cap5)  # noqa: E731
-    ms = turns((("k9_plain", k9_plain), ("k9", k9), ("k9_lib", k9_lib), ("k9", k9),
-                ("k9_plain", k9_plain), ("k9_lib", k9_lib),
-                ("k5_plain", k5_plain), ("k5", k5), ("k5", k5), ("k5_plain", k5_plain)),
-               device, time_ms)
-    only9, per9 = kernel_only_or_not_measured(k9, device)
-    only5, per5 = kernel_only_or_not_measured(k5, device)
-    bound9 = (n + cap9 * 8 + 8) / PEAK_BYTES_PER_S * 1e3
-    bound5 = (n * 8 + perm.shape[0] * 8 + cap5 * 16 + 40) / PEAK_BYTES_PER_S * 1e3
-    log(f"compiled: K9 cap form at n={n}, half True, cap {cap9} {card}: "
-        f"{ms['k9']:.4f} ms vs plain {ms['k9_plain']:.4f}, torch.nonzero_static "
-        f"{ms['k9_lib']:.4f}, bound {bound9:.4f}; kernel-only {only9} ({per9} a call)")
-    log(f"compiled: K5 cap form at n={n} ranges, {total} pairs, cap {cap5} {card}: "
-        f"{ms['k5']:.4f} ms vs plain {ms['k5_plain']:.4f}, bound {bound5:.4f}; "
-        f"kernel-only {only5} ({per5} a call)")
-    return {"K9c": {"kernel": ms["k9"], "plain": ms["k9_plain"], "bound": bound9,
-                    "library": ms["k9_lib"]},
-            "K5c": {"kernel": ms["k5"], "plain": ms["k5_plain"], "bound": bound5,
-                    "library": None}}
+def census_line(census) -> str:
+    """K9c's and K5c's calls in one replay of each plan by size class
+    (n <= 2^a, cap <= 2^b, count <= 2^c), with the entries they write (cap)
+    beside the ones they fill (min(count, cap))."""
+    parts = []
+    for kind in ("K9c", "K5c"):
+        mine = [(n, cap, count) for k, n, cap, count in census if k == kind]
+        classes = {}
+        for n, cap, count in mine:
+            key = (pow2_class(n), pow2_class(cap), pow2_class(count))
+            classes[key] = classes.get(key, 0) + 1
+        order = sorted(classes.items(), key=lambda kv: (-kv[1], kv[0]))
+        written = sum(cap for _, cap, _ in mine)
+        filled = sum(min(count, cap) for _, cap, count in mine)
+        parts.append(f"{kind} {len(mine)} calls, {written} entries written, {filled} of them "
+                     f"positions or pairs; by (n <= 2^a, cap <= 2^b, count <= 2^c): "
+                     + ", ".join(f"({a}, {b}, {c}) {k}" for (a, b, c), k in order))
+    return "; ".join(parts)
 
 
 def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrappers,
@@ -3705,15 +4112,15 @@ def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrapper
     run_query(via="compiled") against phase 5's rows, the 22 SQL texts with
     with_compiled_execution() against phase 6's, that a replay reads no
     count eagerly, that a replaced table is re-captured, four threads on one
-    cached text, K9's and K5's capacity forms against their plain versions,
-    and bench/micro.py on the card. Returns (the phase's launches, the
-    capacity forms' timings, their largest differences)."""
+    cached text, and bench/micro.py on the card; with each replay's K9c and
+    K5c nodes (cap_nodes) and their calls by size class (census_line).
+    Returns (the phase's launches, {qid: (busy ms, cap_nodes)} of the
+    CAP_NODE_QIDS)."""
     import threading
 
     from hyrise_tpu_torch.bench import micro
-    from hyrise_tpu_torch.kernels import compact, join_probe
     from hyrise_tpu_torch.ops.base import execute_plan
-    from hyrise_tpu_torch.plan.compiler import bucket_capacity, eager_reads
+    from hyrise_tpu_torch.plan.compiler import eager_reads
     from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
     from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, compiled_query, run_query
 
@@ -3722,12 +4129,19 @@ def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrapper
     before = {name: w.launches for name, w in wrappers.items()}
     queries = []
     lines, replay_sum, eager_sum = [], 0.0, 0.0
+    calls, census, nodes = [], [], {}
     for qid in sorted(TPCH_PLANS):
         t0 = time.perf_counter()
-        rows = run_query(qid, cat, via="compiled").rows()
+        with recording_capacity_calls(calls):
+            start = len(calls)
+            rows = run_query(qid, cat, via="compiled").rows()
         first = (time.perf_counter() - t0) * 1e3
         cq = compiled_query(qid, cat)
         queries.append(cq)
+        # the calls of the capture whose graph replays: the last capture's
+        captured = sum(cq.capture_launches.get(k, 0)
+                       for k in ("compact_indices_cap", "expand_pairs_cap"))
+        graph_calls = calls[start:][-captured:] if captured else []
         retries, captures = cq.last_retries, cq.captures
         if not cq.sync_checked:
             raise AssertionError(f"compiled Q{qid}: the learning run was not sync-checked; "
@@ -3741,8 +4155,13 @@ def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrapper
         check_rows(rows, hand_rows[qid], f"compiled Q{qid} replayed vs phase 5", table_eq)
         if cq.captures != captures or cq.last_retries:
             raise AssertionError(f"compiled Q{qid}: a replay captured again or retried")
-        events, busy = replay_profile(lambda: run_query(qid, cat, via="compiled").rows(),
-                                      sum(cq.capture_launches.values()))
+        events, busy, cap_ms = replay_profile(
+            lambda: run_query(qid, cat, via="compiled").rows(),
+            sum(cq.capture_launches.values()))
+        nodes[qid] = (busy, cap_ms)
+        site_counts = getattr(cq, "last_counts", None)  # an older tree's has none
+        if site_counts is not None:
+            census += [(kind, n, cap, site_counts[site]) for kind, n, cap, site in graph_calls]
         med = statistics.median(times)
         replay_sum += med
         eager_sum += hand_wall[qid][1]
@@ -3756,6 +4175,15 @@ def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrapper
         f"{COMPILED_REPS} replays vs phase 5's eager median {card}: " + "; ".join(lines))
     log(f"compiled: SF{SF} sums of medians: compiled {replay_sum:.3f} ms, eager "
         f"{eager_sum:.3f} ms {card}")
+    log(f"compiled: K9c and K5c nodes in one replay (cap_nodes: calls / device ms, "
+        f"torch.profiler) beside the replay's busy ms {card}: " + "; ".join(
+            f"Q{q} " + ("not traced" if busy is None else
+                        f"K9c {c['K9c'][0]} / {c['K9c'][1]:.4f}, K5c {c['K5c'][0]} / "
+                        f"{c['K5c'][1]:.4f} of busy {busy:.3f}")
+            for q, (busy, c) in sorted(nodes.items())))
+    log("compiled: K9c and K5c calls in one replay of each of the 22 hand plans: "
+        + (census_line(census) if census else "none counted (no graph captured, or a "
+           "CompiledQuery without last_counts)"))
 
     # the 22 SQL texts, compiled and cached
     lines, sql_sum = [], 0.0
@@ -3835,12 +4263,6 @@ def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrapper
     gc.collect()  # a catalog and its CompiledQuerys refer to each other
     torch.cuda.empty_cache()
 
-    err9, err5 = check_cap_forms(device, compact, join_probe, bucket_capacity)
-    log(f"compiled: K9 and K5 capacity forms equal to their plain versions at "
-        f"{KERNEL_SIZES} (exact, loose and overflowed capacities; at the overflow nothing "
-        f"written past the buffer; K5 refuses a negative count on the device)")
-    timed = time_cap_forms(device, card, time_ms_of(), compact, join_probe, bucket_capacity)
-
     t0 = time.perf_counter()
     out = io.StringIO()
     report = micro.run_micros(MICRO_ROWS, MICRO_RUNS, device, out=out)
@@ -3851,13 +4273,15 @@ def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrapper
         f"{time.perf_counter() - t0:.1f} s; withheld: {withheld or 'none'}")
     log(f"compiled: launches in phase 12 (graph replays counted) {launches}")
     log(f"compiled: phase 12 took {time.perf_counter() - t_phase:.1f} s")
-    return launches, timed, (err9, err5)
+    return launches, {q: nodes[q] for q in CAP_NODE_QIDS}
 
 
 def compiled_only_run(device, card, started: float) -> None:
     """`--compiled`: phase 4's SF1 tables, the eager rows and walls of phase
     5's hand plans and phase 6's SQL texts that phase 12 compares with, then
-    phase 12."""
+    phase 12 (with `--kernels-from DIR`, another checkout's package). Ends
+    with one JSON line: the busy ms and K9c's and K5c's nodes of one replay
+    of each of the CAP_NODE_QIDS."""
     from hyrise_tpu_torch.kernels import (compact, fused_reduce, group_reduce, hash_lookup,
                                           join_probe, segment_reduce)
     from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
@@ -3885,14 +4309,15 @@ def compiled_only_run(device, card, started: float) -> None:
                 "compact_indices_cap": compact.compact_indices_cap,
                 "expand_pairs_cap": join_probe.expand_pairs_cap}
     reset_counts(wrappers)
-    launches, timed, errs = compiled_phase(device, card, tables, results, wall, sql_rows,
-                                           wrappers, table_eq, TPCH_SQL)
+    launches, nodes = compiled_phase(device, card, tables, results, wall, sql_rows,
+                                     wrappers, table_eq, TPCH_SQL)
     for name in COMPILED_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in phase 12")
     log(f"elapsed: {time.perf_counter() - started:.1f} s, the build included")
-    log(json.dumps({"compiled_kernels": {
-        label: dict(t, max_abs_err=err) for (label, t), err in zip(timed.items(), errs)}}))
+    log(json.dumps({"compiled_replays": {
+        f"Q{q}": {"busy_ms": busy, "K9c": c and c["K9c"], "K5c": c and c["K5c"]}
+        for q, (busy, c) in nodes.items()}}))
 
 
 def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None:
@@ -3919,14 +4344,26 @@ def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None
         "kernels_a_call": t["per_call"]} for label, t in cells.items()}}))
 
 
-def kernels_phase(device, card, wanted, q6, hash_lookup, time_ms, checked: bool) -> None:
-    """`--kernels K2,K8`: the named kernels alone. With `checked` (this
-    checkout's kernels) every check of phase 3 for them, then their timed
-    shapes; without (the kernels of another checkout,
+# the sources `--kernels` builds for each kernel it takes (K8's plain version
+# runs K9 on the card)
+KERNEL_SOURCES = {"K2": ("q6_scan",), "K8": ("hash_lookup", "compact"), "K9c": ("compact",),
+                  "K5c": ("join_probe",)}
+
+
+def kernels_phase(device, card, wanted, modules, time_ms, checked: bool) -> None:
+    """`--kernels K2,K8,K9c,K5c` (any of them): the named kernels alone. With
+    `checked` (this checkout's kernels) every check of phase 3 for them,
+    then their timed shapes; without (the kernels of another checkout,
     `--kernels-from DIR`, for the same timings of an older form in the same
     run) the timed shapes only, each still held against its plain version.
     Ends with one JSON line of the times."""
-    if checked:
+    q6, hash_lookup = modules.get("q6_scan"), modules.get("hash_lookup")
+    timed = {}
+    if "K9c" in wanted or "K5c" in wanted:
+        timed, _ = cap_phase(device, card, time_ms, modules["compact"], modules["join_probe"],
+                             checked)
+    wanted = [k for k in wanted if k in ("K2", "K8")]
+    if checked and wanted:
         for n in KERNEL_SIZES:
             if "K2" in wanted:
                 same_k2(k2_columns(n, device), q6, f"n={n}")
@@ -3937,10 +4374,12 @@ def kernels_phase(device, card, wanted, q6, hash_lookup, time_ms, checked: bool)
             log("kernels: " + check_k2_edges(device, q6))
         if "K8" in wanted:
             log("kernels: " + check_k8_edges(device, hash_lookup))
-    timed = time_k2_k8(KERNEL_SIZES[-1], device, card, time_ms, q6, hash_lookup, checked,
-                       wanted)
+    if wanted:
+        timed.update(time_k2_k8(KERNEL_SIZES[-1], device, card, time_ms, q6, hash_lookup,
+                                checked, wanted))
     log(json.dumps({"kernels_timed": {label: {
         "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"],
+        "library_ms": t.get("library"), "exact_ms": t.get("exact"),
         "kernel_only_ms": t["kernel_only"], "kernels_a_call": t["per_call"]}
         for label, t in timed.items()}}))
 
@@ -3957,8 +4396,9 @@ def main() -> None:
     cells_only = "--cells" in argv
     compiled_only = "--compiled" in argv
     kernels = argv[argv.index("--kernels") + 1].split(",") if "--kernels" in argv else None
-    if kernels is not None and not set(kernels) <= {"K2", "K8"}:
-        raise SystemExit(f"chip_smoke: --kernels takes K2 and K8, got {kernels}")
+    if kernels is not None and not set(kernels) <= set(KERNEL_SOURCES):
+        raise SystemExit(f"chip_smoke: --kernels takes {', '.join(KERNEL_SOURCES)}, got "
+                         f"{kernels}")
     other = argv[argv.index("--kernels-from") + 1] if "--kernels-from" in argv else None
     if other is not None:
         sys.path.insert(0, other)  # that checkout's hyrise_tpu_torch
@@ -3986,15 +4426,16 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
+    modules = {"q6_scan": q6, "group_reduce": group_reduce, "join_probe": join_probe,
+               "fused_reduce": fused_reduce, "segment_reduce": segment_reduce,
+               "hash_lookup": hash_lookup, "compact": compact}
     if kernels is None:
         build.build_all()
-        modules = (q6, group_reduce, join_probe, fused_reduce, segment_reduce,
-                   hash_lookup, compact)
-    else:  # only what K2 and K8 need: K8's plain version runs K9 on the card
-        modules = (q6, hash_lookup, compact)
+    else:  # only the sources of the kernels named
+        modules = {s: modules[s] for k in kernels for s in KERNEL_SOURCES[k]}
     with ThreadPoolExecutor(max_workers=len(modules)) as pool:  # builds what is missing
-        list(pool.map(lambda m: m._library(), modules))
-    sources = build.SOURCES if kernels is None else ("q6_scan", "hash_lookup", "compact")
+        list(pool.map(lambda m: m._library(), modules.values()))
+    sources = build.SOURCES if kernels is None else tuple(modules)
     log(f"build: {', '.join(f'{s}.cu' for s in sources)} with nvcc for sm_90a, "
         f"in parallel, in {time.perf_counter() - t0:.2f} s")
     for source in sources:
@@ -4007,7 +4448,7 @@ def main() -> None:
             f"{max(registers)} registers, {sum(spills)} bytes of spills (ptxas -v)")
 
     if kernels is not None:
-        kernels_phase(device, card, kernels, q6, hash_lookup, bench_q6.time_ms,
+        kernels_phase(device, card, kernels, modules, bench_q6.time_ms,
                       checked=other is None)
         log(f"elapsed: {time.perf_counter() - started:.1f} s, the build included")
         return
@@ -4120,6 +4561,8 @@ def main() -> None:
 
     new, new_err = time_k7_k9(n, device, card, bench_q6.time_ms, segment_reduce, compact)
     k7_err = max(k7_err, new_err)
+    cap_timed, (k9c_err, k5c_err) = cap_phase(device, card, bench_q6.time_ms, compact,
+                                              join_probe, checked=True)
 
     # -- 4. data -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -4274,8 +4717,8 @@ def main() -> None:
     wrappers.update(compact_indices_cap=compact.compact_indices_cap,
                     expand_pairs_cap=join_probe.expand_pairs_cap)
     reset_counts(wrappers)
-    compiled_launches, cap_timed, (k9c_err, k5c_err) = compiled_phase(
-        device, card, tables, results, wall, sql_rows, wrappers, table_eq, TPCH_SQL)
+    compiled_launches, _ = compiled_phase(device, card, tables, results, wall, sql_rows,
+                                          wrappers, table_eq, TPCH_SQL)
     for name in COMPILED_KERNELS:
         if compiled_launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in phase 12")
@@ -4348,7 +4791,7 @@ def main() -> None:
         new_entry("compact_indices", "compact.cu",
                   "hyrise_tpu/kernels/tpu_prims.py:144", k9_err, new["K9 share 0.5"]),
         new_entry("compact_indices_cap", "compact.cu",
-                  "hyrise_tpu/kernels/tpu_prims.py:144", k9c_err, cap_timed["K9c"]),
+                  "hyrise_tpu/kernels/tpu_prims.py:144", k9c_err, cap_timed["K9c share 0.5"]),
         new_entry("expand_pairs_cap", "join_probe.cu", "hyrise_tpu/ops/join.py:140",
                   k5c_err, cap_timed["K5c"]),
     ]}))

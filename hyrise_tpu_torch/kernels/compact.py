@@ -19,6 +19,9 @@ length after all the counting, without a stream synchronisation.
 tpu_prims.compact_indices(mask, cap): positions padded with 0 to `cap`
 entries and the count as a 0-dim int64 tensor, nothing read on the host, so
 that a CUDA graph can capture it; plain version `compact_indices_cap_plain`.
+Its C call enqueues a memset of the scratch and one kernel, which writes
+every entry of the output once (no memset of the output), and the wrapper
+returns views of its one buffer.
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ def _library() -> ctypes.CDLL:
     lib.compact_tile_rows.restype = i32
     lib.compact_scratch_words.argtypes = [i64]
     lib.compact_scratch_words.restype = i64
+    lib.compact_cap_tile_rows.argtypes = []
+    lib.compact_cap_tile_rows.restype = i32
     lib.compact_select_cap.argtypes = [ptr, i64, i64, ptr, ptr, i64, ptr, ptr]
     lib.compact_select_cap.restype = i32
     return lib
@@ -132,7 +137,7 @@ def compact_indices_cap(mask: torch.Tensor, cap: int) -> Tuple[torch.Tensor, tor
     them, then 0 up to cap entries; and the number of True entries, which
     may exceed cap, as a 0-dim int64 tensor. CPU tensors take
     compact_indices_cap_plain; CUDA tensors launch the K9 kernel's capacity
-    form (memsets and one kernel, no host wait) or raise."""
+    form (a memset of the scratch and one kernel, no host wait) or raise."""
     dev = mask.device
     if dev.type == "cpu":
         return compact_indices_cap_plain(mask, cap)
@@ -146,8 +151,8 @@ def compact_indices_cap(mask: torch.Tensor, cap: int) -> Tuple[torch.Tensor, tor
         return (torch.zeros(cap, dtype=torch.int64, device=dev),
                 torch.zeros((), dtype=torch.int64, device=dev))
     lib = _library()
-    tiles = -(-n // _tile_rows())
-    # positions [0, cap), the count, then the kernel's scratch
+    tiles = -(-n // lib.compact_cap_tile_rows())
+    # positions [0, cap) (16-byte aligned), the count, then the kernel's scratch
     buffer = torch.empty(cap + 1 + lib.compact_scratch_words(tiles), dtype=torch.int64,
                          device=dev)
     with torch.cuda.device(dev):

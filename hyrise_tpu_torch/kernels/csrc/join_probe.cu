@@ -63,14 +63,25 @@
 //   thread emits 8 pairs: all build_perm gathers started before any is used,
 //   both outputs written by 16-byte stores.
 //
-//   expand_pairs_cap is the capacity form (plan/compiler.py; JAX
-//   _expand_pairs(lo, counts, build_perm, out_cap)): the scan writes the
-//   total and the range check's verdict into device memory instead of the
-//   host slot, the outputs (cap pairs, memset to 0 first) are the caller's,
-//   and the expansion's grid is sized from cap: each block reads the total
-//   and stops past it (past cap too). A refused range writes no pair and
-//   sets the verdict's bit, which the host reads with the other counts.
-//   Nothing waits on the host, so a CUDA graph can capture the call.
+//   expand_pairs_cap is the capacity form (plan/compiler.py), which
+//   replaces hyrise_tpu/ops/join.py _expand_pairs(lo, counts, build_perm,
+//   out_cap): the first min(total, cap) pairs, 0 in the rest of both
+//   outputs, nothing at or past cap. Nothing waits on the host, so a CUDA
+//   graph can capture the call.
+//
+//   What bounds it: device-memory bytes, 8 bytes in per range and cap x 16
+//   bytes out, each written once.
+//   The design: the scan writes the total and the range check's verdict
+//   into two words of device memory instead of the host slot, and the
+//   expansion (expand_kernel<true>) runs over a grid sized from cap, each
+//   block reading both words. A block at or past the total (cut to cap; 0
+//   under a refusal) writes zeros over its 2,048 positions below cap as
+//   16-byte stores; the block that straddles the total writes its pairs and
+//   zeros after them. So every output byte below cap is written once, by
+//   the kernel, and no memset of the outputs precedes it. A refused range
+//   writes no pair and sets the verdict's word, which the host reads with
+//   the other counts. A call is a memset of the scratch (more than one scan
+//   tile) and two kernels; the wrapper returns views of the two words.
 
 #include <algorithm>
 #include <climits>
@@ -229,6 +240,10 @@ constexpr long long kBias = 1LL << 32;
 // the stream has ended
 constexpr int kStats = 1 + kBounds;
 constexpr long long kRefused = 1LL << 62;
+// the capacity form's stats (device memory): word 0 the total alone, words
+// 1..4 the bounds, word kRefusedWord 1 if refused, else 0
+constexpr int kRefusedWord = kStats;
+constexpr int kCapStats = kStats + 1;
 
 // Rows first .. first + 3 of an int32 column. kWhole: all four exist and
 // col + first lies on a 16-byte boundary, so the load is one instruction
@@ -304,7 +319,7 @@ __global__ void __launch_bounds__(kScanThreads)
 ranges_scan_kernel(const int* __restrict__ lo, const int* __restrict__ counts,
                    long long n, long long n_build, bool aligned, long long tiles,
                    long long segments, unsigned long long* __restrict__ scratch,
-                   volatile long long* host_stats) {
+                   volatile long long* host_stats, long long* refused_out) {
   __shared__ long long warp_sums[kScanLoads][kScanWarps];
   __shared__ int warp_bounds[kBounds][kScanWarps];
   __shared__ long long seg_ends[kSegsPerTile];  // inclusive, within the tile
@@ -392,7 +407,12 @@ ranges_scan_kernel(const int* __restrict__ lo, const int* __restrict__ counts,
           refused = refused || (b == kBounds - 1 ? v > n_build : v < 0);
           host_stats[1 + b] = v;
         }
-        host_stats[0] = (before + total) | (refused ? kRefused : 0LL);
+        if (refused_out != nullptr) {  // the capacity form: two words
+          host_stats[0] = before + total;
+          *refused_out = refused ? 1 : 0;
+        } else {
+          host_stats[0] = (before + total) | (refused ? kRefused : 0LL);
+        }
       }
       shared_before = before;
     }
@@ -448,11 +468,15 @@ __device__ __forceinline__ long long block_inclusive_sum(long long v, long long*
 // where position q of the block's outputs keeps its mark
 __device__ __forceinline__ int mark_at(int q) { return q + (q >> 3); }
 
+// kCap: the capacity form, whose total (cut to cap, 0 under a refusal) is
+// read from `stats`; every position below cap is written, zeros past the
+// total. Otherwise `total` is given and the grid covers it exactly.
+template <bool kCap>
 __global__ void __launch_bounds__(kThreads)
 expand_kernel(const int* __restrict__ lo, const int* __restrict__ counts,
               long long n_probe, bool aligned, const long long* __restrict__ seg_end,
               long long segments, const long long* __restrict__ build_perm,
-              long long total, const long long* __restrict__ total_word, long long cap,
+              long long total, const long long* __restrict__ stats, long long cap,
               long long* __restrict__ probe_out, long long* __restrict__ build_out) {
   // a mark: the range in the high half, and in the low half the position in
   // build_perm of the range's pair at the block's first output (it may lie
@@ -463,12 +487,27 @@ expand_kernel(const int* __restrict__ lo, const int* __restrict__ counts,
   __shared__ long long shared_base;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (total_word != nullptr) {  // the capacity form: the scan's word, cut to cap
-    const long long word = *total_word;
-    total = (word & kRefused) != 0 ? 0 : min(word, cap);
-  }
+  if (kCap) total = stats[kRefusedWord] != 0 ? 0 : min(stats[0], cap);
   const long long out_first = static_cast<long long>(blockIdx.x) * kOutTile;
-  if (out_first >= total) return;  // the whole block: no barrier is skipped
+  // the capacity form writes every position of the block below cap
+  const int width = kCap ? static_cast<int>(min(static_cast<long long>(kOutTile),
+                                                cap - out_first)) : 0;
+  if (out_first >= total) {  // the whole block: no barrier is skipped
+    if (kCap) {
+#pragma unroll
+      for (int k = 0; k < kPerThread / 2; ++k) {
+        const int q = (k * kThreads + threadIdx.x) * 2;
+        if (q + 1 < width) {
+          *reinterpret_cast<longlong2*>(probe_out + out_first + q) = make_longlong2(0, 0);
+          *reinterpret_cast<longlong2*>(build_out + out_first + q) = make_longlong2(0, 0);
+        } else if (q < width) {
+          probe_out[out_first + q] = 0;
+          build_out[out_first + q] = 0;
+        }
+      }
+    }
+    return;
+  }
   const long long out_end = min(out_first + kOutTile, total);
   const int n_out = static_cast<int>(out_end - out_first);
   for (int q = threadIdx.x; q < kMarkWords; q += kThreads) marks[q] = -1;
@@ -545,7 +584,9 @@ expand_kernel(const int* __restrict__ lo, const int* __restrict__ counts,
   __syncthreads();
 
   // 8 pairs a thread, two neighbours at a time so that a warp's 16-byte
-  // stores are contiguous; all gathers first
+  // stores are contiguous; all gathers first; zeros past n_out up to the
+  // block's width in the capacity form
+  const int stored = kCap ? width : n_out;
   long long probe[kPerThread], row_of[kPerThread];
 #pragma unroll
   for (int k = 0; k < kPerThread / 2; ++k) {
@@ -564,12 +605,12 @@ expand_kernel(const int* __restrict__ lo, const int* __restrict__ counts,
 #pragma unroll
   for (int k = 0; k < kPerThread / 2; ++k) {
     const int q = (k * kThreads + threadIdx.x) * 2;
-    if (q + 1 < n_out) {
+    if (q + 1 < stored) {
       *reinterpret_cast<longlong2*>(probe_out + out_first + q) =
           make_longlong2(probe[2 * k], probe[2 * k + 1]);
       *reinterpret_cast<longlong2*>(build_out + out_first + q) =
           make_longlong2(row_of[2 * k], row_of[2 * k + 1]);
-    } else if (q < n_out) {
+    } else if (q < stored) {
       probe_out[out_first + q] = probe[2 * k];
       build_out[out_first + q] = row_of[2 * k];
     }
@@ -675,7 +716,7 @@ int expand_pairs(const void* lo, const void* counts, long long n_probe,
   ranges_scan_kernel<<<static_cast<unsigned>(tiles), kScanThreads, 0, stream>>>(
       static_cast<const int*>(lo), static_cast<const int*>(counts), n_probe, n_build,
       aligned, tiles, segments, static_cast<unsigned long long*>(scratch),
-      slot_on_device);
+      slot_on_device, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = lookback::wait_for_slot(slot, stream);
@@ -696,7 +737,7 @@ int expand_pairs(const void* lo, const void* counts, long long n_probe,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long* seg_end = static_cast<const long long*>(scratch) + kStatusWords + tiles;
-  expand_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  expand_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const int*>(lo), static_cast<const int*>(counts), n_probe, aligned,
       seg_end, segments, static_cast<const long long*>(build_perm), total, nullptr, 0,
       static_cast<long long*>(outputs[0]), static_cast<long long*>(outputs[1]));
@@ -704,13 +745,15 @@ int expand_pairs(const void* lo, const void* counts, long long n_probe,
 }
 
 // K5, the capacity form. The pairs of the n_probe >= 1 ranges into
-// probe_out[0..min(total, cap)) and build_out, both of cap >= 1 int64,
-// 16-byte aligned and otherwise 0. `stats` (device memory, kStats int64)
-// receives the total in word 0, with bit 62 set if a count is negative or a
-// range leaves [0, n_build] (then no pair is written), and the ranges'
-// bounds in words 1..4. `scratch` as for expand_pairs. Enqueues memsets and
-// two kernels on `stream`; returns the first CUDA error, or 0. Neither
-// waits nor allocates.
+// probe_out[0..min(total, cap)) and build_out, both of cap >= 1 int64 and
+// 16-byte aligned, 0 in the rest of both and nothing at or past cap.
+// `stats` (device memory, expand_stats_words() int64) receives the total in
+// word 0, the ranges' bounds in words 1..4, and in word
+// expand_refused_word() 1 if a count is negative or a range leaves
+// [0, n_build] (then no pair is written), else 0. `scratch` as for
+// expand_pairs. Enqueues a memset of the scratch (if the scan has more than
+// one tile) and two kernels on `stream`; returns the first CUDA error, or 0.
+// Neither waits nor allocates.
 int expand_pairs_cap(const void* lo, const void* counts, long long n_probe,
                      const void* build_perm, long long n_build, void* scratch, void* stats,
                      void* probe_out, void* build_out, long long cap, void* stream_ptr) {
@@ -722,27 +765,27 @@ int expand_pairs_cap(const void* lo, const void* counts, long long n_probe,
       !aligned16(probe_out) || !aligned16(build_out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaMemsetAsync(probe_out, 0, cap * 8, stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(build_out, 0, cap * 8, stream);
-  if (err == cudaSuccess && tiles > 1) {
-    err = cudaMemsetAsync(scratch, 0, (kStatusWords + tiles) * 8, stream);
+  if (tiles > 1) {  // one tile takes no ticket, no atomics and no status word
+    cudaError_t err = cudaMemsetAsync(scratch, 0, (kStatusWords + tiles) * 8, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
   const bool aligned = aligned16(lo) && aligned16(counts);
   long long* words = static_cast<long long*>(stats);
   ranges_scan_kernel<<<static_cast<unsigned>(tiles), kScanThreads, 0, stream>>>(
       static_cast<const int*>(lo), static_cast<const int*>(counts), n_probe, n_build,
-      aligned, tiles, segments, static_cast<unsigned long long*>(scratch), words);
-  err = cudaGetLastError();
+      aligned, tiles, segments, static_cast<unsigned long long*>(scratch), words,
+      words + kRefusedWord);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long* seg_end = static_cast<const long long*>(scratch) + kStatusWords + tiles;
-  expand_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  expand_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const int*>(lo), static_cast<const int*>(counts), n_probe, aligned,
       seg_end, segments, static_cast<const long long*>(build_perm), 0, words, cap,
       static_cast<long long*>(probe_out), static_cast<long long*>(build_out));
   return static_cast<int>(cudaGetLastError());
 }
 
-int expand_stats_words() { return kStats; }
+int expand_stats_words() { return kCapStats; }
+int expand_refused_word() { return kRefusedWord; }
 
 }  // extern "C"

@@ -24,7 +24,10 @@ int32 (it is the largest allocation of a join).
 _expand_pairs(lo, counts, build_perm, out_cap)): cap pairs padded with 0,
 the total and the range check's verdict as device tensors, nothing read on
 the host, so that a CUDA graph can capture it; plain version
-`expand_pairs_cap_plain`.
+`expand_pairs_cap_plain`. Its C call enqueues a memset of the scratch and
+the two kernels, whose expansion writes every output entry once (no memset
+of the outputs); the total and the verdict are views of the words the scan
+writes, so the wrapper launches no torch op.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ def _library() -> ctypes.CDLL:
     lib.expand_pairs_cap.argtypes = [ptr, ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, i64, ptr]
     lib.expand_pairs_cap.restype = i32
     for tile in (lib.expand_scan_tile_rows, lib.expand_out_tile_pairs,
-                 lib.expand_stats_words):
+                 lib.expand_stats_words, lib.expand_refused_word):
         tile.argtypes = []
         tile.restype = i32
     return lib
@@ -275,8 +278,6 @@ expand_pairs.pairs_out = 0
 
 # -- K5, the capacity form ------------------------------------------------------
 
-_REFUSED_BIT = 62
-
 
 def expand_pairs_cap_plain(lo: torch.Tensor, counts: torch.Tensor, build_perm: torch.Tensor,
                            cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -317,8 +318,8 @@ def expand_pairs_cap(lo: torch.Tensor, counts: torch.Tensor, build_perm: torch.T
     number of pairs the ranges make (int64, 0-dim, may exceed cap); and
     whether a count is negative or a range leaves build_perm (bool, 0-dim;
     then no pair is written). CPU tensors take expand_pairs_cap_plain; CUDA
-    tensors launch the K5 kernels' capacity form (memsets, the scan, the
-    expansion; no host wait) or raise."""
+    tensors launch the K5 kernels' capacity form (a memset of the scratch,
+    the scan, the expansion; no host wait) or raise."""
     _check_ranges(lo, counts, build_perm)
     dev = lo.device
     if dev.type == "cpu":
@@ -346,10 +347,10 @@ def expand_pairs_cap(lo: torch.Tensor, counts: torch.Tensor, build_perm: torch.T
                                    torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "expand_pairs_cap")
     build.count_launch(expand_pairs_cap, rows_seen=n_probe)
-    word = stats[0]
-    refused = (word >> _REFUSED_BIT) & 1
-    return (outputs[0, :cap], outputs[1, :cap], word & ((1 << _REFUSED_BIT) - 1),
-            refused.to(torch.bool))
+    # the verdict's word holds 0 or 1: its lowest byte, as a bool
+    at = lib.expand_refused_word()
+    refused = stats[at:at + 1].view(torch.bool)[0]
+    return outputs[0, :cap], outputs[1, :cap], stats[0], refused
 
 
 expand_pairs_cap.launches = 0

@@ -273,9 +273,11 @@ class CompiledQuery:
         table = cq.run()   # first call: learn, capture, replay (and
                            # overflow retries); later calls: one replay
 
-    `caps` are the capacities by site, `last_retries` the overflow retries
-    of the last run, `captures` and `replays` count graph captures and
-    replays, `pool_mb` is the device memory the last capture reserved, and
+    `caps` are the capacities by site, `last_counts` what the last run (or
+    replay) counted, as the host read it: the sites' counts in site order
+    (`labels`), the checks' flags, and the result's rows; `last_retries` the
+    overflow retries of the last run, `captures` and `replays` count graph
+    captures and replays, `pool_mb` is the device memory the last capture reserved, and
     `capture_launches` the launches of each kernel wrapper during it (a
     replay launches them again without the wrappers seeing it;
     `launches_captured` and `launches_replayed` sum them over every capture
@@ -296,6 +298,7 @@ class CompiledQuery:
             raise PlanNotCompilable("no base tables")
         self.device = self._sources[0].device
         self.caps: List[int] = []
+        self.last_counts: List[int] = []
         self._labels: List[str] = []
         self._check_labels: List[str] = []
         self._out_meta: Optional[List[_ColMeta]] = None
@@ -419,7 +422,7 @@ class CompiledQuery:
             for _ in range(self.MAX_RETRIES):
                 if self._graph is None:
                     outputs = self._execute(learning=True)
-                    counts = outputs[2].tolist()
+                    counts = self.last_counts = outputs[2].tolist()
                     if self._grow(counts):
                         continue
                     if tighten:
@@ -432,7 +435,7 @@ class CompiledQuery:
                 self.replays += 1
                 for k, v in self.capture_launches.items():
                     self.launches_replayed[k] = self.launches_replayed.get(k, 0) + v
-                counts = outputs[2].tolist()
+                counts = self.last_counts = outputs[2].tolist()
                 if self._grow(counts):
                     self._graph = self._graph_outputs = None
                     continue
