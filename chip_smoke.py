@@ -5,6 +5,7 @@
     python3 chip_smoke.py --cells [--kernels-from DIR]
     python3 chip_smoke.py --kernels K2,K8,K9c,K5c [--kernels-from DIR]
     python3 chip_smoke.py --compiled [--kernels-from DIR]
+    python3 chip_smoke.py --compiled-streaming
 
 The second form runs phases 1 and 2, then only K3's and K6's checks and
 timings (`cells_phase`); the third builds only the sources of the kernels
@@ -16,7 +17,9 @@ then left out, but each timed shape is still held against its plain
 version. The fourth runs phases 1 and 2, generates phase 4's SF1 tables,
 takes the eager rows and walls of the 22 hand plans and SQL texts that phase
 12 compares with, then phase 12 alone (`compiled_only_run`), with DIR's
-package where --kernels-from names one.
+package where --kernels-from names one. The fifth runs phases 1 and 2,
+phase 10's SF10 part (the tables, the eager streamed and resident answers
+and medians), then phase 13 alone (`compiled_streaming_only_run`).
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -289,6 +292,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              K8, K9c and K5c must have launched; the phase's launches are
              added to the kernels line's, which lists the two capacity forms
              after K1-K9.
+13. compiled streaming — the streamed forms as captured graphs
+             (plan/blocked.py BlockedCompiledQuery, plan/segmented.py
+             SegmentedQuery(compiled=True)), right after phase 10 on its SF10
+             catalog and resident answers, with every launch count at 0
+             before it. The 22 hand plans through run_query(
+             via="compiled-segmented") with phase 10's thresholds (lineitem
+             in 15 blocks), each equal to the resident answer in order on
+             each of four runs; the third and fourth capture nothing, retry
+             nothing, read the host at most twice per blocked stage, and no
+             run after the first reads a count eagerly. Per query: stages,
+             blocks, captures, whether the learning runs were sync-checked,
+             first run and median of 3 more beside phase 10's eager streamed
+             and resident medians, host reads a run, retries, the graphs'
+             pool MB and the peak MB above the tables. Q1 and Q6 against the
+             numpy oracles; Q1, Q3, Q6 and Q14 through via="compiled-blocked"
+             with the builds a run and one profiled run's busy ms a block;
+             lineitem replaced by its first half under Q6 and Q18 gives the
+             eager streamed answers over it and is captured again, then put
+             back. Each query's compiled objects are freed after it is
+             measured. K3, K4, K7 and K9c must have launched inside the
+             graphs; the phase's launches are added to the kernels line's.
 
 Phases 5 and 6 also print the mean rows per launch of K4, K5, K7 and K9 and
 K5's mean pairs per launch (the wrappers count the rows they are given), so
@@ -3586,7 +3610,8 @@ def streaming_sf10(device, card, table_eq) -> dict:
     and resident (run_query), equal to each other; Q1 and Q6 equal the numpy
     oracles; walls and peak memory of both forms. Returns what phase 11
     reads: the catalog, the resident rows and medians, the MB the tables
-    hold, lineitem's host columns and the date pool."""
+    hold, lineitem's host columns and the date pool; phase 13 reads the
+    streamed medians too."""
     from hyrise_tpu_torch.tpch import dbgen
     from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, run_query
 
@@ -3641,8 +3666,219 @@ def streaming_sf10(device, card, table_eq) -> dict:
         f"{sum(m for m, _ in medians.values()):.3f} ms, resident "
         f"{sum(m for _, m in medians.values()):.3f} ms {card}")
     return {"cat": cat, "resident": resident_rows,
-            "medians": {q: r for q, (_, r) in medians.items()}, "table_mb": table_mb,
+            "medians": {q: r for q, (_, r) in medians.items()},
+            "streamed_medians": {q: m for q, (m, _) in medians.items()}, "table_mb": table_mb,
             "li": li, "pool": pool}
+
+
+# -- 13. compiled streaming: the streamed forms as captured graphs ---------------
+
+# the kernels phase 13 must launch inside its graphs: group-bys (K3), joins
+# (K4), the general group-by (K7), every filter and compaction (K9c)
+STREAMED_GRAPH_KERNELS = ("segment_reduce_cells", "lookup_last_eq_lut",
+                          "segment_reduce_sorted", "compact_indices_cap")
+REPLACED_QIDS = (6, 18)        # their lineitem is replaced by half of it
+
+
+def stage_queries(q) -> list:
+    """The compiled queries a streamed query runs: a SegmentedQuery's stage
+    queries, or the query itself."""
+    return [s.query for s in q.stages] if hasattr(q, "stages") else [q]
+
+
+def streamed_state(q) -> dict:
+    """What phase 13 reads of a compiled streamed query after a run."""
+    qs = stage_queries(q)
+    blocked = [x for x in qs if hasattr(x, "n_blocks")]
+    return {"stages": len(qs), "blocks": sum(x.n_blocks for x in blocked),
+            "captures": sum(x.captures for x in qs),
+            "sync_checked": all(x.sync_checked for x in qs),
+            "reads": sum(x.host_reads for x in qs),
+            "blocked_reads": max([x.host_reads for x in blocked], default=0),
+            "retries": sum(x.last_retries for x in qs),
+            "pool_mb": sum(x.pool_mb for x in qs)}
+
+
+def add_graph_counts(replayed: dict, captured: dict, queries) -> None:
+    """Add what the graphs of `queries` ran in their replays, and what their
+    captures recorded without running it, to the two counts by kernel."""
+    for cq in queries:
+        for out, counts in ((replayed, cq.launches_replayed), (captured, cq.launches_captured)):
+            for name, n in counts.items():
+                out[name] = out.get(name, 0) + n
+
+
+def compiled_streamed_run(qid, cat, via, streaming, want, what, table_eq, device,
+                          table_bytes):
+    """Phase 13 for one query: a first run and STREAM_REPS more through
+    run_query(via=...), each equal to `want` in order; the third run and
+    those after it capture nothing, retry nothing and read the host at most
+    twice per blocked stage; no eager read over the timed runs. Returns
+    (first ms, median ms, the state after the first and after the last run,
+    MB allocated above the tables at the peak of the first run and of the
+    later ones, the rows, the stage queries)."""
+    from hyrise_tpu_torch.plan.compiler import eager_reads
+    from hyrise_tpu_torch.tpch.queries import run_query, streamed_query
+
+    q = streamed_query(qid, cat, via, streaming["block_rows"], streaming["resident_rows"])
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    times, states = [], []
+    for i in range(1 + STREAM_REPS):
+        if i == 1:
+            reads = eager_reads()
+            first_peak = torch.cuda.max_memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        rows = run_query(qid, cat, via=via, **streaming).rows()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check_rows(rows, want, f"{what} run {i + 1}", table_eq)
+        states.append(streamed_state(q))
+        if i >= 2 and (states[-1]["captures"] != states[-2]["captures"]
+                       or states[-1]["retries"] or states[-1]["blocked_reads"] > 2):
+            raise AssertionError(f"{what} run {i + 1}: {states[-2]} -> {states[-1]}")
+    if eager_reads() != reads:
+        raise AssertionError(f"{what}: {eager_reads() - reads} eager reads over the timed runs")
+    if device.type == "cuda" and not states[0]["sync_checked"]:
+        raise AssertionError(f"{what}: a learning run was not sync-checked")
+    peaks = [(b - table_bytes) / 1e6 for b in (first_peak,
+                                              torch.cuda.max_memory_allocated(device))]
+    return (times[0], statistics.median(times[1:]), states[0], states[-1], peaks, rows,
+            stage_queries(q))
+
+
+def compiled_streaming_phase(device, card, sf10, table_eq, wrappers) -> dict:
+    """Phase 13 on phase 10's SF10 catalog and resident answers: the 22 hand
+    plans through run_query(via="compiled-segmented") and Q1, Q3, Q6, Q14
+    through via="compiled-blocked" with phase 10's thresholds, each answer
+    equal to the resident one in order on every run; Q1 and Q6 against the
+    numpy oracles; lineitem replaced by half of it under Q6 and Q18 (the
+    eager streamed answers over the half table, a capture again); one
+    profiled steady run of each compiled-blocked query. Each query's
+    compiled objects are freed after it is measured. Returns the launches of
+    its runs before the replacement check: the wrappers' counts (uncaptured
+    learning runs, and captures, which record launches without running
+    them) less what the captures recorded, plus what the replays ran."""
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, run_query
+
+    t_phase = time.perf_counter()
+    cat, resident = sf10["cat"], sf10["resident"]
+    torch.cuda.synchronize(device)
+    table_bytes = torch.cuda.memory_allocated(device)
+    start = {name: w.launches for name, w in wrappers.items()}
+    replayed, captured, lines, sums = {}, {}, [], [0.0, 0.0, 0.0]
+    answers = {}
+    for qid in sorted(TPCH_PLANS):
+        first, med, s0, s1, peak, rows, queries = compiled_streamed_run(
+            qid, cat, "compiled-segmented", SF10_STREAMING, resident[qid],
+            f"compiled segmented Q{qid} at SF{STREAM_SF}", table_eq, device, table_bytes)
+        answers[qid] = rows
+        if qid in MULTI_STAGE and s1["stages"] < 2:
+            raise AssertionError(f"compiled segmented Q{qid}: {s1['stages']} stage")
+        add_graph_counts(replayed, captured, queries)
+        eager_med, res_med = sf10["streamed_medians"][qid], sf10["medians"][qid]
+        sums[0] += med
+        sums[1] += eager_med
+        sums[2] += res_med
+        lines.append(f"Q{qid} {s1['stages']} stages, {s1['blocks']} blocks, {s1['captures']} "
+                     f"captures (first run {s0['captures']}), sync-checked "
+                     f"{s0['sync_checked']}, {first:.3f} / {med:.3f} ms (eager streamed "
+                     f"{eager_med:.3f}, resident {res_med:.3f}), host reads {s1['reads']} a run "
+                     f"(first {s0['reads']}), retries {s1['retries']} (first {s0['retries']}), "
+                     f"pool {s1['pool_mb']:.1f} MB, peak {peak[0]:.1f} / {peak[1]:.1f} MB")
+        del cat.compiled[("compiled-segmented", qid, SF10_STREAMING["block_rows"],
+                          SF10_STREAMING["resident_rows"])]
+        del queries
+        gc.collect()
+        torch.cuda.empty_cache()
+    expected6 = q6_oracle(sf10["li"], sf10["pool"])
+    got6 = float(answers[6][0][0])
+    if rel_diff(got6, expected6) > 1e-6:
+        raise AssertionError(f"compiled segmented Q6 {got6} vs numpy {expected6}")
+    worst = check_q1(answers[1], q1_oracle(sf10["li"], sf10["pool"]))
+    log(f"compiled streaming: SF{STREAM_SF} all 22 hand plans through run_query("
+        f"via=\"compiled-segmented\", {SF10_STREAMING}) equal the resident answers on every "
+        f"run (ints and strings exactly, floats within 1e-6 relative, in order); the third "
+        f"and fourth runs capture nothing, retry nothing, read the host at most twice per "
+        f"blocked stage and make no eager read; Q6 {got6!r} vs numpy {expected6!r} (rel "
+        f"{rel_diff(got6, expected6):.3e}); Q1's groups equal the numpy oracle's (floats "
+        f"within {worst:.3e})")
+    log(f"compiled streaming: SF{STREAM_SF} per query (host clock to rows on the host, first "
+        f"run / median of {STREAM_REPS} more; pool: the graphs' reserved MB; peak: MB "
+        f"allocated above the tables, first run / later runs) {card}: " + "; ".join(lines))
+    log(f"compiled streaming: SF{STREAM_SF} sums of medians: compiled segmented "
+        f"{sums[0]:.3f} ms, eager streamed {sums[1]:.3f} ms, resident {sums[2]:.3f} ms {card}")
+
+    lines = []
+    for qid in BLOCKED_QIDS:
+        first, med, s0, s1, peak, _, queries = compiled_streamed_run(
+            qid, cat, "compiled-blocked", SF10_STREAMING, resident[qid],
+            f"compiled blocked Q{qid} at SF{STREAM_SF}", table_eq, device, table_bytes)
+        bq = queries[0]
+        events, busy, _ = replay_profile(
+            lambda: run_query(qid, cat, via="compiled-blocked", **SF10_STREAMING).rows(), 1)
+        add_graph_counts(replayed, captured, queries)
+        lines.append(f"Q{qid} {s1['blocks']} blocks of {bq.block_rows} rows, {s1['captures']} "
+                     f"captures, {first:.3f} / {med:.3f} ms (resident "
+                     f"{sf10['medians'][qid]:.3f}), host reads {s1['reads']}, builds "
+                     f"{bq.builds} a run, pool {s1['pool_mb']:.1f} MB, peak {peak[0]:.1f} / "
+                     f"{peak[1]:.1f} MB; "
+                     f"one profiled run: {events} device events, busy "
+                     + ("not traced" if busy is None else
+                        f"{busy:.3f} ms, {busy / bq.n_blocks:.3f} ms a block"))
+        del cat.compiled[("compiled-blocked", qid, SF10_STREAMING["block_rows"],
+                          SF10_STREAMING["resident_rows"])]
+        del queries, bq
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"compiled streaming: SF{STREAM_SF} Q{', Q'.join(map(str, BLOCKED_QIDS))} through "
+        f"via=\"compiled-blocked\" equal the resident answers {card}: " + "; ".join(lines))
+    launches = {name: w.launches - start[name] - captured.get(name, 0) + replayed.get(name, 0)
+                for name, w in wrappers.items()}
+
+    # lineitem replaced by its first half: a blocked stage over it streams the
+    # new table (a capture again), a stage whose result changed its rows is
+    # bound anew and the stages after it are made anew
+    li = cat.get_table("lineitem")
+    lines = []
+    for qid in REPLACED_QIDS:
+        key = ("compiled-segmented", qid, SF10_STREAMING["block_rows"],
+               SF10_STREAMING["resident_rows"])
+        for _ in range(2):
+            run_query(qid, cat, via="compiled-segmented", **SF10_STREAMING)
+        q = cat.compiled[key]
+        before = streamed_state(q)
+        queries = stage_queries(q)
+        cat.replace_table("lineitem", li.block(0, li.num_rows // 2))
+        try:
+            got = run_query(qid, cat, via="compiled-segmented", **SF10_STREAMING).rows()
+            want = run_query(qid, cat, via="segmented", **SF10_STREAMING).rows()
+            after = streamed_state(q)
+            remade = sum(a is not b for a, b in zip(stage_queries(q), queries))
+        finally:
+            cat.replace_table("lineitem", li)
+        check_rows(got, want, f"compiled segmented Q{qid} over half of lineitem vs eager",
+                   table_eq)
+        if device.type == "cuda" and after["captures"] <= before["captures"] and not remade:
+            raise AssertionError(f"Q{qid} over half of lineitem was not captured again")
+        if got == answers[qid]:
+            raise AssertionError(f"Q{qid} over half of lineitem gave the whole table's answer")
+        lines.append(f"Q{qid}: {len(got)} rows equal to the eager streamed answer over "
+                     f"{li.num_rows // 2} rows, {after['blocks']} blocks, captures "
+                     f"{before['captures']} -> {after['captures']}, {remade} of "
+                     f"{after['stages']} stage queries made anew")
+        del cat.compiled[key], q, queries
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("compiled streaming: lineitem replaced by its first half, then put back: "
+        + "; ".join(lines))
+    for name in STREAMED_GRAPH_KERNELS:
+        if replayed.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched inside phase 13's graphs")
+    log(f"compiled streaming: launches before the replacement check {launches}, of them "
+        f"inside the graphs (the replays' runs) {replayed}; phase 13 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # -- 11. distribution: sharded execution on the card ----------------------------
@@ -4320,6 +4556,29 @@ def compiled_only_run(device, card, started: float) -> None:
         for q, (busy, c) in nodes.items()}}))
 
 
+def compiled_streaming_only_run(device, card, started: float) -> None:
+    """`--compiled-streaming`: phase 10's SF10 part (the tables generated on
+    the card, the 22 streamed eagerly and resident), then phase 13. Ends
+    with one JSON line: phase 13's launches."""
+    from hyrise_tpu_torch.kernels import (compact, group_reduce, hash_lookup, join_probe,
+                                          segment_reduce)
+    from hyrise_tpu_torch.utils import table_eq
+
+    wrappers = {"segment_reduce_cells": group_reduce.segment_reduce_cells,
+                "lookup_last_eq_lut": join_probe.lookup_last_eq_lut,
+                "expand_pairs": join_probe.expand_pairs,
+                "segment_reduce_sorted": segment_reduce.segment_reduce_sorted,
+                "lookup_last_eq": hash_lookup.lookup_last_eq,
+                "compact_indices": compact.compact_indices,
+                "compact_indices_cap": compact.compact_indices_cap,
+                "expand_pairs_cap": join_probe.expand_pairs_cap}
+    sf10 = streaming_sf10(device, card, table_eq)
+    reset_counts(wrappers)
+    launches = compiled_streaming_phase(device, card, sf10, table_eq, wrappers)
+    log(f"elapsed: {time.perf_counter() - started:.1f} s, the build included")
+    log(json.dumps({"compiled_streaming_launches": launches}))
+
+
 def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None:
     """`--cells`: K3 and K6 alone. With `checked` (this checkout's kernels)
     every check of phase 3 for them, then their timed shapes; without (the
@@ -4395,6 +4654,7 @@ def main() -> None:
     argv = sys.argv[1:]
     cells_only = "--cells" in argv
     compiled_only = "--compiled" in argv
+    streaming_only = "--compiled-streaming" in argv
     kernels = argv[argv.index("--kernels") + 1].split(",") if "--kernels" in argv else None
     if kernels is not None and not set(kernels) <= set(KERNEL_SOURCES):
         raise SystemExit(f"chip_smoke: --kernels takes {', '.join(KERNEL_SOURCES)}, got "
@@ -4458,6 +4718,9 @@ def main() -> None:
         return
     if compiled_only:
         compiled_only_run(device, card, started)
+        return
+    if streaming_only:
+        compiled_streaming_only_run(device, card, started)
         return
 
     # -- 3. kernels against their plain versions -----------------------------
@@ -4741,6 +5004,12 @@ def main() -> None:
     log(f"streaming: launches in phase 10 {stream_launches}")
     log(f"streaming: phase 10 took {time.perf_counter() - t0:.1f} s")
     for name, count in stream_launches.items():
+        launches[name] += count
+
+    # -- 13. compiled streaming: SF10 through captured block programs ---------
+    reset_counts(wrappers)
+    for name, count in compiled_streaming_phase(device, card, sf10, table_eq,
+                                                wrappers).items():
         launches[name] += count
 
     # -- 11. distribution: SF10 over four shards on the card, a process group --

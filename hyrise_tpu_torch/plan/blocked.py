@@ -1,34 +1,53 @@
 """Blocked (streaming) execution: one table of a plan processed in row
-blocks through the eager operator DAG, partial aggregates merged at the
-end.
+blocks, partial aggregates merged at the end.
 
-Counterpart of the JAX package's plan/blocked.py (BlockedCompiledQuery).
-The reference processes arbitrarily large tables chunk-at-a-time: every
-operator iterates Chunks of at most Chunk::MAX_SIZE rows (reference:
-src/lib/storage/chunk.hpp:44, table_scan.cpp per-chunk loops,
-aggregate.cpp per-chunk maps merged at the end). The JAX form compiles one
-block-shaped program over dynamic slices of device arrays; the port has no
-compiled form (ROADMAP A, "not ported by decision") and runs the plan's own
-operators once per block instead:
+Counterpart of the JAX package's plan/blocked.py. The reference processes
+arbitrarily large tables chunk-at-a-time: every operator iterates Chunks of
+at most Chunk::MAX_SIZE rows (reference: src/lib/storage/chunk.hpp:44,
+table_scan.cpp per-chunk loops, aggregate.cpp per-chunk maps merged at the
+end). Both forms here split a plan the same way:
 
 - the plan's dominant table (the largest source) is the STREAM table;
   every other table stays whole (dimension builds),
 - the plan is split at its top-level Aggregate: the subtree below runs per
   block with the aggregate in its decomposable PARTIAL form (SUM / COUNT /
   MIN / MAX; AVG as SUM + COUNT), the reference's per-chunk map,
-- the stream leaf is replaced, for the run, by a TableWrapper whose table
-  is `Table.block(lo, hi)` of each block in turn: views of the tensors the
-  table already has on its device, nothing copied (the JAX form's
-  dynamic_slice of device arrays, blocked.py:207-265). Before each block
-  only the operators on the stream path drop their outputs, so everything
-  off it (dimension builds, resident subtrees) executes once a run, and a
-  Join whose build input is off the path keeps its build side for the run
-  (ops/join.py BuildCache): the reference builds its hash table once for
-  all chunks (join_hash.cpp),
 - partials are concatenated (UnionAll) and finished by a final aggregate
   and a projection that divides AVG's sums, then the original tail above
   the split (Sort / Projection / Limit / Alias / a HAVING TableScan) runs on
   the merged result.
+
+`BlockedQuery` (eager) runs the plan's own operators once per block: the
+stream leaf is replaced, for the run, by a TableWrapper whose table is
+`Table.block(lo, hi)` of each block in turn, views of the tensors the table
+already has on its device. Before each block only the operators on the
+stream path drop their outputs, so everything off it (dimension builds,
+resident subtrees) executes once a run, and a Join whose build input is off
+the path keeps its build side for the run (ops/join.py BuildCache): the
+reference builds its hash table once for all chunks (join_hash.cpp).
+
+`BlockedCompiledQuery` (the JAX name) runs ONE captured block program for
+every block (plan/compiler.py). A CUDA graph reads the tensors it was
+captured over, so the stream leaf reads a WINDOW table of `block_rows` rows
+of each column the block program references (with validity and the live
+mask where the stream table has them) whose row count is a 0-dim tensor on
+the device; before each replay the block's rows are copied into the window
+and its count filled in, on the stream the replay runs on, from offsets
+the host knows. The JAX form passes the whole columns and cuts each block inside its
+program with a traced offset (blocked.py:207-266); the window costs one more
+read and write of the referenced columns and keeps every operator's input a
+plain table. Each replay's outputs (the block's partial, at its capacity,
+with its device count) are copied into per-block buffers kept across runs,
+with no host read between blocks; after the last block the host reads the
+stacked counts once. An overflow raises a site to the bucket of its maximum
+across blocks and runs every block again (capturing again); after a run the
+capacities shrink to the across-block maximum for the next one, never to a
+single block's count. The off-path subtrees run inside the block program, in
+every block, as in the JAX form (its builds per run are `builds`). The
+merge (UnionAll tree, final Aggregate, AVG finisher, tail) is a
+CompiledQuery over the per-block buffers, kept while their shapes hold: its
+graph reads the new partials and their device counts in every run. A
+steady run reads the host twice: the stacked counts and the merge's.
 
 Reduction-order policy: block partials fold in block order, so float sums
 differ from the eager path's by the order of reduction only (ARCHITECTURE.md,
@@ -48,7 +67,9 @@ the path is refused: its other input would be counted once per block.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import contextlib
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -61,7 +82,8 @@ from hyrise_tpu_torch.ops.materialize import ensure_prefix, gather_table
 from hyrise_tpu_torch.ops.misc import Limit, UnionAll
 from hyrise_tpu_torch.ops.projection import Projection
 from hyrise_tpu_torch.ops.sort import Sort
-from hyrise_tpu_torch.plan.compiler import PlanNotCompilable
+from hyrise_tpu_torch.plan.compiler import CompiledQuery, PlanNotCompilable, bucket_capacity
+from hyrise_tpu_torch.storage.column import Column
 from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.types import EXISTENCE_MODES, AggregateFunction, DataType, JoinMode
 
@@ -137,6 +159,46 @@ def leaf_table(op):
     return None
 
 
+def referenced_columns(op) -> Optional[set]:
+    """Column names this operator reads from its inputs, or None when the
+    set cannot be determined statically (consume-everything ops: UnionAll /
+    UnionPositions / Difference / Print, an Alias that renames by position,
+    any operator not listed)."""
+    names = set()
+    n = op.name
+    if n == "TableScan":
+        names |= set(op.predicate.columns())
+    elif n == "Projection":
+        for spec in op.outputs:
+            if isinstance(spec, str):
+                names.add(spec)
+            else:
+                names |= set(spec[1].columns())
+    elif n == "Sort":
+        names |= {c for c, _ in op.sort_defs}
+    elif n in ("Join", "JoinHash", "JoinSortMerge", "JoinIndex", "JoinMPSM",
+               "JoinNestedLoop"):
+        for a, b in getattr(op, "column_pairs", [(op.left_col, op.right_col)]):
+            names |= {a, b}
+    elif n == "Alias":
+        if op.sources is None:
+            return None  # renames by POSITION: pruning would shift the columns
+        names |= set(op.sources)
+    elif n == "Aggregate":
+        names |= set(op.groupby)
+        for _, agg in op.aggregates:
+            if agg.arg is not None:
+                names |= set(agg.arg.columns())
+    elif n in ("Limit", "Materialize", "Validate", "GetTable", "TableWrapper",
+               "Product"):
+        pass  # row ops and leaves read no column by name (a pruned hoisted
+        # side of a Product simply carries fewer columns; only sound when the
+        # keep set covers every reader downstream)
+    else:
+        return None
+    return names
+
+
 def _materialized(t):
     """A block's partial result as dense tensors of its live rows only: a
     lazy column would keep the whole block it gathers from alive."""
@@ -150,21 +212,12 @@ def _materialized(t):
     return Table(t.columns, t.num_rows, name=t.name)
 
 
-class BlockedQuery:
-    """Counterpart of the JAX package's BlockedCompiledQuery: a plan over
-    row blocks of one stream table.
+class _BlockSplit:
+    """What both blocked forms decide about a plan before they run it: the
+    split (aggregate or top K), the stream table, its leaf, the stream path,
+    and the merge plan over the partials."""
 
-    bq = BlockedQuery(TPCH_PLANS[1](cat), cat, block_rows=1 << 22)
-    table = bq.run()   # n_blocks passes of the stream path, then the merge
-
-    The caller's plan is left as it was after every run (its operators hold
-    no outputs). `n_blocks` is the last run's block count and `builds` the
-    number of build sides its joins made (BuildCache.builds).
-    """
-
-    def __init__(self, root, catalog, stream_table: Optional[str] = None,
-                 block_rows: int = 1 << 22):
-
+    def __init__(self, root, catalog, stream_table: Optional[str], block_rows: int):
         if block_rows < 1:
             raise ValueError(f"block_rows must be positive, got {block_rows}")
         self.root = root
@@ -224,6 +277,11 @@ class BlockedQuery:
         self._path = validate_stream_path(ops, self._leaf, self._block_root, terminal)
         if self._path[-1] is not self._block_root:  # top K: the path ends at the Sort
             self._path.append(self._block_root)
+        on_path = {id(op) for op in self._path}
+        # the joins of the stream path whose build input every block shares
+        self._shared_builds = [
+            op for op in self._path if isinstance(op, Join)
+            and id(op.inputs[0] if op.mode is JoinMode.RIGHT else op.inputs[1]) not in on_path]
         self.n_blocks = self._block_count()
         self.builds = 0
 
@@ -236,78 +294,366 @@ class BlockedQuery:
         # the last block is partial; an empty table still runs one empty block
         return max(-(-self._extent() // self.block_rows), 1)
 
-    # -- the run -----------------------------------------------------------
-
-    def run(self, context=None):
-        """Every block through the stream path, then the merge. Raises
-        whatever an operator raises, after putting the plan back."""
-
-        wrapper = TableWrapper(None)
+    @contextlib.contextmanager
+    def _rewired(self, wrapper):
+        """The stream leaf's consumer reads `wrapper` instead, until the
+        block leaves; the caller's plan is as it was afterwards."""
         rewired = []  # (op, input index) that read the stream leaf
         for op in _walk(self._block_root):
             for i, inp in enumerate(op.inputs):
                 if inp is self._leaf:
                     op.inputs[i] = wrapper
                     rewired.append((op, i))
-        path = [wrapper] + self._path[1:]
-        on_path = {id(op) for op in path}
-        cache = BuildCache()
-        joins = []
-        for op in path:
-            if isinstance(op, Join):
-                build = op.inputs[0] if op.mode is JoinMode.RIGHT else op.inputs[1]
-                if id(build) not in on_path:
-                    op.build_cache = cache
-                    joins.append(op)
-        self.n_blocks = self._block_count()
         try:
-            partials = []
-            extent = self._extent()
-            for b in range(self.n_blocks):
-                lo = b * self.block_rows
-                wrapper.table = self._stream.block(lo, min(lo + self.block_rows, extent))
-                for op in path:
-                    op.clear_output()
-                partials.append(_materialized(execute_plan(self._block_root, context)))
-            self.builds = cache.builds
-            for op in path:
-                op.clear_output()
-            wrapper.table = None
-            if self._mode == "topk":
-                return self._merge_topk(partials, context)
-            return self._merge_and_finish(partials, context)
+            yield
         finally:
             for op, i in rewired:
                 op.inputs[i] = self._leaf
-            for op in joins:
+
+    def _merge_plan(self, partials):
+        """(the plan over the partial tables that gives the result, the node
+        the tail above the split reads during it, or None)."""
+        node = _union_tree([TableWrapper(t) for t in partials])
+        if self._mode == "topk":
+            return self._merge_topk(node), None
+        return self._merge_and_finish(node)
+
+    def _merge_topk(self, union):
+        """Per-block top-K tables (each the whole root over one block) ->
+        their union (<= K x n_blocks rows) -> one final sort and limit."""
+        return Limit(Sort(union, list(self._topk_sort.sort_defs)), self._topk_limit.n)
+
+    def _merge_and_finish(self, union):
+        """UnionAll of the partials -> final aggregate -> AVG-finisher
+        projection, under the original tail: (the root to run, the
+        projection the tail reads)."""
+        final = Aggregate(union, self._groupby, self._final_specs)
+        merged = Projection(final, list(self._groupby) + self._finish_cols)
+        if self._tail_parent is None:
+            return merged, None
+        return self.root, merged
+
+    @contextlib.contextmanager
+    def _grafted(self, merged):
+        """The tail above the split reads `merged` instead of the original
+        Aggregate, until the block leaves (nothing where `merged` is None)."""
+        if merged is None:
+            yield
+            return
+        self._tail_parent.inputs[0] = merged
+        try:
+            yield
+        finally:
+            self._tail_parent.inputs[0] = self._orig_agg
+
+
+class BlockedQuery(_BlockSplit):
+    """The eager form: a plan over row blocks of one stream table.
+
+    bq = BlockedQuery(TPCH_PLANS[1](cat), cat, block_rows=1 << 22)
+    table = bq.run()   # n_blocks passes of the stream path, then the merge
+
+    The caller's plan is left as it was after every run (its operators hold
+    no outputs). `n_blocks` is the last run's block count and `builds` the
+    number of build sides its joins made (BuildCache.builds).
+    """
+
+    def __init__(self, root, catalog, stream_table: Optional[str] = None,
+                 block_rows: int = 1 << 22):
+        super().__init__(root, catalog, stream_table, block_rows)
+
+    def run(self, context=None):
+        """Every block through the stream path, then the merge. Raises
+        whatever an operator raises, after putting the plan back."""
+
+        wrapper = TableWrapper(None)
+        path = [wrapper] + self._path[1:]
+        cache = BuildCache()
+        for op in self._shared_builds:
+            op.build_cache = cache
+        self.n_blocks = self._block_count()
+        try:
+            with self._rewired(wrapper):
+                partials = []
+                extent = self._extent()
+                for b in range(self.n_blocks):
+                    lo = b * self.block_rows
+                    wrapper.table = self._stream.block(lo, min(lo + self.block_rows, extent))
+                    for op in path:
+                        op.clear_output()
+                    partials.append(_materialized(execute_plan(self._block_root, context)))
+                self.builds = cache.builds
+                for op in path:
+                    op.clear_output()
+                wrapper.table = None
+            merge, merged = self._merge_plan(partials)
+            with self._grafted(merged):
+                return execute_plan(merge, context)
+        finally:
+            for op in self._shared_builds:
                 op.build_cache = None
             cache.clear()
             for op in _walk(self.root) + _walk(self._block_root):
                 op.clear_output()
 
-    def _merge_topk(self, partials, context):
-        """Per-block top-K tables (each the whole root over one block) ->
-        their union (<= K x n_blocks rows) -> one final sort and limit."""
 
-        node = _union_tree([TableWrapper(t) for t in partials])
-        root = Limit(Sort(node, list(self._topk_sort.sort_defs)), self._topk_limit.n)
-        return execute_plan(root, context)
+class BlockedCompiledQuery(_BlockSplit):
+    """A CompiledQuery over row blocks of one stream table: one captured
+    block program serves every block (module docstring).
 
-    def _merge_and_finish(self, partials, context):
-        """UnionAll of the partials -> final aggregate -> AVG-finisher
-        projection -> the original tail ops, grafted onto the merged
-        result for this call only."""
+    cq = BlockedCompiledQuery(TPCH_PLANS[1](cat), cat, block_rows=1 << 22)
+    table = cq.run()   # first call: learn on block 0, capture, replay every
+                       # block, merge; later calls: replays and two reads
 
-        node = _union_tree([TableWrapper(t) for t in partials])
-        final = Aggregate(node, self._groupby, self._final_specs)
-        merged = Projection(final, list(self._groupby) + self._finish_cols)
-        if self._tail_parent is None:
-            return execute_plan(merged, context)
-        self._tail_parent.inputs[0] = merged
-        try:
-            return execute_plan(self.root, context)
-        finally:
-            self._tail_parent.inputs[0] = self._orig_agg
+    `block_rows` is the window's rows (at most the stream table's extent),
+    `n_blocks` the last run's block count, `caps` the block program's
+    capacities by site, `last_retries` the last run's overflow retries (the
+    block program's and the merge's), `host_reads` its device->host reads
+    of counts, `builds` the build sides its stream path's joins made (one
+    per shared build and block: the block program builds them in every
+    block). `captures`, `replays`, `pool_mb`, `launches_captured` and
+    `launches_replayed` cover the block program and the merges, as
+    CompiledQuery's do. On CPU tensors every block runs the capacity mode
+    uncaptured, so the window, the partial buffers, the retries and the
+    tightening are the code the card runs. The caller's plan is left as it
+    was after every run. MVCC tables are refused (PlanNotCompilable)."""
+
+    MAX_RETRIES = CompiledQuery.MAX_RETRIES
+
+    def __init__(self, root, catalog=None, stream_table: Optional[str] = None,
+                 block_rows: int = 1 << 22):
+        super().__init__(root, catalog, stream_table, block_rows)
+        self._requested_rows = block_rows
+        names: Optional[set] = set()
+        for op in _walk(self._block_root):
+            refs = referenced_columns(op)
+            if refs is None or names is None:
+                names = None
+            else:
+                names |= refs
+        # a top-K partial is the stream rows themselves: every column
+        self._window_names = None if self._mode == "topk" else names
+        self._wrapper = TableWrapper(None)
+        self._window: Optional[Table] = None
+        self._window_sources: List[Tuple[Column, Column]] = []  # (window, stream)
+        self._merge_cq: Optional[CompiledQuery] = None
+        self._partials: Optional[List[Table]] = None
+        self._counts: Optional[torch.Tensor] = None  # (n_blocks, counts) of a pass
+        self.last_retries = 0
+        self.host_reads = 0
+        self.sync_checked = False
+        # graph counters of merges since replaced
+        self._retired = {"captures": 0, "replays": 0, "captured": {}, "replayed": {}}
+        self.lock = threading.RLock()
+        self._pin_stream(self._stream)
+        with self._rewired(self._wrapper):
+            # the window and the other sources pinned, MVCC tables refused
+            self._block_cq = CompiledQuery(self._block_root, catalog)
+
+    # -- the window --------------------------------------------------------
+
+    def _pin_stream(self, table: Table) -> None:
+        """Stream `table` from now on: a window of its referenced columns,
+        rows and (where it has one) live mask. The block program is
+        captured anew over it."""
+        if table.mvcc is not None:
+            raise PlanNotCompilable("MVCC table " + table.name)
+        self._stream = table
+        self.block_rows = max(min(self._requested_rows, self._extent()), 1)
+        rows, dev = self.block_rows, table.device
+        pairs = []
+        for c in table.columns:
+            if self._window_names is not None and c.name not in self._window_names:
+                continue
+            dtype = c.dtype.torch_dtype if c.encoded is not None or c.is_lazy \
+                else c.data.dtype
+            validity = None if not c.has_validity else \
+                torch.zeros(rows, dtype=torch.bool, device=dev)
+            pairs.append((Column(c.name, c.dtype, torch.zeros(rows, dtype=dtype, device=dev),
+                                 validity, c.dictionary, unique=c.unique,
+                                 val_range=c.val_range), c))
+        if not pairs:  # the plan reads no column by name (COUNT(*))
+            c = table.columns[0]
+            pairs.append((Column(c.name, c.dtype, torch.zeros(rows, dtype=c.dtype.torch_dtype,
+                                                              device=dev)), c))
+        live = None if table.live is None else torch.zeros(rows, dtype=torch.bool, device=dev)
+        n = torch.zeros((), dtype=torch.int64, device=dev)
+        self._window = Table([w for w, _ in pairs], n, name=table.name, live=live)
+        self._window_sources = pairs
+        self._wrapper.table = self._window
+
+    def _fill(self, b: int) -> None:
+        """Block b's rows into the window and its live count into the
+        window's row count: copies enqueued on the current stream, which the
+        next replay runs on, from offsets the host knows (no host read)."""
+        lo = b * self.block_rows
+        k = max(min(lo + self.block_rows, self._extent()) - lo, 0)
+        window = self._window
+        if k:
+            for dst, src in self._window_sources:
+                part = src.block(lo, lo + k)
+                dst.data[:k].copy_(part.data)
+                if dst.validity is not None:
+                    dst.validity[:k].copy_(part.validity)
+        if window.live is None:
+            window.num_rows.fill_(k)
+            return
+        window.live[:k].copy_(self._stream.live[lo:lo + k])
+        window.live[k:] = False
+        window.num_rows.copy_(window.live.sum())
+
+    # -- the run -----------------------------------------------------------
+
+    def _refresh(self) -> None:
+        """A stream table replaced in the catalog since the last run gets a
+        window of its own (and the block program a capture over it); a
+        replaced dimension table is pinned anew by the block program."""
+        now = leaf_table(self._leaf)
+        if now is not self._stream:
+            self._pin_stream(now)
+        self._block_cq.refresh_sources()
+
+    def run(self, tighten: bool = False):
+        """Every block through the one block program, then the merge;
+        `tighten` shrinks the merge's capacities to its counts, as
+        CompiledQuery.run does (the block program's always shrink to the
+        across-block maximum after a run)."""
+        with self.lock, self._rewired(self._wrapper):
+            self._refresh()
+            cq = self._block_cq
+            cq.last_retries = cq.host_reads = 0
+            self.n_blocks = self._block_count()
+            for _ in range(self.MAX_RETRIES):
+                if not self._pass(cq):
+                    continue
+                self.sync_checked = cq.sync_checked
+                self.builds = len(self._shared_builds) * self.n_blocks
+                out = self._merge(tighten)
+                self.last_retries = cq.last_retries + self._merge_cq.last_retries
+                self.host_reads = cq.host_reads + self._merge_cq.host_reads
+                return out
+            raise RuntimeError("capacity retry limit exceeded: "
+                               + str(list(zip(cq.labels, cq.caps))))
+
+    def _pass(self, cq: CompiledQuery) -> bool:
+        """One pass of every block through the block program and one host
+        read of their stacked counts; False after an overflow, which raised
+        the overflowed sites to the across-block maximum."""
+        self._fill(0)
+        if cq.on_cuda and not cq.captured:
+            # learn on block 0 (under the sync check), then capture
+            if cq.learn(tighten=False) is None:
+                return False
+            cq.capture()
+        for b in range(self.n_blocks):
+            if b:
+                self._fill(b)
+            self._keep(b, cq.replay(), cq.output_meta)
+        counts = cq.read_counts(self._counts)
+        top = [max(row[i] for row in counts) for i in range(len(counts[0]))]
+        if cq.grow(top):
+            cq.drop_graph()
+            return False
+        caps = list(cq.caps)
+        cq.shrink(top[:len(cq.labels)])
+        if cq.caps != caps:
+            cq.drop_graph()  # the next run captures at the tighter capacities
+        return True
+
+    def _keep(self, b: int, outputs, meta) -> None:
+        """Block b's partial into its buffers, which outlive the replay:
+        the live prefix at the output capacity (a top K's at the bucket of
+        K), the device row count, and the block's counts."""
+        datas, valids, counts = outputs
+        rows = datas[0].shape[0]
+        if self._mode == "topk":
+            rows = min(rows, bucket_capacity(max(self._topk_limit.n, 1)))
+        layout = [(d.dtype, v is not None) for d, v in zip(datas, valids)]
+        if b == 0 and not self._fits(rows, layout, counts.shape[0]):
+            self._allocate(rows, meta, layout, counts.shape[0], datas[0].device)
+        part = self._partials[b]
+        if not self._fits(rows, layout, counts.shape[0]):
+            raise RuntimeError(f"block {b}'s partial differs in layout from block 0's")
+        for c, d, v in zip(part.columns, datas, valids):
+            c.data.copy_(d[:rows])
+            if v is not None:
+                c.validity.copy_(v[:rows])
+        part.num_rows.copy_(counts[-1])
+        self._counts[b].copy_(counts)
+
+    def _fits(self, rows: int, layout, n_counts: int) -> bool:
+        parts = self._partials
+        return (parts is not None and len(parts) == self.n_blocks
+                and parts[0].capacity == rows and self._counts.shape[1] == n_counts
+                and [(c.data.dtype, c.validity is not None) for c in parts[0].columns]
+                == layout)
+
+    def _allocate(self, rows: int, meta, layout, n_counts: int, device) -> None:
+        """Per-block partial buffers for this layout; the merge, whose graph
+        read the old ones, is built anew over them."""
+        self._partials = [
+            Table([Column(m.name, m.dtype, torch.zeros(rows, dtype=dtype, device=device),
+                          torch.zeros(rows, dtype=torch.bool, device=device) if valid
+                          else None, m.dictionary, val_range=m.val_range)
+                   for m, (dtype, valid) in zip(meta, layout)],
+                  torch.zeros((), dtype=torch.int64, device=device), name="partial")
+            for _ in range(self.n_blocks)]
+        self._counts = torch.zeros((self.n_blocks, n_counts), dtype=torch.int64,
+                                   device=device)
+        if self._merge_cq is not None:
+            r, m = self._retired, self._merge_cq
+            r["captures"] += m.captures
+            r["replays"] += m.replays
+            for key, counts in (("captured", m.launches_captured),
+                                ("replayed", m.launches_replayed)):
+                for k, v in counts.items():
+                    r[key][k] = r[key].get(k, 0) + v
+        self._merge_cq = None
+        self._merge_root, self._merged = self._merge_plan(self._partials)
+
+    def _merge(self, tighten: bool):
+        with self._grafted(self._merged):
+            if self._merge_cq is None:
+                self._merge_cq = CompiledQuery(self._merge_root, self.catalog)
+            return self._merge_cq.run(tighten)
+
+    # -- counters ----------------------------------------------------------
+
+    def _queries(self) -> list:
+        return [q for q in (self._block_cq, self._merge_cq) if q is not None]
+
+    @property
+    def caps(self) -> List[int]:
+        return self._block_cq.caps
+
+    @property
+    def captures(self) -> int:
+        return self._retired["captures"] + sum(q.captures for q in self._queries())
+
+    @property
+    def replays(self) -> int:
+        return self._retired["replays"] + sum(q.replays for q in self._queries())
+
+    @property
+    def pool_mb(self) -> float:
+        """Device memory the last captures of the block program and the
+        merge reserved."""
+        return sum(q.pool_mb for q in self._queries())
+
+    def _summed(self, key: str, attr: str) -> Dict[str, int]:
+        out = dict(self._retired[key])
+        for q in self._queries():
+            for k, v in getattr(q, attr).items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    @property
+    def launches_captured(self) -> Dict[str, int]:
+        return self._summed("captured", "launches_captured")
+
+    @property
+    def launches_replayed(self) -> Dict[str, int]:
+        return self._summed("replayed", "launches_replayed")
 
 
 def _union_tree(nodes):

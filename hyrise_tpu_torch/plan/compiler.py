@@ -281,8 +281,14 @@ class CompiledQuery:
     `capture_launches` the launches of each kernel wrapper during it (a
     replay launches them again without the wrappers seeing it;
     `launches_captured` and `launches_replayed` sum them over every capture
-    and every replay). `lock` is
-    held through a run: a graph's buffers serve one caller at a time."""
+    and every replay), `host_reads` the device->host reads of counts the
+    last run made (one for a replay). `lock` is held through a run: a
+    graph's buffers serve one caller at a time.
+
+    The streamed forms (plan/blocked.py) drive the steps themselves:
+    `learn`, `capture`, then `replay` once a block with no host read (the
+    counts stay on the device), `read_counts`, `grow` and `shrink` over the
+    counts of every block, `drop_graph`."""
 
     MAX_RETRIES = 12
 
@@ -304,6 +310,8 @@ class CompiledQuery:
         self._out_meta: Optional[List[_ColMeta]] = None
         self._constants: dict = {}
         self.last_retries = 0
+        # device->host reads of counts in the last run: 1 for a replay
+        self.host_reads = 0
         self.captures = 0
         self.replays = 0
         self.pool_mb = 0.0
@@ -341,13 +349,13 @@ class CompiledQuery:
             sources.append(t)
         return sources
 
-    def _refresh_sources(self) -> None:
+    def refresh_sources(self) -> None:
         """A table replaced in the catalog since the last run is pinned
         anew, and the graph, which reads the old one's tensors, is dropped."""
         now = self._resolve_sources()
         if [id(t) for t in now] != [id(t) for t in self._sources]:
             self._sources = now
-            self._graph = self._graph_outputs = None
+            self.drop_graph()
             self._constants = {}
 
     # -- execution --------------------------------------------------------------
@@ -386,10 +394,12 @@ class CompiledQuery:
             op.clear_output()  # the graph keeps what it needs
         return datas, valids, counts
 
-    def _capture(self) -> None:
+    def capture(self) -> None:
+        """Capture the plan as a graph on the card, into a pool of its own
+        (a learning run must have met every site first)."""
         from hyrise_tpu_torch.kernels.build import launch_counts
 
-        self._graph = self._graph_outputs = None
+        self.drop_graph()
         torch.cuda.synchronize(self.device)
         gc.collect()
         torch.cuda.empty_cache()
@@ -417,33 +427,74 @@ class CompiledQuery:
         from hyrise_tpu_torch.storage.table import Table
 
         with self.lock:
-            self._refresh_sources()
+            self.refresh_sources()
             self.last_retries = 0
+            self.host_reads = 0
             for _ in range(self.MAX_RETRIES):
                 if self._graph is None:
-                    outputs = self._execute(learning=True)
-                    counts = self.last_counts = outputs[2].tolist()
-                    if self._grow(counts):
+                    learned = self.learn(tighten)
+                    if learned is None:
                         continue
-                    if tighten:
-                        self._tighten(counts[:len(self._labels)])
                     if not self.on_cuda:
-                        return Table(self._make_columns(outputs, counts[-1]), counts[-1])
-                    self._capture()
-                outputs = self._graph_outputs
-                self._graph.replay()
-                self.replays += 1
-                for k, v in self.capture_launches.items():
-                    self.launches_replayed[k] = self.launches_replayed.get(k, 0) + v
-                counts = self.last_counts = outputs[2].tolist()
-                if self._grow(counts):
-                    self._graph = self._graph_outputs = None
+                        return Table(self._make_columns(learned, self.last_counts[-1]),
+                                     self.last_counts[-1])
+                    self.capture()
+                outputs = self.replay()
+                counts = self.read_counts(outputs[2])
+                if self.grow(counts):
+                    self.drop_graph()
                     continue
                 return Table(self._make_columns(outputs, counts[-1]), counts[-1])
             raise RuntimeError("capacity retry limit exceeded: "
                                + str(list(zip(self._labels, self.caps))))
 
-    def _grow(self, counts: List[int]) -> bool:
+    # -- the hooks of the streamed forms (plan/blocked.py) -----------------------
+
+    def learn(self, tighten: bool):
+        """One uncaptured capacity-mode run over the sources' current
+        contents (under the sync check on the card) and one host read of
+        its counts: the outputs, or None after an overflow, which raised
+        the sites' capacities. With `tighten`, capacities then shrink to
+        the counts."""
+        outputs = self._execute(learning=True)
+        counts = self.read_counts(outputs[2])
+        if self.grow(counts):
+            return None
+        if tighten:
+            self.shrink(counts[:len(self._labels)])
+        return outputs
+
+    @property
+    def captured(self) -> bool:
+        return self._graph is not None
+
+    def drop_graph(self) -> None:
+        """Forget the graph: the next run learns and captures again."""
+        self._graph = self._graph_outputs = None
+
+    def replay(self):
+        """One run over the sources' current contents with no host read:
+        (output data, output validity, counts [sites..., checks..., n_rows]),
+        all on the device, which the next replay overwrites. On the card the
+        captured graph replays on the current stream, after what was enqueued
+        there before (a source refilled in place); on the CPU the plan runs
+        uncaptured in capacity mode."""
+        if not self.on_cuda:
+            return self._execute(learning=True)
+        self._graph.replay()
+        self.replays += 1
+        for k, v in self.capture_launches.items():
+            self.launches_replayed[k] = self.launches_replayed.get(k, 0) + v
+        return self._graph_outputs
+
+    def read_counts(self, counts: torch.Tensor) -> list:
+        """The host read of a run's counts vector, or of every block's
+        stacked (`host_reads`, `last_counts`)."""
+        self.host_reads += 1
+        self.last_counts = counts.tolist()
+        return self.last_counts
+
+    def grow(self, counts: List[int]) -> bool:
         """Raise every overflowed site's capacity; whether any was. A failed
         check raises."""
         n_sites = len(self._labels)
@@ -458,7 +509,8 @@ class CompiledQuery:
             self.last_retries += 1
         return bool(overflow)
 
-    def _tighten(self, counts: List[int]) -> None:
+    def shrink(self, counts: List[int]) -> None:
+        """Shrink every site's capacity to the bucket of its count."""
         for i, c in enumerate(counts):
             if i >= len(self.caps):
                 break
@@ -474,6 +526,11 @@ class CompiledQuery:
                        None if v is None else v[:n].clone(), m.dictionary,
                        unique=m.unique, val_range=m.val_range)
                 for m, d, v in zip(self._out_meta, datas, valids)]
+
+    @property
+    def output_meta(self) -> List[_ColMeta]:
+        """Name, type and metadata of each output column of the last run."""
+        return list(self._out_meta)
 
     @property
     def labels(self) -> List[str]:

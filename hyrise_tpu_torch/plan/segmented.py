@@ -27,17 +27,27 @@ shape:
 4.  the final stage is the remaining root: blocked if a large reference
     remains, executed whole otherwise.
 
-Stages run in dependency order. A stage with a large reference runs as a
-BlockedQuery (kept across run() calls), any other through execute_plan;
-each run rebinds a stage's result into the same placeholder. The JAX
-form's capacity seeds (dump_seed / load_seed) size XLA's static shapes and
-are not ported, by the same decision as its compiler.
+Stages run in dependency order, each kept on its stage across run()
+calls. Eager (the default), a stage with a large reference runs as a
+BlockedQuery, any other through execute_plan, and each run rebinds a
+stage's result into the same placeholder. With `compiled=True` a stage with
+a large reference runs as a BlockedCompiledQuery and any other as a
+CompiledQuery (plan/compiler.py), as the JAX form's _build_cq makes them. A
+later stage's graph reads the placeholder's tensors, so a result of the
+same layout as the last run's (capacity, rows, columns, types, metadata) is
+copied into them in place; any other result is bound anew and every later
+stage's compiled query is dropped, to be captured again. The JAX form's
+capacity seeds (dump_seed / load_seed) carry XLA's static shapes between
+processes and are not ported: a capture lasts as long as its process.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from hyrise_tpu_torch.expression.ast import count_
 from hyrise_tpu_torch.ops.aggregate import Aggregate
@@ -45,9 +55,10 @@ from hyrise_tpu_torch.ops.base import AbstractOperator, execute_plan
 from hyrise_tpu_torch.ops.get_table import GetTable, TableWrapper
 from hyrise_tpu_torch.ops.join import Join
 from hyrise_tpu_torch.ops.materialize import ensure_prefix
-from hyrise_tpu_torch.plan.blocked import (_TAIL_OPS, BlockedQuery, PlanNotCompilable,
-                                           _decompose, _walk, leaf_table,
-                                           validate_stream_path)
+from hyrise_tpu_torch.plan.blocked import (_TAIL_OPS, BlockedCompiledQuery, BlockedQuery,
+                                           PlanNotCompilable, _decompose, _walk, leaf_table,
+                                           referenced_columns, validate_stream_path)
+from hyrise_tpu_torch.plan.compiler import CompiledQuery
 from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.types import EXISTENCE_MODES
 
@@ -82,7 +93,9 @@ class _Stage:
     top: object                  # subplan root this stage materializes
     wrapper: Optional[object]    # placeholder receiving the result
     stream: Optional[str]        # stream table name (None: executed whole)
-    query: Optional[BlockedQuery] = None  # kept across runs
+    # kept across runs: a BlockedQuery, or when compiled a
+    # BlockedCompiledQuery or CompiledQuery
+    query: Optional[object] = None
 
 
 class SegmentedQuery:
@@ -92,14 +105,18 @@ class SegmentedQuery:
     table = sq.run()
 
     The plan is rewritten in place (existence-build DISTINCT wrap, segment
-    cut-out): SegmentedQuery takes ownership of the DAG passed in.
+    cut-out): SegmentedQuery takes ownership of the DAG passed in. With
+    `compiled=True` every stage runs as a compiled query (module
+    docstring); a stage the compiled forms refuse raises PlanNotCompilable.
     """
 
     def __init__(self, root, catalog, block_rows: int = 1 << 22,
                  resident_rows: int = 1 << 24,
                  stream_tables: Optional[List[str]] = None,
-                 hoist_min_rows: int = 1 << 18):
+                 hoist_min_rows: int = 1 << 18, compiled: bool = False):
         self.root = root
+        self.compiled = compiled
+        self.lock = threading.RLock()
         self.catalog = catalog
         self.block_rows = block_rows
         self.resident_rows = resident_rows
@@ -219,47 +236,6 @@ class SegmentedQuery:
 
     # -- hoisting: stream-independent subtrees -----------------------------
 
-    @staticmethod
-    def _referenced_columns(op):
-        """Column names this operator reads from its inputs, or None when
-        the set cannot be determined statically (consume-everything ops:
-        UnionAll / UnionPositions / Difference / Print)."""
-        names = set()
-        n = op.name
-        if n == "TableScan":
-            names |= set(op.predicate.columns())
-        elif n == "Projection":
-            for spec in op.outputs:
-                if isinstance(spec, str):
-                    names.add(spec)
-                else:
-                    names |= set(spec[1].columns())
-        elif n == "Sort":
-            names |= {c for c, _ in op.sort_defs}
-        elif n in ("Join", "JoinHash", "JoinSortMerge", "JoinIndex", "JoinMPSM",
-                   "JoinNestedLoop"):
-            for a, b in getattr(op, "column_pairs", [(op.left_col, op.right_col)]):
-                names |= {a, b}
-        elif n == "Alias":
-            if op.sources is None:
-                # renames by POSITION: pruning would shift the columns
-                return None
-            names |= set(op.sources)
-        elif n == "Aggregate":
-            names |= set(op.groupby)
-            for _, agg in op.aggregates:
-                if agg.arg is not None:
-                    names |= set(agg.arg.columns())
-        elif n in ("Limit", "Materialize", "Validate", "GetTable", "TableWrapper",
-                   "Product"):
-            pass  # row ops and leaves read no column by name (a pruned
-            # hoisted side of a Product simply carries fewer columns; only
-            # sound when the keep set covers every reader downstream, which
-            # the global mentioned set guarantees)
-        else:
-            return None
-        return names
-
     def _mentioned_outside(self, exclude_ops) -> Optional[set]:
         """Every column name read by an operator of a stage OUTSIDE
         `exclude_ops`: the safe keep set for pruning a hoisted subtree's
@@ -273,7 +249,7 @@ class SegmentedQuery:
                 if id(op) in excl or id(op) in seen:
                     continue
                 seen.add(id(op))
-                names = self._referenced_columns(op)
+                names = referenced_columns(op)
                 if names is None:
                     return None
                 mentioned |= names
@@ -282,11 +258,12 @@ class SegmentedQuery:
     def _hoist_stream_free(self) -> None:
         """Cut every stream-free subtree that hangs off a blocked stage's
         stream path, and touches a table of at least `hoist_min_rows` rows,
-        into a stage of its own that runs whole before it. In the eager
-        form such a subtree already runs once a run (BlockedQuery clears
-        only the stream path's outputs between blocks), so the cut changes
-        no cost; it keeps the stage lists those of the JAX package, whose
-        compiled block program would repeat the subtree in every block."""
+        into a stage of its own that runs whole before it. The compiled
+        block program (BlockedCompiledQuery, as the JAX package's) would
+        repeat the subtree in every block; in the eager form it already
+        runs once a run (BlockedQuery clears only the stream path's outputs
+        between blocks), so there the cut changes no cost and keeps the
+        stage lists those of the compiled form."""
 
         out: List[_Stage] = []
         for stage in self.stages:
@@ -374,39 +351,87 @@ class SegmentedQuery:
     def _bind(self, stage: _Stage, result) -> None:
         """Hand a stage's result to its placeholder, the same TableWrapper
         on every run; the result is compacted to its live rows first. The
-        eager operators pin nothing to the previous result, so rebinding the
-        placeholder's table is all a rerun needs."""
+        eager operators pin nothing to the previous result, so there
+        rebinding the placeholder's table is all a rerun needs. A compiled
+        later stage read the previous result's tensors: a result of the
+        same layout is copied into them, any other is bound anew and every
+        later stage's compiled query is dropped (the JAX rule)."""
 
-        stage.wrapper.table = ensure_prefix(result)
+        result = ensure_prefix(result)
+        dst = stage.wrapper.table
+        if self.compiled and dst is not None:
+            if _same_layout(dst, result):
+                for a, b in zip(dst.columns, result.columns):
+                    a.data.copy_(b.data)
+                    if a.validity is not None:
+                        a.validity.copy_(b.validity)
+                return
+            for later in self.stages[self.stages.index(stage) + 1:]:
+                later.query = None
+        stage.wrapper.table = result
+
+    def _stage_query(self, stage: _Stage):
+        """The query of a stage with a large reference, or of any stage when
+        compiled, made at its first run (its placeholders are bound by
+        then): when compiled, the JAX form's _build_cq."""
+        if stage.query is None:
+            if not self.compiled:
+                stage.query = BlockedQuery(stage.top, self.catalog,
+                                           stream_table=stage.stream,
+                                           block_rows=self.block_rows)
+            elif stage.stream is None:
+                stage.query = CompiledQuery(stage.top, self.catalog)
+            else:
+                stage.query = BlockedCompiledQuery(stage.top, self.catalog,
+                                                   stream_table=stage.stream,
+                                                   block_rows=self.block_rows)
+        return stage.query
 
     def run(self, context=None):
         """Every stage in order; the last one's result."""
 
         out = None
-        for stage in self.stages:
-            if stage.stream is not None:
-                if stage.query is None:
-                    stage.query = BlockedQuery(stage.top, self.catalog,
-                                               stream_table=stage.stream,
-                                               block_rows=self.block_rows)
-                out = stage.query.run(context)
-            else:
-                # outputs a plan computed while it was built (a scalar
-                # subquery's) are used as execute_plan uses them; every
-                # output goes after the run, so that a rerun computes anew
-                try:
-                    out = execute_plan(stage.top, context)
-                finally:
-                    for op in _walk(stage.top):
-                        op.clear_output()
-            if stage.wrapper is not None:
-                self._bind(stage, out)
+        with self.lock:
+            for stage in self.stages:
+                if self.compiled:
+                    out = self._stage_query(stage).run()
+                elif stage.stream is not None:
+                    out = self._stage_query(stage).run(context)
+                else:
+                    # outputs a plan computed while it was built (a scalar
+                    # subquery's) are used as execute_plan uses them; every
+                    # output goes after the run, so that a rerun computes anew
+                    try:
+                        out = execute_plan(stage.top, context)
+                    finally:
+                        for op in _walk(stage.top):
+                            op.clear_output()
+                if stage.wrapper is not None:
+                    self._bind(stage, out)
         return out
 
     def describe(self) -> str:
         lines = []
+        whole = "compiled" if self.compiled else "whole"
         for i, s in enumerate(self.stages):
-            kind = f"blocked[{s.stream}]" if s.stream else "whole"
+            kind = f"blocked[{s.stream}]" if s.stream else whole
             role = "final" if s.wrapper is None else "segment"
             lines.append(f"stage {i}: {role} {kind} root={s.top.name}")
         return "\n".join(lines)
+
+
+def _same_layout(a: Table, b: Table) -> bool:
+    """Whether `b` can be copied into `a`'s tensors with nothing a graph
+    baked in changing: capacity, rows, and each column's name, types,
+    validity, dictionary, uniqueness and value range."""
+    if (a.capacity, a.num_rows, len(a.columns)) != (b.capacity, b.num_rows, len(b.columns)):
+        return False
+    for x, y in zip(a.columns, b.columns):
+        if (x.name, x.dtype, x.data.dtype, x.validity is None, x.unique, x.val_range) != \
+                (y.name, y.dtype, y.data.dtype, y.validity is None, y.unique, y.val_range):
+            return False
+        if x.dictionary is not y.dictionary and (
+                x.dictionary is None or y.dictionary is None
+                or not np.array_equal(x.dictionary, y.dictionary)):
+            return False
+    return True

@@ -1,7 +1,10 @@
 """SQL pipeline: parse -> translate -> optimize -> physical plan -> execute.
 
-Port of hyrise_tpu/sql/pipeline.py. Not carried over: whole-plan compiled
-execution and its capacity seeds (the port runs eagerly). Distributed
+Port of hyrise_tpu/sql/pipeline.py. Whole-plan compiled execution
+(with_compiled_execution, or HYRISE_COMPILED=1) runs a read-only
+statement's plan as a plan/compiler.py CompiledQuery, kept per cached text;
+a plan it refuses runs eagerly. Not carried over: the JAX form's capacity
+seeds, which carry XLA's static shapes between processes. Distributed
 execution (with_distributed_execution) runs each read-only statement's plan
 through parallel/dist_compiler.py's DistributedQuery over a ShardedCatalog,
 a query object per caller on the tree translated for that caller (the JAX

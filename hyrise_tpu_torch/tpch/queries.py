@@ -33,7 +33,7 @@ from hyrise_tpu_torch.ops.misc import Alias
 from hyrise_tpu_torch.ops.projection import Projection
 from hyrise_tpu_torch.ops.sort import Sort
 from hyrise_tpu_torch.ops.table_scan import TableScan
-from hyrise_tpu_torch.plan.blocked import BlockedQuery
+from hyrise_tpu_torch.plan.blocked import BlockedCompiledQuery, BlockedQuery
 from hyrise_tpu_torch.plan.compiler import CompiledQuery
 from hyrise_tpu_torch.plan.segmented import SegmentedQuery
 from hyrise_tpu_torch.storage.catalog import Catalog
@@ -799,11 +799,17 @@ def run_query(qid: int, catalog: Catalog, via: str = "plans",
     through as many stages as the plan needs (plan/segmented.py). The last
     two mirror the JAX package's scripts/tpch_bench.py --via. via="compiled"
     runs the plan as a CompiledQuery (plan/compiler.py), kept per query and
-    catalog, so a second call replays its captured graph on the card."""
+    catalog, so a second call replays its captured graph on the card;
+    via="compiled-blocked" and via="compiled-segmented" are the compiled
+    forms of the streamed two (BlockedCompiledQuery, SegmentedQuery with
+    compiled=True), kept the same way (streamed_query). A plan a compiled
+    form refuses raises PlanNotCompilable."""
     if qid not in TPCH_PLANS:
         raise NotImplementedError(f"TPC-H has no Q{qid}; the plans are Q1 to Q22")
     if via == "compiled":
         return compiled_query(qid, catalog).run()
+    if via in STREAMED_FORMS:
+        return streamed_query(qid, catalog, via, block_rows, resident_rows).run()
     plan = TPCH_PLANS[qid](catalog)
     if via == "plans":
         return execute_plan(plan)
@@ -812,10 +818,11 @@ def run_query(qid: int, catalog: Catalog, via: str = "plans",
     if via == "segmented":
         return SegmentedQuery(plan, catalog, block_rows=block_rows,
                               resident_rows=resident_rows).run()
-    raise ValueError(f"via must be 'plans', 'compiled', 'blocked' or 'segmented', "
-                     f"got {via!r}")
+    raise ValueError(f"via must be 'plans', 'compiled', 'blocked', 'segmented', "
+                     f"'compiled-blocked' or 'compiled-segmented', got {via!r}")
 
 
+STREAMED_FORMS = ("compiled-blocked", "compiled-segmented")
 _compiled_lock = threading.Lock()
 
 
@@ -829,3 +836,24 @@ def compiled_query(qid: int, catalog: Catalog) -> CompiledQuery:
             cq = CompiledQuery(TPCH_PLANS[qid](catalog), catalog)
             catalog.compiled[("tpch", qid)] = cq
         return cq
+
+
+def streamed_query(qid: int, catalog: Catalog, form: str, block_rows: int,
+                   resident_rows: int):
+    """The compiled streamed query of `qid`'s hand plan over `catalog`
+    (form "compiled-blocked": a BlockedCompiledQuery; "compiled-segmented":
+    a SegmentedQuery with compiled=True), made once and kept on the catalog
+    under (form, qid, block_rows, resident_rows), so a second call replays
+    its graphs. Drop it from `catalog.compiled` to free them."""
+    key = (form, qid, block_rows, resident_rows)
+    with _compiled_lock:
+        q = catalog.compiled.get(key)
+        if q is None:
+            plan = TPCH_PLANS[qid](catalog)
+            if form == "compiled-blocked":
+                q = BlockedCompiledQuery(plan, catalog, block_rows=block_rows)
+            else:
+                q = SegmentedQuery(plan, catalog, block_rows=block_rows,
+                                   resident_rows=resident_rows, compiled=True)
+            catalog.compiled[key] = q
+        return q
