@@ -6,6 +6,7 @@
     python3 chip_smoke.py --kernels K2,K8,K9c,K5c [--kernels-from DIR]
     python3 chip_smoke.py --compiled [--kernels-from DIR]
     python3 chip_smoke.py --compiled-streaming
+    python3 chip_smoke.py --compiled-distribution
 
 The second form runs phases 1 and 2, then only K3's and K6's checks and
 timings (`cells_phase`); the third builds only the sources of the kernels
@@ -19,7 +20,11 @@ takes the eager rows and walls of the 22 hand plans and SQL texts that phase
 12 compares with, then phase 12 alone (`compiled_only_run`), with DIR's
 package where --kernels-from names one. The fifth runs phases 1 and 2,
 phase 10's SF10 part (the tables, the eager streamed and resident answers
-and medians), then phase 13 alone (`compiled_streaming_only_run`).
+and medians), then phase 13 alone (`compiled_streaming_only_run`). The
+sixth runs phases 1 and 2, phase 4's SF1 tables with phase 6's SQL rows,
+phase 10's SF10 tables with their resident answers, phase 11's shard_tpch
+and eager distributed runs, then phase 14 alone
+(`compiled_distribution_only_run`).
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -311,6 +316,35 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              lineitem replaced by its first half under Q6 and Q18 gives the
              eager streamed answers over it and is captured again, then put
              back. Each query's compiled objects are freed after it is
+             measured. K3, K4, K7 and K9c must have launched inside the
+             graphs; the phase's launches are added to the kernels line's.
+14. compiled distribution — parallel/dist_compiler.py
+             DistributedCompiledQuery, right after phase 11 on its 4-shard
+             SF10 ShardedCatalog and phase 10's resident answers, with every
+             launch count at 0 before it. The 22 hand plans, each pinned by
+             an eager run, learned under set_sync_debug_mode("error") and
+             captured as one graph over the 4 shards, exchanges included,
+             equal to the resident answer in order on each of four runs
+             (Q11 answers no rows at SF10, ROADMAP C24), with phase 11's
+             join decisions and exchange_stats(); the third and fourth
+             capture nothing, retry nothing, read the host once, and no run
+             after the first reads a count eagerly. Per query: first run and
+             median of 3 more beside phase 11's eager distributed and phase
+             10's resident medians, captures, retries, host reads, sites,
+             pool MB and the peak MB above the tables and shards. Q1 and Q6
+             against the numpy oracles; Q3, Q5 and Q9 through the ring;
+             BlockedDistributedQuery(compiled=True) for Q1, Q3 and Q6 in
+             blocks of 2^20 rows a shard, its block program captured once
+             for every block (twice where the first pass tightened it), one
+             profiled run's busy ms a block; the 22 SQL texts over SF1
+             shards through with_distributed_execution and
+             with_compiled_execution against phase 6's rows, twice each;
+             lineitem's shards replaced by those of its first half under
+             compiled Q6 (the eager answer over them, a capture again), then
+             put back, and a PlacementManager migration under a compiled
+             aggregate (a capture again, the same answer); compiled Q1, Q3,
+             Q6 and Q18 over a one-rank NCCL group equal the in-process
+             answers. Each query's compiled objects are freed after it is
              measured. K3, K4, K7 and K9c must have launched inside the
              graphs; the phase's launches are added to the kernels line's.
 
@@ -3604,16 +3638,10 @@ def streaming_sf1(device, cat, hand_rows, table_eq) -> str:
             f"{time.perf_counter() - t0:.1f} s")
 
 
-def streaming_sf10(device, card, table_eq) -> dict:
-    """Phase 10 at SF10: TPC-H generated on the card, the 22 hand plans
-    streamed (run_query(via="segmented") with the JAX package's thresholds)
-    and resident (run_query), equal to each other; Q1 and Q6 equal the numpy
-    oracles; walls and peak memory of both forms. Returns what phase 11
-    reads: the catalog, the resident rows and medians, the MB the tables
-    hold, lineitem's host columns and the date pool; phase 13 reads the
-    streamed medians too."""
+def sf10_tables(device):
+    """TPC-H SF10 generated on the card: (catalog, MB allocated with the
+    tables, lineitem's host columns, the date pool)."""
     from hyrise_tpu_torch.tpch import dbgen
-    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, run_query
 
     t0 = time.perf_counter()
     specs = dbgen.generate_specs(STREAM_SF, SEED)
@@ -3622,13 +3650,40 @@ def streaming_sf10(device, card, table_eq) -> dict:
     torch.cuda.synchronize(device)
     gen_s = time.perf_counter() - t0
     li = {name: payload for name, _, payload in specs["lineitem"][0]}
-    pool = li["l_shipdate"][1]
     del specs
     table_mb = torch.cuda.memory_allocated(device) / 1e6
-    cat = catalog_of(tables)
     log(f"streaming: SF{STREAM_SF} generated and uploaded in {gen_s:.1f} s: "
         + ", ".join(f"{name} {t.num_rows}" for name, t in tables.items())
         + f" rows; {table_mb:.1f} MB allocated on {device} with them")
+    return catalog_of(tables), table_mb, li, li["l_shipdate"][1]
+
+
+def sf10_resident(device, card) -> dict:
+    """The SF10 tables and the 22 hand plans' resident answers and medians
+    alone: what phase 14 reads of phase 10 under --compiled-distribution."""
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, run_query
+
+    cat, table_mb, li, pool = sf10_tables(device)
+    resident, medians = {}, {}
+    for qid in sorted(TPCH_PLANS):
+        _, medians[qid], _, resident[qid] = timed_peak(lambda: run_query(qid, cat), device)
+    log(f"streaming: SF{STREAM_SF} resident medians of {STREAM_REPS} {card}: "
+        + ", ".join(f"Q{q} {m:.3f}" for q, m in medians.items()))
+    return {"cat": cat, "resident": resident, "medians": medians, "table_mb": table_mb,
+            "li": li, "pool": pool}
+
+
+def streaming_sf10(device, card, table_eq) -> dict:
+    """Phase 10 at SF10: TPC-H generated on the card, the 22 hand plans
+    streamed (run_query(via="segmented") with the JAX package's thresholds)
+    and resident (run_query), equal to each other; Q1 and Q6 equal the numpy
+    oracles; walls and peak memory of both forms. Returns what phase 11
+    reads: the catalog, the resident rows and medians, the MB the tables
+    hold, lineitem's host columns and the date pool; phase 13 reads the
+    streamed medians too."""
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, run_query
+
+    cat, table_mb, li, pool = sf10_tables(device)
     t0 = time.perf_counter()
     lines, streamed_rows, resident_rows, shapes, medians = [], {}, {}, {}, {}
     for qid in sorted(TPCH_PLANS):
@@ -3990,14 +4045,16 @@ def skew_checks(device, mesh, table_eq) -> str:
             f"{after:.3f}), its aggregate unchanged")
 
 
-def group_checks(device, cat, in_process: dict, table_eq) -> str:
+def group_checks(device, cat, in_process: dict, table_eq, compiled: bool = False) -> str:
     """11e: a process group of one rank (NCCL on the card, gloo on the CPU)
     on a free local port: Q1, Q3, Q6 and Q18 over its mesh equal the
-    in-process answers."""
+    in-process answers. With `compiled` (phase 14) through
+    DistributedCompiledQuery, twice each, the second run a replay."""
     import datetime
     import os
     import torch.distributed as dist
-    from hyrise_tpu_torch.parallel.dist_compiler import DistributedQuery, shard_tpch
+    from hyrise_tpu_torch.parallel.dist_compiler import (DistributedCompiledQuery,
+                                                         DistributedQuery, shard_tpch)
     from hyrise_tpu_torch.parallel.mesh import make_mesh
     from hyrise_tpu_torch.parallel.multihost import initialize_from_env, process_info
     from hyrise_tpu_torch.tpch.queries import TPCH_PLANS
@@ -4014,10 +4071,18 @@ def group_checks(device, cat, in_process: dict, table_eq) -> str:
         t0 = time.perf_counter()
         sc = shard_tpch(cat, mesh)
         shard_s = time.perf_counter() - t0
-        ms = {}
+        ms, captures = {}, []
         for qid in DIST_GROUP_QIDS:
             q0 = time.perf_counter()
-            rows = DistributedQuery(TPCH_PLANS[qid](cat), sc).run().rows()
+            if compiled:
+                cq = DistributedCompiledQuery(TPCH_PLANS[qid](cat), sc)
+                rows = cq.run().rows()
+                same_rows(cq.run().rows(), in_process[qid], f"compiled Q{qid} over a {backend} "
+                          f"group of 1 rank, a replay", table_eq)
+                captures.append(cq.captures)
+                del cq
+            else:
+                rows = DistributedQuery(TPCH_PLANS[qid](cat), sc).run().rows()
             ms[qid] = (time.perf_counter() - q0) * 1e3
             same_rows(rows, in_process[qid], f"Q{qid} over a {backend} group of 1 rank",
                       table_eq)
@@ -4030,28 +4095,29 @@ def group_checks(device, cat, in_process: dict, table_eq) -> str:
             else:
                 os.environ[k] = v
     return (f"a {backend} process group of 1 rank ({info['local_devices']}): shard_tpch "
-            f"{shard_s:.1f} s, Q{', Q'.join(map(str, DIST_GROUP_QIDS))} equal the in-process "
-            f"answers (first run ms {', '.join(f'{m:.3f}' for m in ms.values())}); the group is "
+            f"{shard_s:.1f} s, Q{', Q'.join(map(str, DIST_GROUP_QIDS))} "
+            + (f"through DistributedCompiledQuery (captures {captures}), first run and a "
+               f"replay, " if compiled else "")
+            + f"equal the in-process answers (ms {', '.join(f'{m:.3f}' for m in ms.values())}"
+            + ("" if not compiled else ", both runs") + "); the group is "
             f"destroyed. NCCL refuses two ranks on one card: groups of several ranks run in the "
             f"CPU tests (tests/test_torch_process_group.py, 4 gloo ranks)")
 
 
-def distribution_phase(device, card, sf10, sf1_tables, sql_rows, table_eq) -> None:
-    """Phase 11 (see the module docstring), on phase 10's SF10 catalog and
-    resident answers and phase 4's SF1 tables (`sf1_tables`, CPU copies)."""
-    from hyrise_tpu_torch.parallel.blocked_dist import BlockedDistributedQuery
+def distribution_sf10(device, card, sf10, table_eq) -> dict:
+    """Phase 11a and 11b: shard_tpch of phase 10's SF10 catalog into
+    DIST_SHARDS shards on the card, and the 22 hand plans through
+    DistributedQuery against the resident answers. Returns what phase 14
+    reads: the mesh, the ShardedCatalog, and per query the rows, the median,
+    the join decisions and exchange_stats()."""
     from hyrise_tpu_torch.parallel.dist_compiler import (TPCH_PARTITION_KEYS, DistributedQuery,
                                                          shard_tpch)
-    from hyrise_tpu_torch.parallel.dist_query import dist_q1, dist_q3_step, dist_q6
     from hyrise_tpu_torch.parallel.exchange import partition_hash
     from hyrise_tpu_torch.parallel.mesh import make_mesh
-    from hyrise_tpu_torch.parallel.partition import hash_partition
     from hyrise_tpu_torch.parallel.skew import shard_imbalance
-    from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
-    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, TPCH_SQL
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS
 
     cat, resident = sf10["cat"], sf10["resident"]
-    phase0 = time.perf_counter()
 
     # 11a. partitioning
     mesh = make_mesh(DIST_SHARDS, device=device.type)
@@ -4079,7 +4145,7 @@ def distribution_phase(device, card, sf10, sf1_tables, sql_rows, table_eq) -> No
 
     # 11b. the 22 hand plans
     t0 = time.perf_counter()
-    dist_rows, lines, medians = {}, [], {}
+    dist_rows, lines, medians, decisions, stats = {}, [], {}, {}, {}
     for qid in sorted(TPCH_PLANS):
         last = {}
 
@@ -4093,6 +4159,7 @@ def distribution_phase(device, card, sf10, sf1_tables, sql_rows, table_eq) -> No
                   table_eq)
         dq = last["dq"]
         dist_rows[qid], medians[qid] = rows, med
+        decisions[qid], stats[qid] = dq.join_decisions(), dq.exchange_stats()
         lines.append(f"Q{qid} {first:.3f} / {med:.3f} ms (resident {sf10['medians'][qid]:.3f}), "
                      f"{peak:.1f} MB, {len(rows)} rows; joins [{'; '.join(dq.join_decisions())}]; "
                      f"exchanges {stats_text(dq.exchange_stats())}")
@@ -4113,6 +4180,25 @@ def distribution_phase(device, card, sf10, sf1_tables, sql_rows, table_eq) -> No
         + " | ".join(lines))
     log(f"distribution: SF{STREAM_SF} sums of medians: distributed "
         f"{sum(medians.values()):.3f} ms, resident {sum(sf10['medians'].values()):.3f} ms {card}")
+    return {"mesh": mesh, "sc": sc, "rows": dist_rows, "medians": medians,
+            "decisions": decisions, "stats": stats}
+
+
+def distribution_phase(device, card, sf10, sf1_tables, sql_rows, table_eq) -> dict:
+    """Phase 11 (see the module docstring), on phase 10's SF10 catalog and
+    resident answers and phase 4's SF1 tables (`sf1_tables`, CPU copies).
+    Returns distribution_sf10's state, which phase 14 runs on."""
+    from hyrise_tpu_torch.parallel.blocked_dist import BlockedDistributedQuery
+    from hyrise_tpu_torch.parallel.dist_compiler import DistributedQuery, shard_tpch
+    from hyrise_tpu_torch.parallel.dist_query import dist_q1, dist_q3_step, dist_q6
+    from hyrise_tpu_torch.parallel.partition import hash_partition
+    from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, TPCH_SQL
+
+    phase0 = time.perf_counter()
+    dist = distribution_sf10(device, card, sf10, table_eq)
+    cat, resident, mesh, sc = sf10["cat"], sf10["resident"], dist["mesh"], dist["sc"]
+    dist_rows, expected6 = dist["rows"], q6_oracle(sf10["li"], sf10["pool"])
 
     # 11c. the ring, the hand pipelines, blocked distribution
     t0 = time.perf_counter()
@@ -4182,8 +4268,403 @@ def distribution_phase(device, card, sf10, sf1_tables, sql_rows, table_eq) -> No
 
     # 11e. a process group
     log("distribution: " + group_checks(device, cat, dist_rows, table_eq))
-    del sc
     log(f"distribution: phase 11 took {time.perf_counter() - phase0:.1f} s")
+    return dist
+
+
+# -- 14. compiled distribution: the sharded plans as captured graphs -------------
+
+# the kernels phase 14 must launch inside its graphs: group-bys (K3), joins
+# (K4), the general group-by (K7), every filter, compaction and exchange (K9c)
+DIST_GRAPH_KERNELS = ("segment_reduce_cells", "lookup_last_eq_lut", "segment_reduce_sorted",
+                      "compact_indices_cap")
+DIST_RING_COMPILED = (3, 5, 9)
+DIST_REPLACED_QID = 6          # its lineitem shards are replaced by those of half of it
+
+
+DIST_PROFILED = (3, 5, 9, 18, 21)   # their exchanges' device ms (exchange_profile)
+DIST_EXCHANGES = ("gather_replicated", "repartition_sharded", "localize_by_key",
+                  "repartition_build_skew")
+
+
+def device_kernels(prof) -> list:
+    """The device kernels of a torch.profiler run as (name, start us, us),
+    without the device spans of record_function ranges."""
+    return [(e.name, e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("exchange")]
+
+
+def exchange_profile(cq) -> tuple:
+    """(a replay's device busy ms and its three largest kernels as (name,
+    ms, calls); an uncaptured capacity-mode run at the learned capacities,
+    which runs the replay's kernels, and the ms of its kernels that ran
+    inside the exchanges of parallel/dist_compiler.py) from torch.profiler.
+    Each exchange runs in a record_function range, whose device span gives
+    the kernels it launched; the gathers of a gathered table are lazy and
+    count to the operator that reads them."""
+    from hyrise_tpu_torch.parallel import dist_compiler
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        cq.run()
+        torch.cuda.synchronize()
+    by_name = {}
+    for name, _, us in device_kernels(prof):
+        ms, calls = by_name.get(name[:40], (0.0, 0))
+        by_name[name[:40]] = (ms + us / 1e3, calls + 1)
+    top = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda x: -x[1])[:3]
+
+    saved = {name: getattr(dist_compiler, name) for name in DIST_EXCHANGES}
+    depth = [0]
+
+    def ranged(fn):
+        def run(*args, **kwargs):
+            depth[0] += 1
+            try:
+                if depth[0] > 1:
+                    return fn(*args, **kwargs)
+                with torch.profiler.record_function("exchange"):
+                    return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return run
+
+    for name, fn in saved.items():
+        setattr(dist_compiler, name, ranged(fn))
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            cq._execute(learning=False)
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(dist_compiler, name, fn)
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.name == "exchange"]
+    kernels = device_kernels(prof)
+    inside = sum(us for _, start, us in kernels if any(a <= start < b for a, b in spans))
+    return (sum(ms for ms, _ in by_name.values()), top,
+            sum(us for _, _, us in kernels) / 1e3, inside / 1e3, len(spans))
+
+
+def exchange_design_ms(device, sc, time_ms) -> str:
+    """The shuffle's two designs at Q9's largest exchange, lineitem by
+    l_partkey over DIST_SHARDS destinations, device ms in turns: a K9c
+    compaction a destination over the concatenated targets (the port's),
+    against one stable sort by target and a searchsorted of the
+    destinations' ranges."""
+    from hyrise_tpu_torch.kernels.compact import compact_indices_cap
+    from hyrise_tpu_torch.parallel.dist_compiler import bucket_capacity
+    from hyrise_tpu_torch.parallel.exchange import partition_hash
+
+    shards = sc.get("lineitem").shards
+    tgt = torch.cat([partition_hash(t.column("l_partkey").data, DIST_SHARDS).to(torch.int64)
+                     for t in shards])
+    cap = bucket_capacity(max(t.num_rows for t in shards))
+    dests = torch.arange(DIST_SHARDS + 1, device=device)
+
+    def by_k9c(i):
+        return [compact_indices_cap(tgt == j, cap) for j in range(DIST_SHARDS)]
+
+    def by_sort(i):
+        order = torch.sort(tgt, stable=True).indices
+        return order, torch.searchsorted(tgt.index_select(0, order), dests)
+
+    ms = turns((("sort", by_sort), ("k9c", by_k9c), ("k9c", by_k9c), ("sort", by_sort)),
+               device, time_ms)
+    return (f"the shuffle of lineitem by l_partkey ({tgt.shape[0]} rows into {DIST_SHARDS} "
+            f"destinations, capacity {cap}): a K9c compaction a destination {ms['k9c']:.4f} "
+            f"ms, one stable sort and the ranges {ms['sort']:.4f} ms (median device ms, CUDA "
+            f"events, in turns)")
+
+
+def dist_state(q) -> dict:
+    """What phase 14 reads of a compiled distributed query after a run."""
+    cq = getattr(q, "_block_cq", q)
+    return {"captures": cq.captures, "retries": q.last_retries, "reads": q.host_reads,
+            "pins": cq.pins, "sync_checked": cq.sync_checked, "pool_mb": q.pool_mb}
+
+
+def compiled_dist_run(q, want, what, table_eq, device, table_bytes, reads_a_run=1):
+    """Phase 14 for one compiled query `q`: a first run and STREAM_REPS
+    more, each equal to `want` in order; the third run and those after it
+    capture nothing, retry nothing and read the host `reads_a_run` times;
+    no run after the first reads a count eagerly. Returns (first ms, median
+    ms, the state after the first and after the last run, MB allocated
+    above the tables and shards at the peak of the first run and of the
+    later ones, the rows)."""
+    from hyrise_tpu_torch.plan.compiler import eager_reads
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    times, states = [], []
+    for i in range(1 + STREAM_REPS):
+        if i == 1:
+            reads = eager_reads()
+            first_peak = torch.cuda.max_memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        rows = q.run().rows()
+        times.append((time.perf_counter() - t0) * 1e3)
+        same_rows(rows, want, f"{what} run {i + 1}", table_eq)
+        states.append(dist_state(q))
+        if i >= 2 and (states[-1]["captures"] != states[-2]["captures"]
+                       or states[-1]["retries"] or states[-1]["reads"] != reads_a_run):
+            raise AssertionError(f"{what} run {i + 1}: {states[-2]} -> {states[-1]}")
+    if eager_reads() != reads:
+        raise AssertionError(f"{what}: {eager_reads() - reads} eager reads after the first run")
+    if device.type == "cuda" and not states[0]["sync_checked"]:
+        raise AssertionError(f"{what}: the learning run was not sync-checked")
+    peaks = [(b - table_bytes) / 1e6 for b in (first_peak,
+                                              torch.cuda.max_memory_allocated(device))]
+    return times[0], statistics.median(times[1:]), states[0], states[-1], peaks, rows
+
+
+def freed() -> None:
+    """Drop what the caller deleted: the compiled objects and their pools."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def replacement_checks(device, mesh, cat, sc, table_eq, replayed, captured) -> str:
+    """14e: a compiled query over a source the ShardedCatalog replaces is
+    captured again, over the new tensors: lineitem's shards replaced by
+    those of its first half under Q6 (the eager answer over them), then put
+    back; and a skewed table migrated by PlacementManager.run_once()."""
+    from hyrise_tpu_torch.expression import ast
+    from hyrise_tpu_torch.ops.aggregate import Aggregate
+    from hyrise_tpu_torch.ops.base import execute_plan
+    from hyrise_tpu_torch.ops.get_table import GetTable
+    from hyrise_tpu_torch.parallel.dist_compiler import (DistributedCompiledQuery,
+                                                         DistributedQuery, ShardedCatalog)
+    from hyrise_tpu_torch.parallel.placement import PlacementManager
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS
+
+    qid = DIST_REPLACED_QID
+    cq = DistributedCompiledQuery(TPCH_PLANS[qid](cat), sc)
+    whole = [cq.run().rows() for _ in range(2)][-1]
+    before = cq.captures
+    kept = sc.get("lineitem")
+    li = cat.get_table("lineitem")
+    sc.add_sharded("lineitem", li.block(0, li.num_rows // 2), "l_orderkey")
+    try:
+        got = cq.run().rows()
+        want = DistributedQuery(TPCH_PLANS[qid](cat), sc).run().rows()
+        after = cq.captures
+    finally:
+        sc.entries["lineitem"] = kept
+    same_rows(got, want, f"compiled Q{qid} over half of lineitem vs eager", table_eq)
+    if got == whole or (device.type == "cuda" and after <= before) or cq.pins != 2:
+        raise AssertionError(f"Q{qid} over half of lineitem: captures {before} -> {after}, "
+                             f"pins {cq.pins}, {got} vs {whole}")
+    back = cq.run().rows()
+    same_rows(back, whole, f"compiled Q{qid} with lineitem put back", table_eq)
+    line = (f"lineitem's shards replaced by those of its first {li.num_rows // 2} rows under "
+            f"compiled Q{qid}: captured again (captures {before} -> {after}, the decisions "
+            f"pinned anew), equal to the eager answer over them {got}; put back: captured "
+            f"again (captures {cq.captures}, pins {cq.pins}), the whole table's answer again")
+    add_graph_counts(replayed, captured, [cq])
+    del cq
+
+    fact, dim = skew_tables(device, **DIST_SKEW)
+    skew_cat = catalog_of({"fact": fact, "dim": dim})
+    sc2 = ShardedCatalog(mesh)
+    sc2.add_sharded("fact", fact, "k")  # placed by the skewed key
+    plan = Aggregate(GetTable("fact", skew_cat), ["k"], [("s", ast.sum_(ast.col("v")))])
+    want = execute_plan(Aggregate(GetTable("fact", skew_cat), ["k"],
+                                  [("s", ast.sum_(ast.col("v")))])).rows()
+    cq = DistributedCompiledQuery(plan, sc2)
+    same_rows(cq.run().rows(), want, "compiled skewed aggregate", table_eq, ordered=False)
+    same_rows(cq.run().rows(), want, "compiled skewed aggregate", table_eq, ordered=False)
+    before = cq.captures
+    pm = PlacementManager(skew_cat, sc2)
+    pm.observe(cq)
+    if pm.run_once() != ["fact"]:
+        raise AssertionError("PlacementManager did not migrate the skewed table")
+    same_rows(cq.run().rows(), want, "compiled migrated aggregate", table_eq, ordered=False)
+    if (device.type == "cuda" and cq.captures <= before) or cq.pins != 2:
+        raise AssertionError(f"the migrated table was not captured again: {dist_state(cq)}")
+    add_graph_counts(replayed, captured, [cq])
+    line += (f"; PlacementManager.run_once() migrated the skewed fact table under a compiled "
+             f"aggregate: captured again (captures {before} -> {cq.captures}), the same "
+             f"{len(want)} groups")
+    del cq, sc2, fact, dim, skew_cat
+    freed()
+    return line
+
+
+def compiled_distribution_phase(device, card, sf10, dist, sf1_tables, sql_rows, table_eq,
+                                wrappers) -> dict:
+    """Phase 14 on phase 11's SF10 ShardedCatalog (`dist`) and phase 10's
+    resident answers: the 22 hand plans through DistributedCompiledQuery,
+    four runs each equal to the resident answer in order, with phase 11's
+    decisions and exchange_stats(); Q1 and Q6 against the numpy oracles;
+    Q3, Q5 and Q9 through the ring; BlockedDistributedQuery(compiled=True)
+    for Q1, Q3 and Q6; the 22 SQL texts over SF1 shards through both
+    builder flags against phase 6's rows; a replaced and a migrated source;
+    compiled Q1, Q3, Q6 and Q18 over a one-rank NCCL group. Each query's
+    compiled objects are freed after it. Returns the launches of the
+    phase: the wrappers' counts less what the captures recorded plus what
+    the replays ran."""
+    from hyrise_tpu_torch.parallel.blocked_dist import BlockedDistributedQuery
+    from hyrise_tpu_torch.parallel.dist_compiler import DistributedCompiledQuery, shard_tpch
+    from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
+    from hyrise_tpu_torch.tpch.queries import TPCH_PLANS, TPCH_SQL
+
+    t_phase = time.perf_counter()
+    cat, resident, sc, mesh = sf10["cat"], sf10["resident"], dist["sc"], dist["mesh"]
+    torch.cuda.synchronize(device)
+    table_bytes = torch.cuda.memory_allocated(device)
+    start = {name: w.launches for name, w in wrappers.items()}
+    replayed, captured, lines, sums, answers = {}, {}, [], [0.0, 0.0, 0.0], {}
+    profiled = []
+
+    # 14a. the 22 hand plans
+    for qid in sorted(TPCH_PLANS):
+        what = f"compiled distributed Q{qid} at SF{STREAM_SF}"
+        cq = DistributedCompiledQuery(TPCH_PLANS[qid](cat), sc)
+        first, med, s0, s1, peak, rows = compiled_dist_run(cq, resident[qid], what, table_eq,
+                                                          device, table_bytes)
+        if cq.join_decisions() != dist["decisions"][qid] or \
+                cq.exchange_stats() != dist["stats"][qid]:
+            raise AssertionError(f"{what}: decisions {cq.join_decisions()} and exchanges "
+                                 f"{cq.exchange_stats()} vs phase 11's {dist['decisions'][qid]} "
+                                 f"{dist['stats'][qid]}")
+        answers[qid] = rows
+        eager_med, res_med = dist["medians"][qid], sf10["medians"][qid]
+        sums[0] += med
+        sums[1] += eager_med
+        sums[2] += res_med
+        lines.append(f"Q{qid} {first:.3f} / {med:.3f} ms (eager distributed {eager_med:.3f}, "
+                     f"resident {res_med:.3f}), captures {s1['captures']} (first run "
+                     f"{s0['captures']}), retries {s1['retries']} (first {s0['retries']}), host "
+                     f"reads {s1['reads']} a run (first {s0['reads']}), sync-checked "
+                     f"{s0['sync_checked']}, {len(cq.caps)} sites, pool {s1['pool_mb']:.1f} MB, "
+                     f"peak {peak[0]:.1f} / {peak[1]:.1f} MB")
+        if qid in DIST_PROFILED:
+            busy, top, run_busy, inside, spans = exchange_profile(cq)
+            profiled.append(
+                f"Q{qid}: a replay busy {busy:.3f} ms, its largest kernels "
+                + ", ".join(f"{k} {ms:.3f} ms in {n}" for k, ms, n in top)
+                + f"; an uncaptured run at the learned capacities busy {run_busy:.3f} ms, "
+                f"{inside:.3f} ms of it inside its {spans} exchanges "
+                f"({inside / max(run_busy, 1e-9):.1%})")
+        add_graph_counts(replayed, captured, [cq])
+        del cq
+        freed()
+    expected6 = q6_oracle(sf10["li"], sf10["pool"])
+    got6 = float(answers[6][0][0])
+    if rel_diff(got6, expected6) > 1e-6:
+        raise AssertionError(f"compiled distributed Q6 {got6} vs numpy {expected6}")
+    worst = check_q1(answers[1], q1_oracle(sf10["li"], sf10["pool"]))
+    log(f"compiled distribution: SF{STREAM_SF} all 22 hand plans through "
+        f"DistributedCompiledQuery over {DIST_SHARDS} shards on {mesh.devices[0]} equal the "
+        f"resident answers on every run (ints and strings exactly, floats within 1e-6 "
+        f"relative, in order; Q11 answers {len(answers[11])} rows, ROADMAP C24, not counted "
+        f"as a check), with phase 11's join decisions and exchange_stats(); the third and "
+        f"fourth runs capture nothing, retry nothing, read the host once, and no run after the "
+        f"first reads a count eagerly; Q6 {got6!r} vs numpy {expected6!r} (rel "
+        f"{rel_diff(got6, expected6):.3e}); Q1's groups equal the numpy oracle's (floats "
+        f"within {worst:.3e})")
+    log(f"compiled distribution: SF{STREAM_SF} per query (host clock to rows on the host, "
+        f"first run / median of {STREAM_REPS} more; pool: the graph's reserved MB; peak: MB "
+        f"allocated above the tables and shards, first run / later runs) {card}: "
+        + "; ".join(lines))
+    log(f"compiled distribution: SF{STREAM_SF} sums of medians: compiled distributed "
+        f"{sums[0]:.3f} ms, eager distributed {sums[1]:.3f} ms, resident {sums[2]:.3f} ms "
+        f"{card}")
+    log(f"compiled distribution: SF{STREAM_SF} device time of the exchanges (torch.profiler; "
+        f"the lazy gathers of a gathered table count to its reader) {card}: "
+        + "; ".join(profiled))
+    if device.type == "cuda":
+        from hyrise_tpu_torch.bench_q6 import time_ms
+        log(f"compiled distribution: exchange designs {card}: "
+            + exchange_design_ms(device, sc, time_ms))
+
+    # 14b. the ring, and blocked distribution
+    t0 = time.perf_counter()
+    for qid in DIST_RING_COMPILED:
+        cq = DistributedCompiledQuery(TPCH_PLANS[qid](cat), sc, exchange="ring")
+        same_rows(cq.run().rows(), resident[qid], f"compiled Q{qid} through the ring", table_eq)
+        add_graph_counts(replayed, captured, [cq])
+        del cq
+        freed()
+    blocked = []
+    for qid in DIST_BLOCKED_QIDS:
+        bq = BlockedDistributedQuery(TPCH_PLANS[qid](cat), sc, block_rows=DIST_BLOCK_ROWS,
+                                     compiled=True)
+        what = f"compiled blocked distributed Q{qid}"
+        first, med, s0, s1, peak, _ = compiled_dist_run(bq, resident[qid], what, table_eq,
+                                                        device, table_bytes, reads_a_run=2)
+        # one capture serves every block: a first, and one more where the
+        # first pass tightened the capacities
+        if bq.n_blocks < 2 or (device.type == "cuda" and not 1 <= s1["captures"] <= 2):
+            raise AssertionError(f"{what}: {bq.n_blocks} blocks, {s1['captures']} captures "
+                                 f"of the block program in {1 + STREAM_REPS} runs")
+        events, busy, _ = replay_profile(lambda: bq.run().rows(), 1)
+        add_graph_counts(replayed, captured, [bq])
+        blocked.append(f"Q{qid} {bq.n_blocks} blocks of {DIST_BLOCK_ROWS} rows a shard, "
+                       f"{s1['captures']} captures of the block program in {1 + STREAM_REPS} "
+                       f"runs (first run {s0['captures']}), {first:.3f} / "
+                       f"{med:.3f} ms (resident {sf10['medians'][qid]:.3f}), host reads "
+                       f"{s1['reads']} a run, builds {bq.builds} a run, pool "
+                       f"{s1['pool_mb']:.1f} MB, peak {peak[0]:.1f} / {peak[1]:.1f} MB; one "
+                       f"profiled run: {events} device events, busy "
+                       + ("not traced" if busy is None else
+                          f"{busy:.3f} ms, {busy / bq.n_blocks:.3f} ms a block"))
+        del bq
+        freed()
+    log(f"compiled distribution: Q{', Q'.join(map(str, DIST_RING_COMPILED))} through the ring "
+        f"equal the resident answers; BlockedDistributedQuery(compiled=True) equal to the "
+        f"resident answers, one capture serving every block of every shard {card}: "
+        + "; ".join(blocked) + f"; {time.perf_counter() - t0:.1f} s")
+
+    # 14c. SQL over SF1 shards, both builder flags
+    t0 = time.perf_counter()
+    sf1 = catalog_of(copy_to(sf1_tables, device))
+    sc1 = shard_tpch(sf1, mesh)
+    sql_ms = {}
+    for qid in sorted(TPCH_SQL):
+        ms = []
+        for _ in range(2):
+            q0 = time.perf_counter()
+            pipeline = SQLPipelineBuilder(TPCH_SQL[qid]).with_catalog(sf1) \
+                .with_distributed_execution(sc1).with_compiled_execution().create_pipeline()
+            rows = pipeline.get_result_table().rows()
+            ms.append((time.perf_counter() - q0) * 1e3)
+            stmt = pipeline.pipeline_statements[-1]
+            if not isinstance(stmt.last_dist_query, DistributedCompiledQuery):
+                raise AssertionError(f"SQL Q{qid} ran as {stmt.last_dist_query!r}")
+            check_rows(rows, sql_rows[qid], f"compiled distributed SQL Q{qid} at SF{SF} vs "
+                       f"phase 6", table_eq)
+        add_graph_counts(replayed, captured, [stmt.last_dist_query])
+        sql_ms[qid] = ms
+    log(f"compiled distribution: SF{SF} the 22 SQL texts with with_distributed_execution and "
+        f"with_compiled_execution over {DIST_SHARDS} shards, each a DistributedCompiledQuery "
+        f"cached per text, equal phase 6's rows (as row sets) on both runs; ms first / cached "
+        f"{card}: " + ", ".join(f"Q{q} {a:.3f} / {b:.3f}" for q, (a, b) in sql_ms.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    sf1.compiled.clear()
+    del sc1, sf1, pipeline, stmt
+    freed()
+
+    launches = {name: w.launches - start[name] - captured.get(name, 0) + replayed.get(name, 0)
+                for name, w in wrappers.items()}
+
+    # 14d. sources replaced under a compiled query; a process group
+    log("compiled distribution: " + replacement_checks(device, mesh, cat, sc, table_eq,
+                                                       replayed, captured))
+    log("compiled distribution: " + group_checks(device, cat, dist["rows"], table_eq,
+                                                 compiled=True))
+    for name in DIST_GRAPH_KERNELS:
+        if replayed.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched inside phase 14's graphs")
+    log(f"compiled distribution: launches before the replacement checks {launches}, of them "
+        f"inside the graphs (the replays' runs, all checks) {replayed}; phase 14 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # -- 12. whole-plan compiled execution: CUDA graphs ----------------------------
@@ -4579,6 +5060,42 @@ def compiled_streaming_only_run(device, card, started: float) -> None:
     log(json.dumps({"compiled_streaming_launches": launches}))
 
 
+def compiled_distribution_only_run(device, card, started: float) -> None:
+    """`--compiled-distribution`: phase 4's SF1 tables and phase 6's SQL rows
+    (kept on the host), phase 10's SF10 tables with their resident answers
+    and medians, phase 11's shard_tpch and eager distributed runs, then
+    phase 14. Ends with one JSON line: phase 14's launches."""
+    from hyrise_tpu_torch.kernels import (compact, group_reduce, hash_lookup, join_probe,
+                                          segment_reduce)
+    from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
+    from hyrise_tpu_torch.tpch import dbgen
+    from hyrise_tpu_torch.tpch.queries import TPCH_SQL
+    from hyrise_tpu_torch.utils import table_eq
+
+    wrappers = {"segment_reduce_cells": group_reduce.segment_reduce_cells,
+                "lookup_last_eq_lut": join_probe.lookup_last_eq_lut,
+                "expand_pairs": join_probe.expand_pairs,
+                "segment_reduce_sorted": segment_reduce.segment_reduce_sorted,
+                "lookup_last_eq": hash_lookup.lookup_last_eq,
+                "compact_indices": compact.compact_indices,
+                "compact_indices_cap": compact.compact_indices_cap,
+                "expand_pairs_cap": join_probe.expand_pairs_cap}
+    tables = dbgen.generate_tables(SF, SEED, device=device)
+    sf1 = catalog_of(tables)
+    sql_rows = {qid: SQLPipelineBuilder(TPCH_SQL[qid]).with_catalog(sf1).create_pipeline()
+                .get_result_table().rows() for qid in sorted(TPCH_SQL)}
+    sf1_tables = copy_to(tables, "cpu")
+    del tables, sf1
+    freed()
+    sf10 = sf10_resident(device, card)
+    dist = distribution_sf10(device, card, sf10, table_eq)
+    reset_counts(wrappers)
+    launches = compiled_distribution_phase(device, card, sf10, dist, sf1_tables, sql_rows,
+                                           table_eq, wrappers)
+    log(f"elapsed: {time.perf_counter() - started:.1f} s, the build included")
+    log(json.dumps({"compiled_distribution_launches": launches}))
+
+
 def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None:
     """`--cells`: K3 and K6 alone. With `checked` (this checkout's kernels)
     every check of phase 3 for them, then their timed shapes; without (the
@@ -4655,6 +5172,7 @@ def main() -> None:
     cells_only = "--cells" in argv
     compiled_only = "--compiled" in argv
     streaming_only = "--compiled-streaming" in argv
+    distribution_only = "--compiled-distribution" in argv
     kernels = argv[argv.index("--kernels") + 1].split(",") if "--kernels" in argv else None
     if kernels is not None and not set(kernels) <= set(KERNEL_SOURCES):
         raise SystemExit(f"chip_smoke: --kernels takes {', '.join(KERNEL_SOURCES)}, got "
@@ -4721,6 +5239,9 @@ def main() -> None:
         return
     if streaming_only:
         compiled_streaming_only_run(device, card, started)
+        return
+    if distribution_only:
+        compiled_distribution_only_run(device, card, started)
         return
 
     # -- 3. kernels against their plain versions -----------------------------
@@ -5014,9 +5535,8 @@ def main() -> None:
 
     # -- 11. distribution: SF10 over four shards on the card, a process group --
     reset_counts(wrappers)
-    distribution_phase(device, card, sf10, {name: cpu_cat.get_table(name)
-                                            for name in cpu_cat.table_names()},
-                       sql_rows, table_eq)
+    sf1_tables = {name: cpu_cat.get_table(name) for name in cpu_cat.table_names()}
+    dist = distribution_phase(device, card, sf10, sf1_tables, sql_rows, table_eq)
     dist_launches = {name: w.launches for name, w in wrappers.items()}
     for name in DIST_KERNELS:
         if dist_launches[name] <= 0:
@@ -5024,6 +5544,13 @@ def main() -> None:
     log(f"distribution: launches in phase 11 {dist_launches}")
     for name, count in dist_launches.items():
         launches[name] += count
+
+    # -- 14. compiled distribution: the sharded plans as captured graphs ------
+    reset_counts(wrappers)
+    for name, count in compiled_distribution_phase(device, card, sf10, dist, sf1_tables,
+                                                   sql_rows, table_eq, wrappers).items():
+        launches[name] += count
+    del dist
 
     csrc = "hyrise_tpu_torch/kernels/csrc/"
 

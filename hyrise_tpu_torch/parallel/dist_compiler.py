@@ -1,10 +1,12 @@
 """Distributed execution of any operator plan over sharded tables.
 
 Port of hyrise_tpu/parallel/dist_compiler.py. The JAX file compiles a plan
-into one `shard_map` program; `DistributedQuery` is its eager counterpart,
-as plan/blocked.py's BlockedQuery is BlockedCompiledQuery's. The design is
-the JAX package's placement-typed execution (dist_compiler.py:11-42). Every
-intermediate carries a Placement:
+into one `shard_map` program. Here two forms share one executor:
+`DistributedQuery` runs it eagerly, with exact sizes read on the host, and
+`DistributedCompiledQuery` (the JAX name) runs it in plan/compiler.py's
+capacity mode, every shard and exchange in one CUDA graph on the card. The
+design is the JAX package's placement-typed execution
+(dist_compiler.py:11-42). Every intermediate carries a Placement:
 
 - REPLICATED: every shard holds the whole table. This process keeps one
   copy on its first shard's device and runs an operator over it once.
@@ -32,17 +34,20 @@ Each shard runs the port's own single-card operators on its rows
   rows a shard (distributed top K). Every other operator (Sort, Limit, set
   operations, non-equi joins) gathers its inputs and runs replicated.
 
-What the JAX class keeps for its capacity oracle and trace is not needed:
-sizes are exact here (plan/compiler.py is not ported, by decision). What it
-keeps instead: the per-shard rows of every operator's output (`op_rows`,
-which parallel/placement.py reads) and of every exchange site
-(`exchange_stats()`, with the JAX labels).
+Both forms keep the per-shard rows of every operator's output (`op_rows`)
+and of every exchange site (`exchange_stats()`, with the JAX labels); in
+capacity mode those counts stay on the device until the run's one host
+read. The exchange helpers below branch on plan/compiler.py's `tracing()`:
+eagerly they move exact row sets, in capacity mode the capacity forms of
+parallel/exchange.py move buffers at their capacities and compact the live
+rows with K9c (oracle_compact), one site per exchange and shard.
 
 Decisions that depend on sizes or distributions read only global
 quantities (catalog metadata, or a count or sample reduced over every
 shard first), so every rank of a process group takes the same branch and
 the collectives meet. Where the JAX code reads a traced capacity, this
-reads bucket_capacity of the largest shard's rows.
+reads bucket_capacity of the largest shard's rows; the compiled form takes
+its decisions from one eager run and only reads them in capacity mode.
 
 Dictionaries: shards rewrite dictionaries on their own (SUBSTR, LIKE), so
 the parts of a gathered or received table may hold equal dictionaries in
@@ -62,17 +67,19 @@ import torch
 from hyrise_tpu_torch.expression.ast import AggregateExpr, ColumnRef
 from hyrise_tpu_torch.ops.aggregate import Aggregate
 from hyrise_tpu_torch.ops.base import AbstractOperator
-from hyrise_tpu_torch.ops.get_table import GetTable, TableWrapper
+from hyrise_tpu_torch.ops.get_table import GetTable, TableWrapper, _capacity_source
 from hyrise_tpu_torch.ops.join import (Join, JoinIndex, JoinMPSM, _key_space,
                                        _keys_in)
-from hyrise_tpu_torch.ops.materialize import ensure_prefix, filter_table
+from hyrise_tpu_torch.ops.materialize import ensure_prefix, filter_table, gather_table
 from hyrise_tpu_torch.ops.table_scan import TableScan
 from hyrise_tpu_torch.parallel.exchange import (_send_buckets, all_gather, all_max,
-                                                check_exchange, exchange_buckets,
-                                                partition_hash)
+                                                check_exchange, exchange_buckets, gather_cap,
+                                                partition_hash, shuffle_cap)
 from hyrise_tpu_torch.parallel.mesh import Mesh
 from hyrise_tpu_torch.parallel.partition import ShardedTable, hash_partition
 from hyrise_tpu_torch.plan.blocked import PlanNotCompilable, _walk
+from hyrise_tpu_torch.plan.compiler import (CompiledQuery, active, device_constant,
+                                            oracle_compact, tracing)
 from hyrise_tpu_torch.storage.column import Column
 from hyrise_tpu_torch.storage.table import Table
 from hyrise_tpu_torch.types import (EXISTENCE_MODES, AggregateFunction, DataType,
@@ -174,6 +181,58 @@ def _on(t: Table, device: torch.device) -> Table:
                  live=None if t.live is None else t.live.to(device))
 
 
+@dataclasses.dataclass
+class _Template:
+    """What a column of a table built from received tensors keeps: its
+    name, type, dictionary and value range, and whether a validity travels
+    with it."""
+
+    name: str
+    dtype: DataType
+    dictionary: Optional[np.ndarray]
+    val_range: Optional[tuple]
+    validity: bool
+
+
+def _merged_dictionary(cols) -> Optional[np.ndarray]:
+    """The dictionary the parts of a column share, or, where their contents
+    differ, the merged one (sorted, as every dictionary)."""
+    d = cols[0].dictionary
+    if cols[0].dtype is not DataType.STRING or all(
+            c.dictionary is d or np.array_equal(c.dictionary, d) for c in cols):
+        return d
+    return np.unique(np.concatenate([c.dictionary for c in cols]))
+
+
+def _recoded(c: Column, dictionary: Optional[np.ndarray]) -> torch.Tensor:
+    """c's data with its codes in `dictionary`, a superset of c's (itself
+    where the two are equal). The recoding table is a device_constant: one
+    upload a query in capacity mode. Codes out of c's range (dead rows) map
+    anywhere in range."""
+    if dictionary is c.dictionary or dictionary is None or np.array_equal(dictionary,
+                                                                          c.dictionary):
+        return c.data
+    if len(c.dictionary) == 0:  # only NULL or dead rows
+        return torch.zeros_like(c.data)
+    lut = device_constant(np.searchsorted(dictionary, c.dictionary).astype(np.int32),
+                          torch.int32, c.device)
+    return lut[c.data.to(torch.int64).clamp(0, len(c.dictionary) - 1)]
+
+
+def _templates(parts: List[Table], always_validity: bool) -> List[_Template]:
+    """Per column of equal-schema `parts`: the merged dictionary, the union
+    of the value ranges, and whether any part has a validity."""
+    out = []
+    for i, c0 in enumerate(parts[0].columns):
+        cs = [p.columns[i] for p in parts]
+        ranges = [c.val_range for c in cs]
+        val_range = None if any(r is None for r in ranges) else \
+            (min(r[0] for r in ranges), max(r[1] for r in ranges))
+        out.append(_Template(c0.name, c0.dtype, _merged_dictionary(cs), val_range,
+                             always_validity or any(c.has_validity for c in cs)))
+    return out
+
+
 def concat_tables(parts: List[Table], name: str = "") -> Table:
     """The live rows of `parts` (equal schemas, one device), in order, as
     one prefix table. String columns whose dictionaries differ in content
@@ -187,74 +246,110 @@ def concat_tables(parts: List[Table], name: str = "") -> Table:
         return Table([Column(c.name, c.dtype, c.data, c.validity if c.has_validity else None,
                              c.dictionary, val_range=c.val_range) for c in t.columns],
                      t.num_rows, name=name or t.name)
-    dev = parts[0].device
+    tpl = _templates(parts, False)
+    sent = [_columns_of(p, tpl, cut=True) for p in parts]
+    return _table_from(tpl, [torch.cat([s[i] for s in sent]) for i in range(len(sent[0]))],
+                       sum(p.num_rows for p in parts), name or parts[0].name)
+
+
+def _columns_of(t: Table, tpl: List[_Template], cut: bool = False) -> List[torch.Tensor]:
+    """The tensors a table sends, laid out by `tpl`: each column's data in
+    its template's dictionary, then its validity where the template carries
+    one (all True where the table has none); the first num_rows rows where
+    `cut`, else the whole capacity."""
+    out = []
+    n = t.num_rows if cut else t.capacity
+    for c, k in zip(t.columns, tpl):
+        out.append(_recoded(c, k.dictionary)[:n])
+        if k.validity:
+            out.append(c.validity[:n] if c.has_validity else
+                       torch.ones(n, dtype=torch.bool, device=t.device))
+    return out
+
+
+def _table_from(tpl: List[_Template], tensors, num_rows, name: str,
+                indices: Optional[torch.Tensor] = None) -> Table:
+    """A prefix table of `num_rows` rows of the `tensors` (_columns_of's
+    layout), or of their rows at `indices`, gathered when first read; there
+    a tensor may be a thunk that makes it."""
+    it = iter(tensors)
     cols = []
-    for i, c0 in enumerate(parts[0].columns):
-        cs = [p.columns[i] for p in parts]
-        datas = [c.data[:p.num_rows] for c, p in zip(cs, parts)]
-        dictionary = c0.dictionary
-        if c0.dtype is DataType.STRING and any(
-                c.dictionary is not dictionary and not np.array_equal(c.dictionary, dictionary)
-                for c in cs):
-            dictionary = np.unique(np.concatenate([c.dictionary for c in cs]))
-            datas = [torch.as_tensor(np.searchsorted(dictionary, c.dictionary).astype(np.int32),
-                                     device=dev)[d.to(torch.int64)] for c, d in zip(cs, datas)]
-        validity = None
-        if any(c.has_validity for c in cs):
-            validity = torch.cat([c.validity[:p.num_rows] if c.has_validity else
-                                  torch.ones(p.num_rows, dtype=torch.bool, device=dev)
-                                  for c, p in zip(cs, parts)])
-        ranges = [c.val_range for c in cs]
-        val_range = None if any(r is None for r in ranges) else \
-            (min(r[0] for r in ranges), max(r[1] for r in ranges))
-        cols.append(Column(c0.name, c0.dtype, torch.cat(datas), validity, dictionary,
-                           val_range=val_range))
-    return Table(cols, sum(p.num_rows for p in parts), name=name or parts[0].name)
+    for k in tpl:
+        data = next(it)
+        validity = next(it) if k.validity else None
+        if indices is None:
+            cols.append(Column(k.name, k.dtype, data, validity, k.dictionary,
+                               val_range=k.val_range))
+            continue
+
+        def taken(x):
+            return None if x is None else \
+                (lambda: (x() if callable(x) else x).index_select(0, indices))
+
+        cols.append(Column(k.name, k.dtype, taken(data), taken(validity), k.dictionary,
+                           device=indices.device, capacity=indices.shape[0],
+                           val_range=k.val_range))
+    return Table(cols, num_rows, name=name)
 
 
-def _record(sites, label: str, counts: List[int]) -> None:
+def _received(tpl: List[_Template], tensors, grouped: bool, name: str) -> Table:
+    """An eager exchange's received tensors as a prefix table; over a
+    process group (where every column travels with a validity) an all-valid
+    validity is dropped."""
+    t = _table_from(tpl, tensors, tensors[0].shape[0], name)
+    if not grouped:
+        return t
+    return Table([Column(c.name, c.dtype, c.data, None, c.dictionary, val_range=c.val_range)
+                  if c.has_validity and bool(c.validity.all()) else c for c in t.columns],
+                 t.num_rows, name=name)
+
+
+def _record(sites, label: str, counts) -> None:
+    """An exchange site's rows a local shard: host ints, or in capacity mode
+    device counts, which the compiled form reads with its other counts."""
     if sites is not None:
         sites.append((label, list(counts)))
 
 
-def _columns_of(t: Table, always_validity: bool):
-    """The tensors a table sends: each column's data, then its validity
-    where it has one (always, over a process group: every rank must send
-    the same tensors)."""
-    out = []
-    for c in t.columns:
-        out.append(c.data[:t.num_rows] if t.live is None else c.data)
-        if c.has_validity or always_validity:
-            v = c.validity if c.has_validity else \
-                torch.ones(c.capacity, dtype=torch.bool, device=t.device)
-            out.append(v[:t.num_rows] if t.live is None else v)
-    return out
-
-
-def _table_from(template: Table, tensors, always_validity: bool) -> Table:
-    """A prefix table of the received `tensors`, laid out as _columns_of
-    laid out `template`'s; an all-valid received validity is dropped."""
-    it = iter(tensors)
-    cols = []
-    for c in template.columns:
-        data = next(it)
-        validity = next(it) if (c.has_validity or always_validity) else None
-        if validity is not None and always_validity and bool(validity.all()):
-            validity = None
-        cols.append(Column(c.name, c.dtype, data, validity, c.dictionary,
-                           val_range=c.val_range))
-    return Table(cols, cols[0].capacity, name=template.name)
+def _capacity_concat(parts: List[Table], label: str, name: str,
+                     mesh: Optional[Mesh] = None) -> Table:
+    """Capacity mode's concat_tables: one compaction (K9c) of the parts'
+    live masks at their capacities, concatenated in part order, at the site
+    `label`: the live rows in order, counted on the device. A column is
+    concatenated and gathered when first read; with a process group's
+    `mesh`, this rank's one part is all-gathered first, every column."""
+    tpl = _templates(parts, mesh is not None and mesh.group is not None)
+    if mesh is not None and mesh.group is not None:
+        (whole,) = gather_cap(mesh, [_columns_of(parts[0], tpl) + [parts[0].live_mask()]])
+        idx, n = oracle_compact(whole[-1], label)
+        return _table_from(tpl, whole[:-1], n, name, idx)
+    idx, n = oracle_compact(torch.cat([p.live_mask() for p in parts]), label)
+    tensors = []
+    for i, k in enumerate(tpl):
+        cols = [p.columns[i] for p in parts]
+        tensors.append(lambda cols=cols, k=k: torch.cat([_recoded(c, k.dictionary)
+                                                         for c in cols]))
+        if k.validity:
+            tensors.append(lambda cols=cols: torch.cat([
+                c.validity if c.has_validity else
+                torch.ones(c.capacity, dtype=torch.bool, device=c.device) for c in cols]))
+    return _table_from(tpl, tensors, n, name, idx)
 
 
 def gather_replicated(mesh: Mesh, shards: List[Table], sites=None) -> Table:
     """Every shard's live rows, in shard order, as one table on this
     process's first device (all_gather over a process group)."""
+    if tracing():
+        out = _capacity_concat(shards, "exchange.gather", shards[0].name, mesh)
+        _record(sites, "exchange.gather", [out.num_rows] * len(shards))
+        return out
     shards = [ensure_prefix(t) for t in shards]
     if mesh.group is None:
         out = concat_tables([_on(t, mesh.home) for t in shards])
     else:
-        (got,) = all_gather(mesh, [_columns_of(shards[0], True)])
-        out = _table_from(shards[0], got, True)
+        tpl = _templates(shards[:1], True)
+        (got,) = all_gather(mesh, [_columns_of(shards[0], tpl, cut=True)])
+        out = _received(tpl, got, True, shards[0].name)
     _record(sites, "exchange.gather", [out.num_rows] * len(shards))
     return out
 
@@ -266,21 +361,42 @@ def repartition_sharded(mesh: Mesh, shards: List[Table], keys: List[torch.Tensor
     `target` where given (skew-aware routing); `live` (per shard) narrows
     the rows sent. keys[i] is the promoted join key aligned with shard i's
     rows. Equal keys end on one shard; each shard gets the rows of shard 0
-    first, each source's rows in their order."""
+    first, each source's rows in their order. In capacity mode the rows
+    move at the shards' capacities (exchange.shuffle_cap)."""
     n = mesh.n_shards
     grouped = mesh.group is not None
-    buckets = [_send_buckets(_columns_of(t, grouped), None,
-                             t.live_mask() if live is None else live[i], n,
-                             partition_hash(keys[i], n) if target is None else target[i])[0]
-               for i, t in enumerate(shards)]
+    lives = [t.live_mask() if live is None else live[i] for i, t in enumerate(shards)]
+    targets = [partition_hash(keys[i], n) if target is None else target[i]
+               for i in range(len(shards))]
+    if tracing():
+        # one code space: in one process the shards' rows are concatenated
+        tpl = _templates(shards, grouped)
+        got = shuffle_cap(mesh, [_columns_of(t, tpl) for t in shards],
+                          [torch.where(v, x.to(torch.int64), n) for v, x in zip(lives, targets)],
+                          label, exchange, estimate=max(t.capacity for t in shards))
+        out = [_table_from(tpl, cols, count, t.name) for (cols, count), t in zip(got, shards)]
+        _record(sites, label, [t.num_rows for t in out])
+        return out
+    tpls = [_templates([t], grouped) for t in shards]
+    buckets = [_send_buckets(_columns_of(t, tpl), None, v, n, x)[0]
+               for t, tpl, v, x in zip(shards, tpls, lives, targets)]
     recv = exchange_buckets(mesh, buckets, exchange)
     out = []
     for j, parts in enumerate(recv):
-        templates = [shards[0]] * n if grouped else shards
-        out.append(concat_tables([_table_from(tpl, p, grouped)
-                                  for tpl, p in zip(templates, parts)], shards[j].name))
+        got = tpls * n if grouped else tpls
+        out.append(concat_tables([_received(tpl, p, grouped, shards[j].name)
+                                  for tpl, p in zip(got, parts)], shards[j].name))
     _record(sites, label, [t.num_rows for t in out])
     return out
+
+
+def _compacted(t: Table, keep: torch.Tensor, label: str, estimate: int) -> Table:
+    """The rows of `t` where `keep` holds, as a prefix table: filter_table
+    eagerly, one compaction at the site `label` in capacity mode."""
+    if not tracing():
+        return filter_table(t, keep)
+    idx, n = oracle_compact(keep & t.live_mask(), label, max(estimate, 1))
+    return gather_table(t, idx, preserve_unique=True, num_rows=n)
 
 
 def localize_by_key(mesh: Mesh, t: Table, keys: torch.Tensor, label: str = "exchange.localize",
@@ -290,19 +406,18 @@ def localize_by_key(mesh: Mesh, t: Table, keys: torch.Tensor, label: str = "exch
     in `keep_also` stay on every shard (hot build keys)."""
     n = mesh.n_shards
     tgt = partition_hash(keys, n) if target is None else target
-    live = t.live_mask()
     out = []
     for me, dev in zip(mesh.local_shards, mesh.devices):
-        keep = live & (tgt == me)
+        keep = tgt == me
         if keep_also is not None:
-            keep = keep | (live & keep_also)
-        out.append(_on(filter_table(t, keep), dev))
+            keep = keep | keep_also
+        out.append(_on(_compacted(t, keep, label, t.capacity // n), dev))
     _record(sites, label, [x.num_rows for x in out])
     return out
 
 
 def _is_hot(keys: torch.Tensor, hot: np.ndarray) -> torch.Tensor:
-    return torch.isin(keys, torch.as_tensor(hot, device=keys.device).to(keys.dtype))
+    return torch.isin(keys, device_constant(hot, keys.dtype, keys.device))
 
 
 def _skew_spread_target(keys: torch.Tensor, live: torch.Tensor, hot: np.ndarray,
@@ -327,12 +442,41 @@ def repartition_build_skew(mesh: Mesh, shards: List[Table], keys: List[torch.Ten
     nonhot = repartition_sharded(mesh, shards, keys, label + ".nonhot",
                                  live=[v & ~h for v, h in zip(lives, is_hot)],
                                  exchange=exchange, sites=sites)
-    _record(sites, label + ".hot", [int(h.sum()) for h in is_hot])
-    hot_all = gather_replicated(mesh, [filter_table(t, h) for t, h in zip(shards, is_hot)],
-                                sites)
-    out = [concat_tables([a, _on(hot_all, a.device)], a.name) for a in nonhot]
+    hot_rows = [_compacted(t, h, label + ".hot", t.capacity // 8)
+                for t, h in zip(shards, is_hot)]
+    _record(sites, label + ".hot", [t.num_rows for t in hot_rows])
+    hot_all = gather_replicated(mesh, hot_rows, sites)
+    if tracing():
+        out = [_capacity_concat([a, hot_all], label + ".merge", a.name) for a in nonhot]
+    else:
+        out = [concat_tables([a, _on(hot_all, a.device)], a.name) for a in nonhot]
     _record(sites, label + ".merge", [t.num_rows for t in out])
     return out
+
+
+def _padded(t: Table, rows: Optional[int]) -> Table:
+    """`t` (a base shard, prefix layout) at `rows` positions, zeros past its
+    own; itself where `rows` is None or its capacity."""
+    if rows is None or rows == t.capacity:
+        return t
+
+    def pad(x):
+        return torch.cat([x, torch.zeros(rows - x.shape[0], dtype=x.dtype, device=x.device)])
+
+    return Table([Column(c.name, c.dtype, pad(c.data),
+                         pad(c.validity) if c.has_validity else None, c.dictionary,
+                         unique=c.unique, val_range=c.val_range) for c in t.columns],
+                 t.num_rows, name=t.name)
+
+
+def _first_rows(t: Table, k: int) -> Table:
+    """A prefix table cut to the capacity bucket of its first k rows (the
+    JAX package's _slice_prefix): the rows a Limit keeps, at a size the
+    host knows."""
+    cap = bucket_capacity(max(k, 1))
+    if t.live is not None or cap >= t.capacity:
+        return t
+    return Table([c.block(0, cap) for c in t.columns], t.num_rows, name=t.name)
 
 
 # ---------------------------------------------------------------------------
@@ -480,6 +624,15 @@ class DistributedQuery:
         return t if p.replicated else gather_replicated(self.mesh, t, self._sites)
 
     def _source(self, op, src):
+        if tracing():
+            # capacity mode: a table of no positions reads as one dead row;
+            # over a process group every rank's shard has the largest
+            # shard's capacity, so every rank sizes its sites alike
+            if isinstance(src, ShardedTable):
+                width = int(src.counts.max()) if self.mesh.group is not None else None
+                return ([_capacity_source(_padded(t, width)) for t in src.shards],
+                        self._src_placement[id(src)])
+            return _capacity_source(src), REPLICATED
         if isinstance(src, ShardedTable):
             return list(src.shards), self._src_placement[id(src)]
         return _on(src, self.mesh.home), REPLICATED
@@ -543,7 +696,10 @@ class DistributedQuery:
         if op.name == "Limit" and id(op.inputs[0]) in self._local_sorted:
             t, p = ins[0]
             if not p.replicated:
-                top = gather_replicated(self.mesh, self._map(op, ins), self._sites)
+                local = self._map(op, ins)
+                if tracing():  # K rows a shard travel, not the shard's capacity
+                    local = [_first_rows(x, op.n) for x in local]
+                top = gather_replicated(self.mesh, local, self._sites)
                 return self._run_local(op, [self._run_local(op.inputs[0], [top])]), REPLICATED
 
         # everything else: replicate the inputs, run the operator once
@@ -633,6 +789,9 @@ class DistributedQuery:
         d = self._decisions.get(id(op))
         if d is not None:
             return d
+        if tracing():
+            raise RuntimeError(f"{op.name}({op.left_col}={op.right_col}): no decision was "
+                               "pinned before capacity mode")
         (_, lp), (_, rp) = ins
         mode, cond = op.mode, op.cond
         if lp.replicated and rp.replicated:
@@ -746,7 +905,7 @@ class DistributedQuery:
             lk, rk = self._promoted(lt, rt, op)
 
             def range_target(k):
-                s = torch.as_tensor(spl, device=k.device).to(k.dtype)
+                s = device_constant(spl, k.dtype, k.device)
                 return torch.searchsorted(s, k, right=True).to(torch.int64)
 
             def targets(k):
@@ -768,6 +927,8 @@ class DistributedQuery:
         lk, rk = self._promoted(lt, rt, op)
         hot = self._hot_keys.get(id(op))
         if hot is None:
+            if tracing():
+                raise RuntimeError(f"{op.name}: no hot keys were pinned before capacity mode")
             hot = self._detect_hot_keys(op, pi) if mode in _PROBE_PRESERVING else _NO_HOT
             self._hot_keys[id(op)] = hot
         if hot.size:
@@ -912,3 +1073,146 @@ class DistributedQuery:
                 entry["rows"] += rows
                 entry["moved_rows"] += rows
         return stats
+
+
+# ---------------------------------------------------------------------------
+# the compiled form
+
+
+class DistributedCompiledQuery(CompiledQuery):
+    """A plan over a ShardedCatalog in capacity mode (plan/compiler.py): on
+    the card every shard's operators and every exchange are one captured
+    CUDA graph, replayed with one host read; on the CPU, and over a process
+    group of CPU ranks, the same capacity mode runs uncaptured.
+
+        dcq = DistributedCompiledQuery(TPCH_PLANS[3](cat), shard_cat)
+        table = dcq.run()        # first call: an eager DistributedQuery run
+                                 # that pins the decisions, then learn,
+                                 # capture, replay; later calls: one replay
+        dcq.exchange_stats()     # rows through every exchange site
+
+    The decisions (join strategies, hot keys, MPSM splitters) are taken
+    once, by an eager DistributedQuery run of the plan (`pins` counts them),
+    and only read in capacity mode, so a learned capacity never changes the
+    exchange structure. The exchanges are the capacity forms of
+    parallel/exchange.py; each exchange site's rows a shard stay on the
+    device and come back with the run's one host read, from which
+    `exchange_stats()` counts as the eager form does. Over a process group
+    that read all-gathers every rank's counts, and every rank grows and
+    shrinks its capacities by the largest, so every rank's buffers have one
+    size.
+
+    Refused with PlanNotCompilable: what DistributedQuery refuses
+    (writes, imports, exports, prints, IndexScan, JoinIndex, MVCC tables),
+    what CompiledQuery refuses, and a mesh whose shards sit on more than one
+    device (one graph holds one card's work). A sharded or replicated
+    source replaced in the ShardedCatalog since the last run (add_sharded,
+    PlacementManager.run_once) drops the graph, which read the old one's
+    tensors: the decisions are pinned anew and the plan learned and
+    captured again."""
+
+    def __init__(self, root: AbstractOperator, shard_cat: ShardedCatalog,
+                 exchange: str = "all_to_all"):
+        mesh = shard_cat.mesh
+        if len(set(mesh.devices)) > 1:
+            raise PlanNotCompilable(f"a mesh over {len(set(mesh.devices))} devices: a captured "
+                                    "graph holds the work of one")
+        self.shard_cat = shard_cat
+        self.mesh = mesh
+        self.n_shards = mesh.n_shards
+        self.exchange = exchange
+        self.root = root
+        self._dq = self._new_query()  # the eager form's refusals
+        self._pinned = False
+        self.pins = 0
+        self._site_layout: List[Tuple[str, int]] = []
+        super().__init__(root)
+
+    def _new_query(self) -> DistributedQuery:
+        """The eager form over this plan, whose decisions a run pins."""
+        return DistributedQuery(self.root, self.shard_cat, self.exchange)
+
+    def _resolve_sources(self) -> list:
+        """The sharded and replicated tables the plan reads now, each once."""
+        sources = []
+        for op in self.ops:
+            if isinstance(op, GetTable):
+                src = self.shard_cat.get(op.table_name)
+            elif isinstance(op, TableWrapper):
+                src = op.table
+            else:
+                continue
+            if all(s is not src for s in sources):
+                sources.append(src)
+        return sources
+
+    def refresh_sources(self) -> None:
+        """A source replaced since the last run: the graph is dropped, the
+        decisions pinned anew and the capacities learned anew."""
+        now = self._resolve_sources()
+        if [id(t) for t in now] != [id(t) for t in self._sources]:
+            self._sources = now
+            self.drop_graph()
+            self._constants = {}
+            self.caps.clear()
+            self._dq = self._new_query()
+            self._pinned = False
+
+    def _pin(self) -> None:
+        """One eager run of the plan, which takes every decision."""
+        try:
+            self._dq.run()
+        finally:
+            for op in self.ops:
+                op.clear_output()
+        self._pinned = True
+        self.pins += 1
+
+    def _execute(self, learning: bool):
+        if not self._pinned:
+            self._pin()
+        return super()._execute(learning)
+
+    def _plan_output(self):
+        ctx = active()
+        out = self._dq.run()
+        self._site_layout = [(label, len(counts)) for label, counts in self._dq._sites]
+        for label, counts in self._dq._sites:
+            for c in counts:
+                ctx.stat(c if isinstance(c, torch.Tensor) else
+                         torch.full((), c, dtype=torch.int64, device=self.device), label)
+        return out
+
+    def read_counts(self, counts: torch.Tensor) -> list:
+        """The run's one host read. Over a process group it all-gathers every
+        rank's counts and returns their largest, which every rank then
+        holds its capacities to. The exchange sites' own rows set the
+        eager form's site list, which exchange_stats() reads."""
+        if self.mesh.group is None:
+            mine = super().read_counts(counts)
+        else:
+            self.host_reads += 1
+            (whole,) = gather_cap(self.mesh, [[counts.reshape(-1)]])
+            ranks = whole[0].reshape(self.n_shards, *counts.shape)
+            mine = counts.tolist()
+            self.last_counts = ranks.max(dim=0).values.tolist()
+        rows = mine if mine and isinstance(mine[0], list) else [mine]
+        first = len(self._labels) + len(self._check_labels)
+        sites = []
+        for row in rows:
+            values = iter(row[first:])
+            sites += [(label, [next(values) for _ in range(k)]) for label, k in self._site_layout]
+        self._dq._sites = sites
+        return self.last_counts
+
+    # -- what the last run saw -----------------------------------------------
+
+    def join_decisions(self) -> List[str]:
+        return self._dq.join_decisions()
+
+    def exchange_stats(self) -> Dict[str, Dict[str, int]]:
+        """DistributedQuery.exchange_stats() of the last run's counts."""
+        return self._dq.exchange_stats()
+
+    def source_rows(self) -> Dict[str, List[int]]:
+        return self._dq.source_rows()

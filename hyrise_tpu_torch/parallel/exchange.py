@@ -24,6 +24,21 @@ buckets, `repartition_by_key` and its ring form, the local and broadcast
 joins, and the distributed steps of the JAX file. The ring form is an
 explicit `exchange="ring"` argument where the JAX file reads
 HYRISE_TPU_RING_EXCHANGE.
+
+Capacity forms (ROADMAP B1), for plan/compiler.py's capacity mode, where a
+CUDA graph fixes every size and nothing may read the device: `shuffle_cap`
+and `gather_cap` move columns at their capacities, and every count stays on
+the device. In one process a shuffle concatenates the shards' columns and
+targets and compacts each destination's rows out of them with one K9c call
+(oracle_compact; dead rows target `n_shards`), so destination j gets shard
+0's rows first, each source's in order: the eager order. Over a process
+group each rank compacts its rows for every destination into an
+`[n_shards, width]` send buffer (the JAX package's `[n_shards, cap]`), sends
+it with equal splits and the counts as a tensor (all_to_all_single, or the
+ring's fixed-size hops), and compacts the received dead rows away (K9c);
+`all_gather` moves fixed-size buffers. The widths are oracle capacities,
+which every rank learns alike (parallel/dist_compiler.py), so no size is
+exchanged on the host.
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ import torch
 
 from hyrise_tpu_torch.native import HASH_MULT
 from hyrise_tpu_torch.parallel.mesh import Mesh
+from hyrise_tpu_torch.plan.compiler import oracle_compact, tracing
 
 EXCHANGES = ("all_to_all", "ring")
 _MULT_I64 = HASH_MULT - (1 << 64)   # the multiplier's bits as an int64
@@ -253,8 +269,17 @@ def repartition_by_key(mesh: Mesh, arrays, key, valid, target=None,
     tuple of columns of local shard i; key[i], valid[i] (bool), target[i]
     its rows' keys, validity and optional destinations. Returns, per local
     shard, (received columns, received keys): the rows from shard 0 first,
-    each source's rows in their order."""
+    each source's rows in their order. In capacity mode, per local shard
+    (received columns, received keys, their count on the device), the
+    columns at the site's capacity (shuffle_cap)."""
     n = mesh.n_shards
+    if tracing():
+        tgt = [torch.where(valid[i], (partition_hash(key[i], n) if target is None
+                                      else target[i]).to(torch.int64), n)
+               for i in range(len(mesh.local_shards))]
+        got = shuffle_cap(mesh, [[*arrays[i], key[i]] for i in range(len(tgt))], tgt,
+                          "exchange.repartition", exchange)
+        return [(tuple(cols[:-1]), cols[-1], count) for cols, count in got]
     buckets = []
     for i in range(len(mesh.local_shards)):
         b, _ = _send_buckets(arrays[i], key[i], valid[i], n,
@@ -274,15 +299,131 @@ def ring_repartition_by_key(mesh: Mesh, arrays, key, valid, target=None):
 
 
 # ---------------------------------------------------------------------------
+# capacity forms
+
+
+def _row_offsets(width: int, counts: torch.Tensor) -> torch.Tensor:
+    """The live mask of len(counts) buckets of `width` rows, each holding
+    counts[s] rows first."""
+    pos = torch.arange(width, device=counts.device).repeat(counts.shape[0])
+    return pos < counts.repeat_interleave(width)
+
+
+def _send_buffer(arrays, target: torch.Tensor, n: int, label: str, estimate: int):
+    """One rank's rows by destination at one width: (each array as
+    [n_shards * width], rows per destination on the device). Destination
+    d's rows are compacted (K9c) at its own site; the width is the largest
+    site's capacity, which every rank has alike."""
+    picks, counts = [], []
+    for d in range(n):
+        idx, count = oracle_compact(target == d, label, estimate)
+        picks.append(idx)
+        counts.append(count)
+    width = max(p.shape[0] for p in picks)
+    order = torch.cat([torch.nn.functional.pad(p, (0, width - p.shape[0])) for p in picks])
+    return [a.index_select(0, order) for a in arrays], torch.stack(counts), width
+
+
+def _exchange_cap(mesh: Mesh, arrays, counts: torch.Tensor, width: int, exchange: str):
+    """The send buffer through the group: (what every source sent this rank,
+    as [n_shards * width] in source order, the source's counts). all_to_all
+    takes equal splits; the ring sends hop k's bucket to the shard k ahead
+    and receives from the shard k behind, all at `width` rows."""
+    import torch.distributed as dist
+
+    n, me = mesh.n_shards, mesh.local_shards[0]
+    if exchange == "all_to_all":
+        got_counts = torch.empty_like(counts)
+        dist.all_to_all_single(got_counts, counts, group=mesh.group)
+        out = []
+        for a in arrays:
+            x = _wire(a)
+            y = torch.empty_like(x)
+            dist.all_to_all_single(y, x, group=mesh.group)
+            out.append(_unwire(y, a))
+        return out, got_counts
+
+    def bucket(t, d):
+        return t.reshape(n, -1)[d]
+
+    got = [[None] * n for _ in range(len(arrays) + 1)]
+    tensors = [*arrays, counts]
+    for k in range(n):
+        src = (me - k) % n
+        for i, t in enumerate(tensors):
+            send = _wire(bucket(t, (me + k) % n)).contiguous()
+            if k == 0:
+                got[i][src] = send
+                continue
+            recv = torch.empty_like(send)
+            ops = [dist.P2POp(dist.isend, send, (me + k) % n, group=mesh.group),
+                   dist.P2POp(dist.irecv, recv, src, group=mesh.group)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            got[i][src] = recv
+    out = [_unwire(torch.cat(parts), a) for parts, a in zip(got, arrays)]
+    return out, torch.cat(got[-1])
+
+
+def shuffle_cap(mesh: Mesh, arrays, target, label: str, exchange: str = "all_to_all",
+                estimate: Optional[int] = None):
+    """Capacity form of the shuffle. arrays[i]: equally long columns of
+    local shard i (any capacity), target[i]: each row's destination
+    (n_shards or more: not sent). Returns per local shard (the columns it
+    received at the site's capacity, their count on the device): the rows
+    of shard 0 first, each source's in order. `estimate` sizes a first
+    run's sites (default: the largest shard's length)."""
+    check_exchange(exchange)
+    n = mesh.n_shards
+    if estimate is None:
+        estimate = max(int(t.shape[0]) for t in target)
+    if mesh.group is None:
+        whole = [torch.cat([a[c] for a in arrays]) for c in range(len(arrays[0]))]
+        tgt = torch.cat(list(target))
+        out = []
+        for j in range(n):
+            idx, count = oracle_compact(tgt == j, label, estimate)
+            out.append(([c.index_select(0, idx) for c in whole], count))
+        return out
+    (cols,), (tgt,) = arrays, target
+    sent, counts, width = _send_buffer(cols, tgt, n, label + ".send", max(estimate // n, 1))
+    got, got_counts = _exchange_cap(mesh, sent, counts, width, exchange)
+    idx, count = oracle_compact(_row_offsets(width, got_counts), label, estimate)
+    return [([c.index_select(0, idx) for c in got], count)]
+
+
+def gather_cap(mesh: Mesh, arrays) -> List[List[torch.Tensor]]:
+    """Capacity form of all_gather: arrays[i], the columns of local shard i
+    (one length on every shard: over a group a capacity every rank has
+    alike). Returns, on every local shard's device, each column's
+    concatenation over all shards in shard order, dead rows included."""
+    if mesh.group is None:
+        return all_gather(mesh, arrays)
+    import torch.distributed as dist
+
+    (mine,) = arrays
+    out = []
+    for like in mine:
+        x = _wire(like).contiguous()
+        parts = [torch.empty_like(x) for _ in range(mesh.n_shards)]
+        dist.all_gather(parts, x, group=mesh.group)
+        out.append(_unwire(torch.cat(parts), like))
+    return [out]
+
+
+# ---------------------------------------------------------------------------
 # local joins
 
 
 def local_join_inner(lk: torch.Tensor, l_valid: Optional[torch.Tensor], rk: torch.Tensor,
-                     r_valid: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+                     r_valid: Optional[torch.Tensor]):
     """(probe rows, build rows) of every pair lk[i] == rk[j] with both
     valid, through the port's Join operator (INNER: its sorted-range path,
     K5, or its lookup path, K4/K8, where the build keys are unique), in its
-    order: probe-major, the build rows of a probe row by (key, row)."""
+    order: probe-major, the build rows of a probe row by (key, row). In
+    capacity mode (probe rows, build rows, the pairs' count on the device),
+    the rows at the Join's capacity: K5c writes the pairs (the JAX form's
+    `out_cap`)."""
     from hyrise_tpu_torch.ops.base import execute_plan
     from hyrise_tpu_torch.ops.get_table import TableWrapper
     from hyrise_tpu_torch.ops.join import Join
@@ -301,7 +442,8 @@ def local_join_inner(lk: torch.Tensor, l_valid: Optional[torch.Tensor], rk: torc
     if out.live is not None:
         from hyrise_tpu_torch.ops.materialize import ensure_prefix
         out = ensure_prefix(out)
-    return out.column("probe_row").data, out.column("build_row").data
+    pairs = out.column("probe_row").data, out.column("build_row").data
+    return (*pairs, out.num_rows) if tracing() else pairs
 
 
 def broadcast_join_inner(mesh: Mesh, lk, l_valid, rk_local, r_valid_local):
@@ -343,16 +485,27 @@ def dist_join_aggregate_step(mesh: Mesh, exchange: str = "all_to_all"):
     o_orderkey) -> SUM(l_extendedprice * (1 - l_discount)): shuffle lineitem
     by l_orderkey, join each shard locally, sum, psum. Returns fn(l_orderkey,
     l_price, l_discount, l_valid, o_orderkey, o_valid) over per-shard lists
-    -> (revenue float64, matches int64)."""
+    -> (revenue float64, matches int64). In capacity mode the shuffle and
+    the join keep their counts on the device, and the rows past them count
+    for nothing."""
 
     def step(l_ok, l_price, l_disc, l_valid, o_ok, o_valid):
         recv = repartition_by_key(mesh, [(p, d) for p, d in zip(l_price, l_disc)], l_ok,
                                   l_valid, exchange=exchange)
         revs, matches = [], []
-        for i, ((price, disc), key) in enumerate(recv):
-            li, _ = local_join_inner(key, None, o_ok[i], o_valid[i])
-            revs.append(_revenue(price.index_select(0, li), disc.index_select(0, li)))
-            matches.append(torch.tensor(li.shape[0], dtype=torch.int64, device=key.device))
+        for i, got in enumerate(recv):
+            (price, disc), key = got[:2]
+            if not tracing():
+                li, _ = local_join_inner(key, None, o_ok[i], o_valid[i])
+                revs.append(_revenue(price.index_select(0, li), disc.index_select(0, li)))
+                matches.append(torch.tensor(li.shape[0], dtype=torch.int64, device=key.device))
+                continue
+            live = torch.arange(key.shape[0], device=key.device) < got[2]
+            li, _, n = local_join_inner(key, live, o_ok[i], o_valid[i])
+            paired = torch.arange(li.shape[0], device=li.device) < n
+            revs.append(_revenue(price.index_select(0, li),
+                                 torch.where(paired, disc.index_select(0, li), 1.0)))
+            matches.append(n.to(torch.int64))
         return psum(mesh, revs)[0], psum(mesh, matches)[0]
 
     return step

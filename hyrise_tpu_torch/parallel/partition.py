@@ -73,6 +73,11 @@ class ShardedTable:
         return len(self.counts)
 
     @property
+    def device(self) -> torch.device:
+        """The device of this process's first shard."""
+        return self.shards[0].device
+
+    @property
     def column_names(self) -> List[str]:
         return self.shards[0].column_names
 

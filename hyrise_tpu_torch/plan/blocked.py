@@ -212,7 +212,51 @@ def _materialized(t):
     return Table(t.columns, t.num_rows, name=t.name)
 
 
-class _BlockSplit:
+class _Merge:
+    """The merge of per-block partials: their UnionAll, then the final
+    aggregate, the AVG finisher and the original tail (or, for top K, one
+    more sort and limit). The host class sets `_mode` ("agg" or "topk"),
+    `_orig_root`, `_tail_parent`, `_orig_agg`, `_groupby`, `_final_specs`
+    and `_finish_cols` (top K: `_topk_sort`, `_topk_limit`)."""
+
+    def _merge_plan(self, partials):
+        """(the plan over the partial tables that gives the result, the node
+        the tail above the split reads during it, or None)."""
+        node = _union_tree([TableWrapper(t) for t in partials])
+        if self._mode == "topk":
+            return self._merge_topk(node), None
+        return self._merge_and_finish(node)
+
+    def _merge_topk(self, union):
+        """Per-block top-K tables (each the whole root over one block) ->
+        their union (<= K x n_blocks rows) -> one final sort and limit."""
+        return Limit(Sort(union, list(self._topk_sort.sort_defs)), self._topk_limit.n)
+
+    def _merge_and_finish(self, union):
+        """UnionAll of the partials -> final aggregate -> AVG-finisher
+        projection, under the original tail: (the root to run, the
+        projection the tail reads)."""
+        final = Aggregate(union, self._groupby, self._final_specs)
+        merged = Projection(final, list(self._groupby) + self._finish_cols)
+        if self._tail_parent is None:
+            return merged, None
+        return self._orig_root, merged
+
+    @contextlib.contextmanager
+    def _grafted(self, merged):
+        """The tail above the split reads `merged` instead of the original
+        Aggregate, until the block leaves (nothing where `merged` is None)."""
+        if merged is None:
+            yield
+            return
+        self._tail_parent.inputs[0] = merged
+        try:
+            yield
+        finally:
+            self._tail_parent.inputs[0] = self._orig_agg
+
+
+class _BlockSplit(_Merge):
     """What both blocked forms decide about a plan before they run it: the
     split (aggregate or top K), the stream table, its leaf, the stream path,
     and the merge plan over the partials."""
@@ -221,6 +265,7 @@ class _BlockSplit:
         if block_rows < 1:
             raise ValueError(f"block_rows must be positive, got {block_rows}")
         self.root = root
+        self._orig_root = root
         self.catalog = catalog
         self.block_rows = block_rows
         self._mode = "agg"
@@ -310,43 +355,6 @@ class _BlockSplit:
             for op, i in rewired:
                 op.inputs[i] = self._leaf
 
-    def _merge_plan(self, partials):
-        """(the plan over the partial tables that gives the result, the node
-        the tail above the split reads during it, or None)."""
-        node = _union_tree([TableWrapper(t) for t in partials])
-        if self._mode == "topk":
-            return self._merge_topk(node), None
-        return self._merge_and_finish(node)
-
-    def _merge_topk(self, union):
-        """Per-block top-K tables (each the whole root over one block) ->
-        their union (<= K x n_blocks rows) -> one final sort and limit."""
-        return Limit(Sort(union, list(self._topk_sort.sort_defs)), self._topk_limit.n)
-
-    def _merge_and_finish(self, union):
-        """UnionAll of the partials -> final aggregate -> AVG-finisher
-        projection, under the original tail: (the root to run, the
-        projection the tail reads)."""
-        final = Aggregate(union, self._groupby, self._final_specs)
-        merged = Projection(final, list(self._groupby) + self._finish_cols)
-        if self._tail_parent is None:
-            return merged, None
-        return self.root, merged
-
-    @contextlib.contextmanager
-    def _grafted(self, merged):
-        """The tail above the split reads `merged` instead of the original
-        Aggregate, until the block leaves (nothing where `merged` is None)."""
-        if merged is None:
-            yield
-            return
-        self._tail_parent.inputs[0] = merged
-        try:
-            yield
-        finally:
-            self._tail_parent.inputs[0] = self._orig_agg
-
-
 class BlockedQuery(_BlockSplit):
     """The eager form: a plan over row blocks of one stream table.
 
@@ -397,143 +405,20 @@ class BlockedQuery(_BlockSplit):
                 op.clear_output()
 
 
-class BlockedCompiledQuery(_BlockSplit):
-    """A CompiledQuery over row blocks of one stream table: one captured
-    block program serves every block (module docstring).
+class _BlockPartials(_Merge):
+    """What both compiled blocked forms (this module's and
+    parallel/blocked_dist.py's) share: one pass of every block through the
+    captured block program (`_block_cq`) with one host read of the stacked
+    counts, the per-block partial buffers, and the merge as a CompiledQuery
+    over them. The host class gives `n_blocks`, `_block_cq`, `catalog` and
+    `_fill(b)`, which puts block b into the block program's sources."""
 
-    cq = BlockedCompiledQuery(TPCH_PLANS[1](cat), cat, block_rows=1 << 22)
-    table = cq.run()   # first call: learn on block 0, capture, replay every
-                       # block, merge; later calls: replays and two reads
-
-    `block_rows` is the window's rows (at most the stream table's extent),
-    `n_blocks` the last run's block count, `caps` the block program's
-    capacities by site, `last_retries` the last run's overflow retries (the
-    block program's and the merge's), `host_reads` its device->host reads
-    of counts, `builds` the build sides its stream path's joins made (one
-    per shared build and block: the block program builds them in every
-    block). `captures`, `replays`, `pool_mb`, `launches_captured` and
-    `launches_replayed` cover the block program and the merges, as
-    CompiledQuery's do. On CPU tensors every block runs the capacity mode
-    uncaptured, so the window, the partial buffers, the retries and the
-    tightening are the code the card runs. The caller's plan is left as it
-    was after every run. MVCC tables are refused (PlanNotCompilable)."""
-
-    MAX_RETRIES = CompiledQuery.MAX_RETRIES
-
-    def __init__(self, root, catalog=None, stream_table: Optional[str] = None,
-                 block_rows: int = 1 << 22):
-        super().__init__(root, catalog, stream_table, block_rows)
-        self._requested_rows = block_rows
-        names: Optional[set] = set()
-        for op in _walk(self._block_root):
-            refs = referenced_columns(op)
-            if refs is None or names is None:
-                names = None
-            else:
-                names |= refs
-        # a top-K partial is the stream rows themselves: every column
-        self._window_names = None if self._mode == "topk" else names
-        self._wrapper = TableWrapper(None)
-        self._window: Optional[Table] = None
-        self._window_sources: List[Tuple[Column, Column]] = []  # (window, stream)
+    def _init_partials(self) -> None:
         self._merge_cq: Optional[CompiledQuery] = None
         self._partials: Optional[List[Table]] = None
         self._counts: Optional[torch.Tensor] = None  # (n_blocks, counts) of a pass
-        self.last_retries = 0
-        self.host_reads = 0
-        self.sync_checked = False
         # graph counters of merges since replaced
         self._retired = {"captures": 0, "replays": 0, "captured": {}, "replayed": {}}
-        self.lock = threading.RLock()
-        self._pin_stream(self._stream)
-        with self._rewired(self._wrapper):
-            # the window and the other sources pinned, MVCC tables refused
-            self._block_cq = CompiledQuery(self._block_root, catalog)
-
-    # -- the window --------------------------------------------------------
-
-    def _pin_stream(self, table: Table) -> None:
-        """Stream `table` from now on: a window of its referenced columns,
-        rows and (where it has one) live mask. The block program is
-        captured anew over it."""
-        if table.mvcc is not None:
-            raise PlanNotCompilable("MVCC table " + table.name)
-        self._stream = table
-        self.block_rows = max(min(self._requested_rows, self._extent()), 1)
-        rows, dev = self.block_rows, table.device
-        pairs = []
-        for c in table.columns:
-            if self._window_names is not None and c.name not in self._window_names:
-                continue
-            dtype = c.dtype.torch_dtype if c.encoded is not None or c.is_lazy \
-                else c.data.dtype
-            validity = None if not c.has_validity else \
-                torch.zeros(rows, dtype=torch.bool, device=dev)
-            pairs.append((Column(c.name, c.dtype, torch.zeros(rows, dtype=dtype, device=dev),
-                                 validity, c.dictionary, unique=c.unique,
-                                 val_range=c.val_range), c))
-        if not pairs:  # the plan reads no column by name (COUNT(*))
-            c = table.columns[0]
-            pairs.append((Column(c.name, c.dtype, torch.zeros(rows, dtype=c.dtype.torch_dtype,
-                                                              device=dev)), c))
-        live = None if table.live is None else torch.zeros(rows, dtype=torch.bool, device=dev)
-        n = torch.zeros((), dtype=torch.int64, device=dev)
-        self._window = Table([w for w, _ in pairs], n, name=table.name, live=live)
-        self._window_sources = pairs
-        self._wrapper.table = self._window
-
-    def _fill(self, b: int) -> None:
-        """Block b's rows into the window and its live count into the
-        window's row count: copies enqueued on the current stream, which the
-        next replay runs on, from offsets the host knows (no host read)."""
-        lo = b * self.block_rows
-        k = max(min(lo + self.block_rows, self._extent()) - lo, 0)
-        window = self._window
-        if k:
-            for dst, src in self._window_sources:
-                part = src.block(lo, lo + k)
-                dst.data[:k].copy_(part.data)
-                if dst.validity is not None:
-                    dst.validity[:k].copy_(part.validity)
-        if window.live is None:
-            window.num_rows.fill_(k)
-            return
-        window.live[:k].copy_(self._stream.live[lo:lo + k])
-        window.live[k:] = False
-        window.num_rows.copy_(window.live.sum())
-
-    # -- the run -----------------------------------------------------------
-
-    def _refresh(self) -> None:
-        """A stream table replaced in the catalog since the last run gets a
-        window of its own (and the block program a capture over it); a
-        replaced dimension table is pinned anew by the block program."""
-        now = leaf_table(self._leaf)
-        if now is not self._stream:
-            self._pin_stream(now)
-        self._block_cq.refresh_sources()
-
-    def run(self, tighten: bool = False):
-        """Every block through the one block program, then the merge;
-        `tighten` shrinks the merge's capacities to its counts, as
-        CompiledQuery.run does (the block program's always shrink to the
-        across-block maximum after a run)."""
-        with self.lock, self._rewired(self._wrapper):
-            self._refresh()
-            cq = self._block_cq
-            cq.last_retries = cq.host_reads = 0
-            self.n_blocks = self._block_count()
-            for _ in range(self.MAX_RETRIES):
-                if not self._pass(cq):
-                    continue
-                self.sync_checked = cq.sync_checked
-                self.builds = len(self._shared_builds) * self.n_blocks
-                out = self._merge(tighten)
-                self.last_retries = cq.last_retries + self._merge_cq.last_retries
-                self.host_reads = cq.host_reads + self._merge_cq.host_reads
-                return out
-            raise RuntimeError("capacity retry limit exceeded: "
-                               + str(list(zip(cq.labels, cq.caps))))
 
     def _pass(self, cq: CompiledQuery) -> bool:
         """One pass of every block through the block program and one host
@@ -655,6 +540,140 @@ class BlockedCompiledQuery(_BlockSplit):
     def launches_replayed(self) -> Dict[str, int]:
         return self._summed("replayed", "launches_replayed")
 
+
+class BlockedCompiledQuery(_BlockSplit, _BlockPartials):
+    """A CompiledQuery over row blocks of one stream table: one captured
+    block program serves every block (module docstring).
+
+    cq = BlockedCompiledQuery(TPCH_PLANS[1](cat), cat, block_rows=1 << 22)
+    table = cq.run()   # first call: learn on block 0, capture, replay every
+                       # block, merge; later calls: replays and two reads
+
+    `block_rows` is the window's rows (at most the stream table's extent),
+    `n_blocks` the last run's block count, `caps` the block program's
+    capacities by site, `last_retries` the last run's overflow retries (the
+    block program's and the merge's), `host_reads` its device->host reads
+    of counts, `builds` the build sides its stream path's joins made (one
+    per shared build and block: the block program builds them in every
+    block). `captures`, `replays`, `pool_mb`, `launches_captured` and
+    `launches_replayed` cover the block program and the merges, as
+    CompiledQuery's do. On CPU tensors every block runs the capacity mode
+    uncaptured, so the window, the partial buffers, the retries and the
+    tightening are the code the card runs. The caller's plan is left as it
+    was after every run. MVCC tables are refused (PlanNotCompilable)."""
+
+    MAX_RETRIES = CompiledQuery.MAX_RETRIES
+
+    def __init__(self, root, catalog=None, stream_table: Optional[str] = None,
+                 block_rows: int = 1 << 22):
+        super().__init__(root, catalog, stream_table, block_rows)
+        self._requested_rows = block_rows
+        names: Optional[set] = set()
+        for op in _walk(self._block_root):
+            refs = referenced_columns(op)
+            if refs is None or names is None:
+                names = None
+            else:
+                names |= refs
+        # a top-K partial is the stream rows themselves: every column
+        self._window_names = None if self._mode == "topk" else names
+        self._wrapper = TableWrapper(None)
+        self._window: Optional[Table] = None
+        self._window_sources: List[Tuple[Column, Column]] = []  # (window, stream)
+        self._init_partials()
+        self.last_retries = 0
+        self.host_reads = 0
+        self.sync_checked = False
+        self.lock = threading.RLock()
+        self._pin_stream(self._stream)
+        with self._rewired(self._wrapper):
+            # the window and the other sources pinned, MVCC tables refused
+            self._block_cq = CompiledQuery(self._block_root, catalog)
+
+    # -- the window --------------------------------------------------------
+
+    def _pin_stream(self, table: Table) -> None:
+        """Stream `table` from now on: a window of its referenced columns,
+        rows and (where it has one) live mask. The block program is
+        captured anew over it."""
+        if table.mvcc is not None:
+            raise PlanNotCompilable("MVCC table " + table.name)
+        self._stream = table
+        self.block_rows = max(min(self._requested_rows, self._extent()), 1)
+        rows, dev = self.block_rows, table.device
+        pairs = []
+        for c in table.columns:
+            if self._window_names is not None and c.name not in self._window_names:
+                continue
+            dtype = c.dtype.torch_dtype if c.encoded is not None or c.is_lazy \
+                else c.data.dtype
+            validity = None if not c.has_validity else \
+                torch.zeros(rows, dtype=torch.bool, device=dev)
+            pairs.append((Column(c.name, c.dtype, torch.zeros(rows, dtype=dtype, device=dev),
+                                 validity, c.dictionary, unique=c.unique,
+                                 val_range=c.val_range), c))
+        if not pairs:  # the plan reads no column by name (COUNT(*))
+            c = table.columns[0]
+            pairs.append((Column(c.name, c.dtype, torch.zeros(rows, dtype=c.dtype.torch_dtype,
+                                                              device=dev)), c))
+        live = None if table.live is None else torch.zeros(rows, dtype=torch.bool, device=dev)
+        n = torch.zeros((), dtype=torch.int64, device=dev)
+        self._window = Table([w for w, _ in pairs], n, name=table.name, live=live)
+        self._window_sources = pairs
+        self._wrapper.table = self._window
+
+    def _fill(self, b: int) -> None:
+        """Block b's rows into the window and its live count into the
+        window's row count: copies enqueued on the current stream, which the
+        next replay runs on, from offsets the host knows (no host read)."""
+        lo = b * self.block_rows
+        k = max(min(lo + self.block_rows, self._extent()) - lo, 0)
+        window = self._window
+        if k:
+            for dst, src in self._window_sources:
+                part = src.block(lo, lo + k)
+                dst.data[:k].copy_(part.data)
+                if dst.validity is not None:
+                    dst.validity[:k].copy_(part.validity)
+        if window.live is None:
+            window.num_rows.fill_(k)
+            return
+        window.live[:k].copy_(self._stream.live[lo:lo + k])
+        window.live[k:] = False
+        window.num_rows.copy_(window.live.sum())
+
+    # -- the run -----------------------------------------------------------
+
+    def _refresh(self) -> None:
+        """A stream table replaced in the catalog since the last run gets a
+        window of its own (and the block program a capture over it); a
+        replaced dimension table is pinned anew by the block program."""
+        now = leaf_table(self._leaf)
+        if now is not self._stream:
+            self._pin_stream(now)
+        self._block_cq.refresh_sources()
+
+    def run(self, tighten: bool = False):
+        """Every block through the one block program, then the merge;
+        `tighten` shrinks the merge's capacities to its counts, as
+        CompiledQuery.run does (the block program's always shrink to the
+        across-block maximum after a run)."""
+        with self.lock, self._rewired(self._wrapper):
+            self._refresh()
+            cq = self._block_cq
+            cq.last_retries = cq.host_reads = 0
+            self.n_blocks = self._block_count()
+            for _ in range(self.MAX_RETRIES):
+                if not self._pass(cq):
+                    continue
+                self.sync_checked = cq.sync_checked
+                self.builds = len(self._shared_builds) * self.n_blocks
+                out = self._merge(tighten)
+                self.last_retries = cq.last_retries + self._merge_cq.last_retries
+                self.host_reads = cq.host_reads + self._merge_cq.host_reads
+                return out
+            raise RuntimeError("capacity retry limit exceeded: "
+                               + str(list(zip(cq.labels, cq.caps))))
 
 def _union_tree(nodes):
     """Balanced UnionAll fold of the partials, in block order."""

@@ -119,6 +119,9 @@ class CompileContext:
         # (label, 0-dim tensor that must read 0): a kernel's refusal, read
         # with the counts
         self.checks: List[Tuple[str, torch.Tensor]] = []
+        # (label, 0-dim tensor): values read with the counts for the caller's
+        # statistics (an exchange's rows a shard), held to no capacity
+        self.stats: List[Tuple[str, torch.Tensor]] = []
 
     def reserve(self, bound: Optional[int], estimate: Optional[int], label: str) -> int:
         """The capacity of the next call site."""
@@ -148,6 +151,10 @@ class CompileContext:
         """A device flag that fails the run when it reads nonzero."""
         self.checks.append((label, failed.reshape(()).to(torch.int64)))
 
+    def stat(self, value: torch.Tensor, label: str) -> None:
+        """A device value read with the counts, for statistics only."""
+        self.stats.append((label, value.reshape(()).to(torch.int64)))
+
 
 @contextlib.contextmanager
 def _activation(ctx: CompileContext):
@@ -176,14 +183,15 @@ def oracle_capacity(count, *, bound: Optional[int] = None,
     return ctx.record(torch.as_tensor(count), cap), cap
 
 
-def oracle_compact(mask: torch.Tensor, label: str):
+def oracle_compact(mask: torch.Tensor, label: str, estimate: Optional[int] = None):
     """Capacity mode's stream compaction: (int64 positions of the True rows
     of `mask`, padded with 0 to this site's capacity; their count clamped to
-    it), through the K9 capacity form, which writes the count itself."""
+    it), through the K9 capacity form, which writes the count itself. A
+    first run sizes the site by `estimate`, else by the mask's length."""
     from hyrise_tpu_torch.kernels.compact import compact_indices_cap
 
     ctx = active()
-    cap = ctx.reserve(int(mask.shape[0]), None, label)
+    cap = ctx.reserve(int(mask.shape[0]), estimate, label)
     indices, count = compact_indices_cap(mask.contiguous(), cap)
     return indices, ctx.record(count, cap)
 
@@ -288,7 +296,9 @@ class CompiledQuery:
     The streamed forms (plan/blocked.py) drive the steps themselves:
     `learn`, `capture`, then `replay` once a block with no host read (the
     counts stay on the device), `read_counts`, `grow` and `shrink` over the
-    counts of every block, `drop_graph`."""
+    counts of every block, `drop_graph`. The distributed form
+    (parallel/dist_compiler.py) runs its own executor through
+    `_plan_output` over the sources `_resolve_sources` names."""
 
     MAX_RETRIES = 12
 
@@ -364,10 +374,16 @@ class CompiledQuery:
     def on_cuda(self) -> bool:
         return self.device.type == "cuda"
 
+    def _plan_output(self):
+        """The plan's result, run in the active capacity-mode context (the
+        distributed form runs its shards and exchanges here)."""
+        from hyrise_tpu_torch.ops.base import execute_plan
+
+        return execute_plan(self.root)
+
     def _execute(self, learning: bool):
         """One capacity-mode run of the plan: (output data, output validity,
-        counts [sites..., checks..., n_rows] on the device)."""
-        from hyrise_tpu_torch.ops.base import execute_plan
+        counts [sites..., checks..., stats..., n_rows] on the device)."""
         from hyrise_tpu_torch.ops.materialize import ensure_prefix
 
         ctx = CompileContext(self.caps, self._sources, self._constants)
@@ -377,13 +393,14 @@ class CompiledQuery:
                 _sync_errors(learning and self.on_cuda) as checked:
             if learning:
                 self.sync_checked = checked
-            out = ensure_prefix(execute_plan(self.root))
+            out = ensure_prefix(self._plan_output())
             datas = [c.data for c in out.columns]
             valids = [c.validity for c in out.columns]
             n = out.num_rows
             if not isinstance(n, torch.Tensor):
                 n = torch.full((), n, dtype=torch.int64, device=self.device)
             counts = torch.stack(ctx.counts + [f for _, f in ctx.checks]
+                                 + [v for _, v in ctx.stats]
                                  + [n.reshape(()).to(torch.int64)])
         self._out_meta = [_ColMeta(c.name, c.dtype, c.dictionary, bool(c.unique),
                                    c.val_range if isinstance(c.val_range, tuple) else None)
@@ -498,7 +515,7 @@ class CompiledQuery:
         """Raise every overflowed site's capacity; whether any was. A failed
         check raises."""
         n_sites = len(self._labels)
-        for label, flag in zip(self._check_labels, counts[n_sites:-1]):
+        for label, flag in zip(self._check_labels, counts[n_sites:]):
             if flag:
                 raise ValueError(f"{label}: refused by the kernel")
         overflow = [i for i, c in enumerate(counts[:n_sites])

@@ -9,7 +9,10 @@ execution (with_distributed_execution) runs each read-only statement's plan
 through parallel/dist_compiler.py's DistributedQuery over a ShardedCatalog,
 a query object per caller on the tree translated for that caller (the JAX
 form keeps one on the shared plan object: ROADMAP C19). A plan it cannot
-distribute runs single-node. There is no default catalog: create_pipeline()
+distribute runs single-node. With both, a statement runs as a
+DistributedCompiledQuery, kept per cached text and ShardedCatalog as a
+CompiledQuery is (the JAX pipeline's route; its lock serves one caller at a
+time). There is no default catalog: create_pipeline()
 without with_catalog() raises, and the catalog's own TransactionManager
 serves its transactions unless with_transaction_manager() names another.
 
@@ -417,34 +420,67 @@ class SQLPipelineStatement:
             context.commit()
         return result
 
+    def _distributed(self, needs_tx: bool) -> bool:
+        """Whether this execution runs over the ShardedCatalog: it is set,
+        its copies are current (ShardedCatalog.is_current: a write since
+        they were taken, this pipeline's own too, is not in them) and the
+        statement needs no transaction."""
+        return self.dist_catalog is not None and not needs_tx and \
+            self.dist_catalog.is_current(self.catalog)
+
+    def _compiled_key(self, needs_tx: bool) -> tuple:
+        key = (self.sql_text, self.position)
+        return key + (id(self.dist_catalog),) if self._distributed(needs_tx) else key
+
     def _cached_compiled(self, needs_tx: bool):
-        """The cached CompiledQuery of this statement, when compiled
-        execution applies and one was made at this catalog version."""
+        """The cached CompiledQuery of this statement (a
+        DistributedCompiledQuery over the ShardedCatalog where the
+        statement runs distributed), when compiled execution applies and
+        one was made at this catalog version."""
         if not self.use_compiled or needs_tx or self.params is not None or \
-                not self.use_cache or isinstance(self.stmt, _DML) or \
-                (self.dist_catalog is not None and self.dist_catalog.is_current(self.catalog)):
+                not self.use_cache or isinstance(self.stmt, _DML):
             return None
-        entry = _compiled_cache(self.catalog).get((self.sql_text, self.position))
-        if entry is None or entry[0] != self.catalog.version:
+        entry = _compiled_cache(self.catalog).get(self._compiled_key(needs_tx))
+        if entry is None or entry[0] != self.catalog.version or \
+                getattr(entry[1], "shard_cat", None) is not (
+                    self.dist_catalog if self._distributed(needs_tx) else None):
             return None
         self.metrics.cache_hit = True
         return entry[1]
 
     def _execute_plan(self, plan, context, needs_tx: bool, compiled=None) -> Table:
-        """A read-only plan over the ShardedCatalog when one is set, its
-        copies are current (ShardedCatalog.is_current: a write since they
-        were taken, this pipeline's own too, is not in them) and the plan
-        can be distributed; else with compiled execution on, as a
-        CompiledQuery (plan/compiler.py), cached with its captured graph
-        for the next caller of the text; otherwise, and for statements that
-        need a transaction or cannot compile, eagerly on one device."""
+        """A read-only plan over the ShardedCatalog where it runs
+        distributed (_distributed): with compiled execution on, as a
+        DistributedCompiledQuery cached with its captured graph for the next
+        caller of the text, else (and where that refuses the plan) as a
+        DistributedQuery. Otherwise, or where the plan cannot be
+        distributed, with compiled execution on as a CompiledQuery
+        (plan/compiler.py), cached likewise; otherwise, and for statements
+        that need a transaction or cannot compile, eagerly on one device."""
+        from hyrise_tpu_torch.plan.compiler import CompiledQuery, PlanNotCompilable, _walk
+
         self.last_dist_query = None
         self.last_compiled = False
         self.last_compiled_query = None
-        if self.dist_catalog is not None and not needs_tx and \
-                self.dist_catalog.is_current(self.catalog):
-            from hyrise_tpu_torch.parallel.dist_compiler import DistributedQuery
-            from hyrise_tpu_torch.plan.blocked import PlanNotCompilable
+        cacheable = self.use_cache and self.params is None
+        if self._distributed(needs_tx):
+            from hyrise_tpu_torch.parallel.dist_compiler import (DistributedCompiledQuery,
+                                                                 DistributedQuery)
+            if self.use_compiled:
+                try:
+                    dq = compiled if compiled is not None else \
+                        DistributedCompiledQuery(plan, self.dist_catalog)
+                    out = dq.run()
+                except PlanNotCompilable:
+                    for op in _walk(plan):
+                        op.clear_output()
+                else:
+                    if compiled is None and cacheable:
+                        _compiled_cache(self.catalog).put(self._compiled_key(needs_tx),
+                                                          (self.catalog.version, dq))
+                    self.last_dist_query = dq
+                    self.last_compiled, self.last_compiled_query = True, dq
+                    return out
             try:
                 dq = DistributedQuery(plan, self.dist_catalog)
             except PlanNotCompilable:
@@ -452,8 +488,8 @@ class SQLPipelineStatement:
             else:
                 self.last_dist_query = dq
                 return dq.run()
+            compiled = None
         if self.use_compiled and not needs_tx:
-            from hyrise_tpu_torch.plan.compiler import CompiledQuery, PlanNotCompilable, _walk
             try:
                 cq = compiled if compiled is not None else CompiledQuery(plan, self.catalog)
                 out = cq.run()
@@ -461,7 +497,7 @@ class SQLPipelineStatement:
                 for op in _walk(plan):
                     op.clear_output()
             else:
-                if compiled is None and self.use_cache and self.params is None:
+                if compiled is None and cacheable:
                     _compiled_cache(self.catalog).put((self.sql_text, self.position),
                                                       (self.catalog.version, cq))
                 self.last_compiled, self.last_compiled_query = True, cq
@@ -565,16 +601,21 @@ class SQLPipelineBuilder:
     def with_compiled_execution(self, enabled: bool = True) -> "SQLPipelineBuilder":
         """Execute read-only statements as CompiledQuerys (plan/compiler.py):
         on the card one captured CUDA graph a statement, replayed by later
-        callers of the text at the same catalog version. A statement that
-        needs a transaction, or whose plan cannot compile, runs eagerly.
-        Default from the environment: HYRISE_COMPILED=1."""
+        callers of the text at the same catalog version; with
+        with_distributed_execution too, as DistributedCompiledQuerys over
+        the ShardedCatalog (parallel/dist_compiler.py). A statement that
+        needs a transaction, or whose plan cannot compile, runs eagerly (a
+        plan the distributed compiled form refuses: as a DistributedQuery,
+        else on one device). Default from the environment:
+        HYRISE_COMPILED=1."""
         self._use_compiled = enabled
         return self
 
     def with_distributed_execution(self, shard_catalog) -> "SQLPipelineBuilder":
         """Run read-only statements over a ShardedCatalog taken from this
-        pipeline's catalog (parallel/dist_compiler.py shard_tpch). A
-        statement runs on one device where it needs a transaction, where
+        pipeline's catalog (parallel/dist_compiler.py shard_tpch), as
+        DistributedQuerys (as DistributedCompiledQuerys where compiled
+        execution is on too). A statement runs on one device where it needs a transaction, where
         the plan cannot be distributed or reads a table the ShardedCatalog
         does not hold, and once the catalog was written after the copies
         were taken (an INSERT is read back): shard it again to distribute

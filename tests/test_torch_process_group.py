@@ -9,9 +9,13 @@ shard of TPC-H at SF 0.01 and of synthetic tables that force shuffles with
 a hot key. Their answers (Q1, Q3, Q6, Q18, shuffle joins through the
 all_to_all and the ring, dist_q6, the join steps), exchange_stats() and
 process_info() must equal the same work on an in-process mesh of 4 CPU
-shards. Every group has a deadline: the parent polls its children, kills
-them all on expiry or as soon as one fails, and fails the test; a rank
-that raises must fail the test well within the deadline, not hang it."""
+shards. So must the compiled form (DistributedCompiledQuery, uncaptured on
+the CPU) of Q1, Q3, Q6, Q18 and the shuffle joins: its exchanges move
+fixed-size buffers between the ranks, and its capacities, grown and shrunk
+by the largest count of any rank, agree on every rank. Every group has a
+deadline: the parent polls its children, kills them all on expiry or as
+soon as one fails, and fails the test; a rank that raises must fail the
+test well within the deadline, not hang it."""
 
 import datetime
 import multiprocessing
@@ -115,11 +119,22 @@ def _skew_plans(cat):
             "anti": plan(JoinMode.ANTI), "by_key": by_key}
 
 
+def compiled(out, name, cq):
+    """Two runs of a compiled query: the second's rows, exchange_stats(),
+    decisions and retries under "compiled:<name>" keys."""
+    cq.run()
+    out[f"compiled:{name}"] = cq.run().rows()
+    out[f"compiled:stats:{name}"] = cq.exchange_stats()
+    out[f"compiled:decisions:{name}"] = cq.join_decisions()
+    out[f"compiled:retries:{name}"] = cq.last_retries
+
+
 def workload(mesh):
     """Everything both meshes run: {name: rows or numbers}, plus
     exchange_stats under "stats:<name>"."""
     from hyrise_tpu_torch.ops.base import execute_plan
-    from hyrise_tpu_torch.parallel.dist_compiler import DistributedQuery, shard_tpch
+    from hyrise_tpu_torch.parallel.dist_compiler import (DistributedCompiledQuery,
+                                                         DistributedQuery, shard_tpch)
     from hyrise_tpu_torch.parallel.dist_query import dist_q6
     from hyrise_tpu_torch.parallel.exchange import (dist_join_aggregate_step,
                                                     ring_join_aggregate_step)
@@ -137,6 +152,7 @@ def workload(mesh):
         dq = DistributedQuery(TPCH_PLANS[qid](cat), sc)
         out[f"Q{qid}"] = dq.run().rows()
         out[f"stats:Q{qid}"] = dq.exchange_stats()
+        compiled(out, f"Q{qid}", DistributedCompiledQuery(TPCH_PLANS[qid](cat), sc))
     fact, dim = _skew_tables()
     cat.add_table("fact", fact)
     cat.add_table("dim", dim)
@@ -148,6 +164,9 @@ def workload(mesh):
             out[f"{name}:{exchange}"] = dq.run().rows()
             out[f"stats:{name}:{exchange}"] = dq.exchange_stats()
             out[f"decisions:{name}:{exchange}"] = dq.join_decisions()
+        for name, plan in _skew_plans(cat).items():
+            compiled(out, f"{name}:{exchange}",
+                     DistributedCompiledQuery(plan, sc, exchange=exchange))
     li = sc.get("lineitem")
     code = li.shards[0].column("l_shipdate").code_for
     out["dist_q6"] = float(dist_q6(mesh, li, code("1994-01-01"), code("1995-01-01")))
@@ -247,6 +266,23 @@ def test_shuffle_joins_over_four_ranks(group_results, plan, exchange):
         _same(out[key], want[key])
         assert out[f"decisions:{key}"] == want[f"decisions:{key}"]
         assert out[f"stats:{key}"] == want[f"stats:{key}"]
+
+
+@pytest.mark.parametrize("name", [f"Q{q}" for q in QIDS]
+                         + [f"{p}:{e}" for e in ("all_to_all", "ring")
+                            for p in ("inner", "left", "anti", "by_key")])
+def test_compiled_over_four_ranks_equals_the_eager_answers(group_results, name):
+    """The compiled form over the group equals the eager answers and
+    exchange_stats() on every rank, and the compiled form over the
+    in-process shards; its second run retries nothing."""
+    ranks, want = group_results
+    _same(want[f"compiled:{name}"], want[name])
+    assert want[f"compiled:stats:{name}"] == want[f"stats:{name}"]
+    for out in ranks:
+        _same(out[f"compiled:{name}"], want[name])
+        assert out[f"compiled:stats:{name}"] == want[f"stats:{name}"]
+        assert out[f"compiled:decisions:{name}"] == want[f"compiled:decisions:{name}"]
+        assert out[f"compiled:retries:{name}"] == 0
 
 
 @pytest.mark.parametrize("name", ["dist_q6", "step", "step_ring", "ring_step"])
