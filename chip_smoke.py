@@ -7,6 +7,7 @@
     python3 chip_smoke.py --compiled [--kernels-from DIR]
     python3 chip_smoke.py --compiled-streaming
     python3 chip_smoke.py --compiled-distribution
+    python3 chip_smoke.py --indexes-and-tools
 
 The second form runs phases 1 and 2, then only K3's and K6's checks and
 timings (`cells_phase`); the third builds only the sources of the kernels
@@ -24,7 +25,8 @@ and medians), then phase 13 alone (`compiled_streaming_only_run`). The
 sixth runs phases 1 and 2, phase 4's SF1 tables with phase 6's SQL rows,
 phase 10's SF10 tables with their resident answers, phase 11's shard_tpch
 and eager distributed runs, then phase 14 alone
-(`compiled_distribution_only_run`).
+(`compiled_distribution_only_run`). The seventh runs phases 1 and 2, phase
+4's SF1 tables, then phase 15 alone (`indexes_and_tools_only_run`).
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -347,6 +349,35 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              answers. Each query's compiled objects are freed after it is
              measured. K3, K4, K7 and K9c must have launched inside the
              graphs; the phase's launches are added to the kernels line's.
+15. indexes and tools — right after phase 12, on copies of phase 4's SF1
+             tables with phase 8's 14 indexes, with every launch count at 0
+             before it. 15a: the 22 texts through with_compiled_execution(),
+             each equal to its eager answer through the indexes (and that to
+             phase 6's rows); every IndexScan of a compiled plan ran in
+             capacity mode (its TableScan fallback), more than none in all;
+             runs 2 and 3 capture nothing, retry nothing, read the host once
+             and read no count eagerly; first run, replay and eager ms side
+             by side; 40 point lookups on o_orderkey and 10 on (l_orderkey,
+             l_linenumber), each a new compiled text equal to the eager
+             answer through the index. 15b: over 4 SF1 shards on the card,
+             the 22 texts through with_distributed_execution, eager and with
+             the compiled flag (twice), equal to the eager answers, with the
+             compiled form's decisions and exchange_stats() equal to the
+             eager form's; JoinIndex of orders with lineitem in INNER, LEFT,
+             SEMI and ANTI under COUNT and SUM through DistributedQuery and
+             DistributedCompiledQuery equal to single-node Join; the plans
+             with an IndexScan or a JoinIndex that ran distributed, counted,
+             with their exchange_stats(). 15c: the four tools in process:
+             bench/tpch_bench.py's run_suite via compiled over phase 4's
+             tables, runs 3 (every query in the report), merge_reports of
+             its two halves equal to it; bench/reference_compare.py over the
+             22 queries at SF 0.1 (every non-aggregate cell equal to sqlite,
+             float aggregates within 1e-6 relative of the sequential fold,
+             the largest ULP distance printed); bench/scaling_bench.py with
+             Q1, Q3, Q6 and Q12 over 1, 2 and 4 shards at SF1, runs 3, every
+             answer equal to one shard's. K3, K4, K6, K7, K8, K9c and K5c
+             must have launched; the phase's launches (graph replays
+             counted) are added to the kernels line's.
 
 Phases 5 and 6 also print the mean rows per launch of K4, K5, K7 and K9 and
 K5's mean pairs per launch (the wrappers count the rows they are given), so
@@ -4993,6 +5024,348 @@ def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrapper
     return launches, {q: nodes[q] for q in CAP_NODE_QIDS}
 
 
+# -- 15. indexes compiled and over shards; the measurement tools ---------------
+
+INDEX_REPS = 2                 # compiled runs after the first: replays
+INDEX_POINT_LOOKUPS = 40       # phase 8's kind of lookup, o_orderkey = k, compiled
+INDEX_ABSENT_LOOKUPS = 4       # of them, keys no order has
+INDEX_COMPOSITE_LOOKUPS = 10   # (l_orderkey, l_linenumber) = (k, n), compiled
+INDEX_ABSENT_COMPOSITE = 2     # of them, line 8 (orders have 1 to 7 lines)
+TOOLS_RUNS = 3                 # tpch_bench's and scaling_bench's timed runs
+COMPARE_SF = 0.1               # reference_compare's scale factor
+SCALING_QIDS = (1, 3, 6, 12)
+SCALING_MESHES = (1, 2, 4)
+# the compiled path's kernels: K3, K4, K6, K7, K8, K9c and K5c
+INDEX_KERNELS = COMPILED_KERNELS
+
+
+class _GraphCounts:
+    """A compiled object's launches inside its graphs, kept after it is
+    freed (graph_launches reads them)."""
+
+    def __init__(self, q):
+        self.launches_captured = dict(q.launches_captured)
+        self.launches_replayed = dict(q.launches_replayed)
+
+
+def index_lookups(idx_tables, cat, sql, table_eq, counted: list) -> str:
+    """15a's point and composite lookups: each text compiled against the
+    same text eagerly (through the index), the compiled IndexScan run in
+    capacity mode; each compiled query's graph launches go to `counted`.
+    Returns the line's text."""
+    from hyrise_tpu_torch.ops import IndexScan
+
+    rng = np.random.default_rng([SEED, LOOKUP_STREAM])
+    orders, li = idx_tables["orders"], idx_tables["lineitem"]
+    keys = orders.column("o_orderkey").data[:orders.num_rows].cpu().numpy()
+    absent = keys.max() + 1 + np.arange(INDEX_ABSENT_LOOKUPS, dtype=np.int64)
+    absent[0] = -1
+    points = rng.permutation(np.concatenate([
+        rng.choice(keys, INDEX_POINT_LOOKUPS - INDEX_ABSENT_LOOKUPS, replace=False), absent]))
+    li_keys = li.column("l_orderkey").data[:li.num_rows].cpu().numpy()
+    li_lines = li.column("l_linenumber").data[:li.num_rows].cpu().numpy()
+    picks = rng.choice(len(li_keys), INDEX_COMPOSITE_LOOKUPS, replace=False)
+    pairs = [(int(li_keys[p]), 8 if i < INDEX_ABSENT_COMPOSITE else int(li_lines[p]))
+             for i, p in enumerate(picks)]
+    texts = [("point", f"SELECT o_orderkey, o_custkey, o_totalprice, o_orderdate FROM orders "
+                       f"WHERE o_orderkey = {k}") for k in points] + \
+            [("composite", f"SELECT l_orderkey, l_linenumber, l_quantity, l_extendedprice "
+                           f"FROM lineitem WHERE l_orderkey = {k} AND l_linenumber = {n}")
+             for k, n in pairs]
+    found = {"point": 0, "composite": 0}
+    ms = {"point": [], "composite": [], "eager": []}
+    for kind, text in texts:
+        want, est, eager_ms = sql(text, cat)
+        got, st, first = sql(text, cat, compiled=True)
+        check_rows(got, want, f"indexes: compiled {kind} lookup {text!r}", table_eq)
+        scans = [op for op in st.last_compiled_query.ops if isinstance(op, IndexScan)] \
+            if st.last_compiled else []
+        eager_scans = distinct_operators(est.last_plan, IndexScan)
+        if not scans or not all(op.performance_data.extra.get("index_fallback") for op in scans) \
+                or not eager_scans or (kind == "composite" and not any(
+                    op.performance_data.extra.get("composite_index") for op in eager_scans)):
+            raise AssertionError(f"indexes: {text!r}: compiled {st.last_compiled}, IndexScans "
+                                 f"{len(scans)} compiled and {len(eager_scans)} eager")
+        counted.append(_GraphCounts(st.last_compiled_query))
+        found[kind] += len(got) > 0
+        ms[kind].append(first)
+        ms["eager"].append(eager_ms)
+    if found != {"point": INDEX_POINT_LOOKUPS - INDEX_ABSENT_LOOKUPS,
+                 "composite": INDEX_COMPOSITE_LOOKUPS - INDEX_ABSENT_COMPOSITE}:
+        raise AssertionError(f"indexes: lookups found {found}")
+    cat.compiled.clear()
+    return (f"{INDEX_POINT_LOOKUPS} point lookups on o_orderkey ({INDEX_ABSENT_LOOKUPS} absent) "
+            f"and {INDEX_COMPOSITE_LOOKUPS} on (l_orderkey, l_linenumber) "
+            f"({INDEX_ABSENT_COMPOSITE} absent), each a new text compiled with its IndexScan "
+            f"in capacity mode, equal to the eager answer through the index; median ms a "
+            f"lookup, compiled first run (learn, capture, replay): point "
+            f"{statistics.median(ms['point']):.3f}, composite "
+            f"{statistics.median(ms['composite']):.3f}; eager through the index "
+            f"{statistics.median(ms['eager']):.3f}")
+
+
+def indexes_and_tools_phase(device, card, tables, wrappers, table_eq, tpch_sql,
+                            sql_rows=None) -> dict:
+    """Phase 15 on copies of phase 4's SF1 tables with phase 8's 14 indexes:
+    the 22 texts and the lookups compiled (15a), the 22 texts and JoinIndex
+    plans over 4 shards, eager and compiled (15b), then the four tools in
+    process (15c). `sql_rows`, where given, are phase 6's rows, which the
+    eager answers with indexes must equal. Returns the phase's launches
+    (graph replays counted)."""
+    import tempfile
+
+    from hyrise_tpu_torch.bench import (merge_reports, reference_compare, scaling_bench,
+                                        tpch_bench)
+    from hyrise_tpu_torch.expression import ast
+    from hyrise_tpu_torch.ops import GetTable, IndexScan, Join, JoinIndex, execute_plan
+    from hyrise_tpu_torch.ops.aggregate import Aggregate
+    from hyrise_tpu_torch.parallel.dist_compiler import (DistributedCompiledQuery,
+                                                         DistributedQuery, shard_tpch)
+    from hyrise_tpu_torch.parallel.mesh import make_mesh
+    from hyrise_tpu_torch.plan.compiler import eager_reads
+    from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
+    from hyrise_tpu_torch.storage.index import create_index
+    from hyrise_tpu_torch.tpch import dbgen
+    from hyrise_tpu_torch.types import JoinMode
+
+    t_phase = time.perf_counter()
+    before = {name: w.launches for name, w in wrappers.items()}
+    counted = []  # the phase's compiled objects' graph launches
+
+    def sql(text, cat, compiled=False, sc=None):
+        """(rows, statement, host ms to rows on the host) of one text, the
+        plan cache on."""
+        t0 = time.perf_counter()
+        builder = SQLPipelineBuilder(text).with_catalog(cat)
+        if sc is not None:
+            builder = builder.with_distributed_execution(sc)
+        if compiled:
+            builder = builder.with_compiled_execution()
+        pipeline = builder.create_pipeline()
+        rows = pipeline.get_result_table().rows()
+        return rows, pipeline.pipeline_statements[-1], (time.perf_counter() - t0) * 1e3
+
+    # 15a. the 22 texts with indexes, compiled
+    t0 = time.perf_counter()
+    idx_tables = plain_copies(tables)
+    for name, column in INDEXED:
+        create_index(idx_tables[name], column)
+    cat = catalog_of(idx_tables)
+    eager, eager_ms = {}, {}
+    for qid in sorted(tpch_sql):
+        eager[qid], _, _ = sql(tpch_sql[qid], cat)
+        if sql_rows is not None:
+            check_rows(eager[qid], sql_rows[qid], f"indexes: SQL Q{qid} vs phase 6", table_eq)
+        _, _, eager_ms[qid] = sql(tpch_sql[qid], cat)
+    lines, in_capacity_mode = [], 0
+    for qid in sorted(tpch_sql):
+        rows, st, first = sql(tpch_sql[qid], cat, compiled=True)
+        if not st.last_compiled:
+            raise AssertionError(f"indexes: SQL Q{qid} did not run compiled")
+        check_rows(rows, eager[qid], f"indexes: compiled SQL Q{qid} vs eager", table_eq)
+        cq = st.last_compiled_query
+        captures, reads, times = cq.captures, eager_reads(), []
+        for i in range(INDEX_REPS):
+            rows, st, ms = sql(tpch_sql[qid], cat, compiled=True)
+            times.append(ms)
+            check_rows(rows, eager[qid], f"indexes: compiled SQL Q{qid} run {i + 2}", table_eq)
+            if st.last_compiled_query is not cq or cq.captures != captures or \
+                    cq.last_retries or cq.host_reads != 1:
+                raise AssertionError(f"indexes: compiled SQL Q{qid} run {i + 2}: captures "
+                                     f"{captures} -> {cq.captures}, retries {cq.last_retries}, "
+                                     f"host reads {cq.host_reads}")
+        if eager_reads() != reads:
+            raise AssertionError(f"indexes: compiled SQL Q{qid}: an eager read in a replay")
+        scans = [op for op in cq.ops if isinstance(op, IndexScan)]
+        if not all(op.performance_data.extra.get("index_fallback") for op in scans):
+            raise AssertionError(f"indexes: SQL Q{qid}: an IndexScan left capacity mode")
+        in_capacity_mode += len(scans)
+        counted.append(cq)
+        lines.append(f"Q{qid} {first:.3f} / {statistics.median(times):.3f} / "
+                     f"{eager_ms[qid]:.3f}" + (f" ({len(scans)} IndexScans)" if scans else ""))
+    if in_capacity_mode <= 0:
+        raise AssertionError("indexes: no IndexScan ran in capacity mode")
+    log(f"indexes: SF{SF} the 22 texts with the 14 indexes through with_compiled_execution(), "
+        f"each equal to the eager rows (phase 8's route); {in_capacity_mode} IndexScans ran in "
+        f"capacity mode as TableScans; runs 2 and 3 captured nothing, retried nothing, read the "
+        f"host once and read no count eagerly; host ms first run (learn, capture, replay) / "
+        f"median of {INDEX_REPS} replays / eager through the indexes {card}: "
+        + "; ".join(lines))
+    counted = [_GraphCounts(q) for q in counted]
+    cat.compiled.clear()
+    log("indexes: " + index_lookups(idx_tables, cat, sql, table_eq, counted) + f" {card}; 15a took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 15b. the 22 texts and JoinIndex plans over 4 shards
+    t0 = time.perf_counter()
+    sc = shard_tpch(cat, make_mesh(DIST_SHARDS, device=device.type))
+    lines, stats = [], []
+    for qid in sorted(tpch_sql):
+        rows, st, eager_dist = sql(tpch_sql[qid], cat, sc=sc)
+        dq = st.last_dist_query
+        if dq is None:
+            raise AssertionError(f"indexes: SQL Q{qid} did not run distributed")
+        check_rows(rows, eager[qid], f"indexes: distributed SQL Q{qid}", table_eq)
+        rows, st, first = sql(tpch_sql[qid], cat, compiled=True, sc=sc)
+        cq = st.last_dist_query
+        if not isinstance(cq, DistributedCompiledQuery):
+            raise AssertionError(f"indexes: compiled distributed SQL Q{qid} ran as {cq!r}")
+        check_rows(rows, eager[qid], f"indexes: compiled distributed SQL Q{qid}", table_eq)
+        captures = cq.captures
+        rows, st, replay = sql(tpch_sql[qid], cat, compiled=True, sc=sc)
+        check_rows(rows, eager[qid], f"indexes: compiled distributed SQL Q{qid} again", table_eq)
+        if st.last_dist_query is not cq or cq.captures != captures or cq.last_retries or \
+                cq.host_reads != 1:
+            raise AssertionError(f"indexes: compiled distributed SQL Q{qid} captured again, "
+                                 f"retried or read the host more than once")
+        if cq.exchange_stats() != dq.exchange_stats() or \
+                cq.join_decisions() != dq.join_decisions():
+            raise AssertionError(f"indexes: distributed SQL Q{qid}: the compiled form's "
+                                 f"decisions or exchanges differ from the eager form's")
+        counted.append(_GraphCounts(cq))
+        index_ops = [op for op in cq.ops if op.name in ("IndexScan", "JoinIndex")]
+        lines.append(f"Q{qid} {eager_dist:.3f} / {first:.3f} / {replay:.3f}")
+        if index_ops:
+            stats.append(f"Q{qid} ({len(index_ops)} IndexScans) {stats_text(cq.exchange_stats())}")
+    joins = []
+    for mode in JOIN_INDEX_MODES:
+        column = "l_quantity" if mode in ("INNER", "LEFT") else "o_totalprice"
+
+        def plan(join_class, mode=mode, column=column):
+            j = join_class(GetTable("orders", cat), GetTable("lineitem", cat), JoinMode[mode],
+                           ("o_orderkey", "l_orderkey"))
+            return Aggregate(j, [], [("n", ast.count_()), ("s", ast.sum_(ast.col(column)))])
+
+        want = execute_plan(plan(Join)).rows()
+        dq = DistributedQuery(plan(JoinIndex), sc)
+        eager_ms_, rows = host_ms(lambda: dq.run().rows(), device)
+        check_rows(rows, want, f"indexes: distributed JoinIndex {mode}", table_eq)
+        cq = DistributedCompiledQuery(plan(JoinIndex), sc)
+        first, rows = host_ms(lambda: cq.run().rows(), device)
+        check_rows(rows, want, f"indexes: compiled distributed JoinIndex {mode}", table_eq)
+        replay, rows = host_ms(lambda: cq.run().rows(), device)
+        check_rows(rows, want, f"indexes: compiled distributed JoinIndex {mode} again", table_eq)
+        if cq.join_decisions() != dq.join_decisions() or \
+                cq.exchange_stats() != dq.exchange_stats():
+            raise AssertionError(f"indexes: JoinIndex {mode}: the compiled form's decisions or "
+                                 f"exchanges differ from the eager form's")
+        counted.append(_GraphCounts(cq))
+        joins.append(f"{mode} {dq.join_decisions()} {eager_ms_:.3f} / {first:.3f} / "
+                     f"{replay:.3f}, {stats_text(cq.exchange_stats())}")
+    log(f"indexes: SF{SF} over {DIST_SHARDS} shards: the 22 texts with indexes through "
+        f"with_distributed_execution, eager and compiled, equal the eager single-node rows; "
+        f"the compiled form's second run captured nothing, retried nothing, read the host once; "
+        f"{len(stats)} of the plans hold an IndexScan and ran distributed; host ms eager / "
+        f"compiled first / compiled replay {card}: " + "; ".join(lines))
+    log(f"indexes: exchange_stats() (label sites/rows/moved) of the distributed plans with an "
+        f"IndexScan: " + "; ".join(stats))
+    log(f"indexes: JoinIndex of orders with lineitem under COUNT and SUM over {DIST_SHARDS} "
+        f"shards, DistributedQuery and DistributedCompiledQuery equal to single-node Join: "
+        f"decisions, host ms eager / compiled first / replay {card}, exchange_stats(): "
+        + "; ".join(joins) + f"; {len(stats) + len(joins)} plans with an IndexScan or a "
+        f"JoinIndex ran distributed; 15b took {time.perf_counter() - t0:.1f} s")
+    del sc, cat, idx_tables, cq, dq
+    freed()
+
+    # 15c. the four tools, in process
+    t0 = time.perf_counter()
+    plain = catalog_of(plain_copies(tables))
+    qids = sorted(tpch_sql)
+    report = tpch_bench.run_suite(plain, qids, "compiled", runs=TOOLS_RUNS, warmup=1, sf=SF)
+    names = [b["name"] for b in report["benchmarks"]]
+    if names != [f"TPC-H {q:02d}" for q in qids]:
+        raise AssertionError(f"tpch_bench: queries missing from the report: {names}")
+    counted += [_GraphCounts(q) for q in plain.compiled.values()]  # run_query's, by query
+    plain.compiled.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        halves = []
+        for i, part in enumerate((report["benchmarks"][:11], report["benchmarks"][11:])):
+            halves.append(f"{tmp}/part{i}.json")
+            with open(halves[-1], "w") as f:
+                json.dump({"context": report["context"], "benchmarks": part}, f)
+        merged = merge_reports.main([f"{tmp}/merged.json"] + halves)
+    if merged["benchmarks"] != report["benchmarks"]:
+        raise AssertionError("merge_reports: the halves do not merge into the report")
+    log(f"tools: tpch_bench --via compiled --sf {SF} --runs {TOOLS_RUNS} over phase 4's tables, "
+        f"context devices {report['context']['devices']}; median ms: "
+        + ", ".join(f"Q{b['name'][-2:]} {b['real_time_ms']:.3f}" for b in report["benchmarks"])
+        + f"; sum {sum(b['real_time_ms'] for b in report['benchmarks']):.3f}; merge_reports "
+        f"of its two halves equals it")
+    t1 = time.perf_counter()
+    small = dbgen.generate_tables(COMPARE_SF, SEED, device=device)
+    small_cat = catalog_of(small)
+    oracle = reference_compare.make_oracle(small)
+    load_s = time.perf_counter() - t1
+    result = reference_compare.compare(small_cat, oracle, qids, "compiled")
+    oracle.close()
+    counted += [_GraphCounts(q) for q in small_cat.compiled.values()]
+    small_cat.compiled.clear()
+    summary = result["summary"]
+    if summary["queries"] != len(qids) or not summary["all_int_exact"] or \
+            summary["max_rel"] > 1e-6:
+        raise AssertionError(f"reference_compare: {summary}; " + json.dumps(result["queries"]))
+    log(f"tools: reference_compare --via compiled at SF{COMPARE_SF} {card}: the 22 queries' "
+        f"every non-aggregate cell equal to sqlite, float aggregates within "
+        f"{summary['max_rel']!r} relative of the sequential float64 fold (limit 1e-6), the "
+        f"largest ULP distance {summary['max_ulp']!r}; per query max ULP "
+        + ", ".join(f"{q} {r['max_ulp']:.1f}" for q, r in result["queries"].items()
+                    if r["float_cells"])
+        + f"; {time.perf_counter() - t1:.1f} s ({load_s:.1f} s generating and loading sqlite)")
+    del small, small_cat, oracle
+    t1 = time.perf_counter()
+    scaling = scaling_bench.run_scaling(plain, SCALING_QIDS, SCALING_MESHES, TOOLS_RUNS, device,
+                                        on_query=lambda q: counted.append(_GraphCounts(q)))
+    cells = []
+    for qid, per_mesh in scaling["queries"].items():
+        for n, entry in per_mesh.items():
+            if not entry["answer_equal"]:
+                raise AssertionError(f"scaling_bench: Q{qid} over {n} shards differs")
+            eff = entry["efficiency_vs_1_shard"]
+            cells.append(f"Q{qid} n={n} {entry['median_ms']:.3f} ms "
+                         f"{entry['rows_per_s'] / 1e6:.1f} Mrows/s"
+                         + ("" if eff is None else f" eff {eff:.3f}"))
+    log(f"tools: scaling_bench --sf {SF} --runs {TOOLS_RUNS} over {SCALING_MESHES} shards on one "
+        f"device (no interconnect crossed), every answer equal to one shard's {card}: "
+        + "; ".join(cells) + f"; {time.perf_counter() - t1:.1f} s; 15c took "
+        f"{time.perf_counter() - t0:.1f} s")
+    del plain
+    freed()
+
+    launches = graph_launches(before, wrappers, counted)
+    log(f"indexes and tools: launches in phase 15 (graph replays counted) {launches}; phase 15 "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def indexes_and_tools_only_run(device, card, started: float) -> None:
+    """`--indexes-and-tools`: phase 4's SF1 tables, then phase 15 (its eager
+    answers with indexes stand in for phase 6's rows). Ends with one JSON
+    line: phase 15's launches."""
+    from hyrise_tpu_torch.kernels import (compact, fused_reduce, group_reduce, hash_lookup,
+                                          join_probe, segment_reduce)
+    from hyrise_tpu_torch.tpch import dbgen
+    from hyrise_tpu_torch.tpch.queries import TPCH_SQL
+    from hyrise_tpu_torch.utils import table_eq
+
+    wrappers = {"segment_reduce_cells": group_reduce.segment_reduce_cells,
+                "lookup_last_eq_lut": join_probe.lookup_last_eq_lut,
+                "expand_pairs": join_probe.expand_pairs,
+                "fused_cells_reduce": fused_reduce.fused_cells_reduce,
+                "segment_reduce_sorted": segment_reduce.segment_reduce_sorted,
+                "lookup_last_eq": hash_lookup.lookup_last_eq,
+                "compact_indices": compact.compact_indices,
+                "compact_indices_cap": compact.compact_indices_cap,
+                "expand_pairs_cap": join_probe.expand_pairs_cap}
+    tables = dbgen.generate_tables(SF, SEED, device=device)
+    reset_counts(wrappers)
+    launches = indexes_and_tools_phase(device, card, tables, wrappers, table_eq, TPCH_SQL)
+    for name in INDEX_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in phase 15")
+    log(f"elapsed: {time.perf_counter() - started:.1f} s, the build included")
+    log(json.dumps({"indexes_and_tools_launches": launches}))
+
+
 def compiled_only_run(device, card, started: float) -> None:
     """`--compiled`: phase 4's SF1 tables, the eager rows and walls of phase
     5's hand plans and phase 6's SQL texts that phase 12 compares with, then
@@ -5173,6 +5546,7 @@ def main() -> None:
     compiled_only = "--compiled" in argv
     streaming_only = "--compiled-streaming" in argv
     distribution_only = "--compiled-distribution" in argv
+    indexes_only = "--indexes-and-tools" in argv
     kernels = argv[argv.index("--kernels") + 1].split(",") if "--kernels" in argv else None
     if kernels is not None and not set(kernels) <= set(KERNEL_SOURCES):
         raise SystemExit(f"chip_smoke: --kernels takes {', '.join(KERNEL_SOURCES)}, got "
@@ -5242,6 +5616,9 @@ def main() -> None:
         return
     if distribution_only:
         compiled_distribution_only_run(device, card, started)
+        return
+    if indexes_only:
+        indexes_and_tools_only_run(device, card, started)
         return
 
     # -- 3. kernels against their plain versions -----------------------------
@@ -5507,6 +5884,16 @@ def main() -> None:
         if compiled_launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in phase 12")
     for name, count in compiled_launches.items():
+        launches[name] = launches.get(name, 0) + count
+
+    # -- 15. indexes compiled and over shards; the measurement tools ----------
+    reset_counts(wrappers)
+    index_launches = indexes_and_tools_phase(device, card, tables, wrappers, table_eq, TPCH_SQL,
+                                             sql_rows)
+    for name in INDEX_KERNELS:
+        if index_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in phase 15")
+    for name, count in index_launches.items():
         launches[name] = launches.get(name, 0) + count
 
     # -- 10. streaming: blocked and segmented execution at SF1 and SF10 --------

@@ -38,6 +38,8 @@ class BenchmarkConfig:
     # write the (partial) report after EVERY query so a killed long run
     # still leaves its completed measurements on disk
     report_path: str = ""
+    # further entries of the report's context (the execution form, ...)
+    context: Dict[str, object] = dataclasses.field(default_factory=dict)
 
 
 def devices() -> List[str]:
@@ -133,6 +135,7 @@ class BenchmarkRunner:
                 "devices": devices(),
                 "mode": self.config.mode,
                 "scale_factor": self.config.scale_factor,
+                **self.config.context,
             },
             "benchmarks": benchmarks,
         }

@@ -10,6 +10,12 @@ in the index's order. The literal is compared as TableScan compares it
 Conditions that are no single range (LIKE, IN, IS NULL, !=), a column
 without an index, and equality conjuncts that no composite index covers
 run as a TableScan of the same predicate.
+
+In capacity mode (plan/compiler.py: a compiled, compiled-streamed or
+compiled-distributed run) every IndexScan runs that TableScan, as in the
+JAX CompiledQuery, whose traced tables carry no index: the rows come in
+table order, `index_fallback` is set, and a captured graph reads no index
+tensor, so an index created or replaced after the capture changes nothing.
 """
 
 from __future__ import annotations
@@ -48,12 +54,12 @@ class IndexScan(AbstractOperator):
         self.extra_equals = list(extra_equals or [])
 
     def _on_execute(self, context) -> Table:
-        from hyrise_tpu_torch.plan.compiler import PlanNotCompilable, tracing
+        from hyrise_tpu_torch.plan.compiler import tracing
 
+        table = self.input_table(0)
         if tracing():
             # an index range is read on the host
-            raise PlanNotCompilable("IndexScan")
-        table = self.input_table(0)
+            return self._table_scan_fallback(table, context)
         if self.extra_equals:
             if self.cond is P.EQUALS:
                 out = self._composite_scan(table)

@@ -563,8 +563,10 @@ class JoinIndex(Join):
     lookup paths would not read the index. performance_data.extra
     ["index_used"] says whether the index served; it does not where the
     keys are promoted across kinds (int against float), where string
-    dictionaries differ, or where the build input was compacted into a new
-    table (its rows are not the index's)."""
+    dictionaries differ, where the build input was compacted into a new
+    table (its rows are not the index's), or in capacity mode, where it
+    sorts as the JAX CompiledQuery's index-free traced tables do (a
+    captured graph reads no index tensor)."""
 
     name = "JoinIndex"
 
@@ -573,7 +575,7 @@ class JoinIndex(Join):
         return False
 
     def _sorted_build(self, build_t, build_col, rk, rv, remap_len):
-        idx = get_index(build_t, build_col)
+        idx = None if capacity_mode() else get_index(build_t, build_col)
         values = None if idx is None else idx.sorted_values
         used = (isinstance(idx, SortedIndex) and remap_len is None
                 and values.is_floating_point() == rk.is_floating_point())

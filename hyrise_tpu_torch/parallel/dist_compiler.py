@@ -68,8 +68,7 @@ from hyrise_tpu_torch.expression.ast import AggregateExpr, ColumnRef
 from hyrise_tpu_torch.ops.aggregate import Aggregate
 from hyrise_tpu_torch.ops.base import AbstractOperator
 from hyrise_tpu_torch.ops.get_table import GetTable, TableWrapper, _capacity_source
-from hyrise_tpu_torch.ops.join import (Join, JoinIndex, JoinMPSM, _key_space,
-                                       _keys_in)
+from hyrise_tpu_torch.ops.join import Join, JoinMPSM, _key_space, _keys_in
 from hyrise_tpu_torch.ops.materialize import ensure_prefix, filter_table, gather_table
 from hyrise_tpu_torch.ops.table_scan import TableScan
 from hyrise_tpu_torch.parallel.exchange import (_send_buckets, all_gather, all_max,
@@ -168,6 +167,18 @@ def shard_tpch(catalog, mesh: Mesh) -> ShardedCatalog:
 
 # ---------------------------------------------------------------------------
 # tables across shards
+
+
+def _unindexed(t: Table) -> Table:
+    """`t` without its indexes (a shard has none), so that eagerly an
+    IndexScan or a JoinIndex over a replicated source scans or sorts as over
+    a shard, and as over the JAX package's traced tables. In capacity mode
+    neither reads an index."""
+    if not t.indexes:
+        return t
+    out = Table(t.columns, t.num_rows, name=t.name, live=t.live)
+    out.encoding_spec, out.block_stats = t.encoding_spec, t.block_stats
+    return out
 
 
 def _on(t: Table, device: torch.device) -> Table:
@@ -495,10 +506,12 @@ _ROW_PRESERVING = ("TableScan", "Validate")
 # the build side may be replicated; OUTER also emits unmatched build rows
 _PROBE_PRESERVING = (JoinMode.INNER, JoinMode.LEFT, JoinMode.RIGHT, *EXISTENCE_MODES)
 
-# writes, imports, exports and prints run single-node; an index lives on a
-# stored table, not on its shards
+# writes, imports, exports and prints run single-node. An IndexScan gathers
+# its input and scans it (the gathered table has no index), and a JoinIndex
+# is a join: both run as in the JAX package, whose traced tables carry no
+# index (_unindexed)
 _UNDISTRIBUTABLE = ("Insert", "Delete", "Update", "ImportCsv", "ImportBinary", "ExportCsv",
-                    "ExportBinary", "Print", "IndexScan")
+                    "ExportBinary", "Print")
 
 BROADCAST_MAX_ROWS = 1 << 16
 
@@ -531,7 +544,7 @@ class DistributedQuery:
         self.exchange = exchange
         self.ops = _walk(root)
         for op in self.ops:
-            if op.name in _UNDISTRIBUTABLE or isinstance(op, JoinIndex):
+            if op.name in _UNDISTRIBUTABLE:
                 raise PlanNotCompilable(op.name)
         self._sources: List[object] = []
         self._op_source: Dict[int, object] = {}
@@ -635,7 +648,7 @@ class DistributedQuery:
             return _capacity_source(src), REPLICATED
         if isinstance(src, ShardedTable):
             return list(src.shards), self._src_placement[id(src)]
-        return _on(src, self.mesh.home), REPLICATED
+        return _on(_unindexed(src), self.mesh.home), REPLICATED
 
     def _exec_op(self, op, out):
         src = self._op_source.get(id(op))
@@ -1103,7 +1116,7 @@ class DistributedCompiledQuery(CompiledQuery):
     size.
 
     Refused with PlanNotCompilable: what DistributedQuery refuses
-    (writes, imports, exports, prints, IndexScan, JoinIndex, MVCC tables),
+    (writes, imports, exports, prints, MVCC tables),
     what CompiledQuery refuses, and a mesh whose shards sit on more than one
     device (one graph holds one card's work). A sharded or replicated
     source replaced in the ShardedCatalog since the last run (add_sharded,

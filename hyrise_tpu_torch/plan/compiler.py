@@ -95,8 +95,9 @@ def note_eager_read() -> None:
 
 class PlanNotCompilable(Exception):
     """Raised when the plan holds an operator with no capacity form
-    (read-write and MVCC operators, imports, exports, prints, IndexScan), a
-    source that changed under a run, or no base table."""
+    (read-write and MVCC operators, imports, exports, prints), a source
+    that changed under a run, or no base table. An IndexScan has one: its
+    TableScan fallback (ops/index_scan.py)."""
 
 
 _UNCOMPILABLE = ("Insert", "Delete", "Update", "ImportCsv", "ImportBinary",

@@ -566,18 +566,14 @@ def test_the_join_step_in_capacity_mode():
 
 
 def test_refusals():
+    """IndexScan and JoinIndex run over shards: tests/test_torch_dist_index.py
+    holds them against the JAX package."""
     from hyrise_tpu_torch.concurrency.transaction import MvccData
-    from hyrise_tpu_torch.ops.index_scan import IndexScan
-    from hyrise_tpu_torch.ops.join import JoinIndex
     from hyrise_tpu_torch.ops.print_op import Print
     from hyrise_tpu_torch.ops.rw_ops import Delete
-    from hyrise_tpu_torch.types import PredicateCondition
 
     cat, sc, _, _ = _mini_env()
-    refused = [Print(GetTable("fact", cat)), Delete("fact", GetTable("fact", cat), cat),
-               IndexScan(GetTable("fact", cat), "k", PredicateCondition.LESS_THAN, 10),
-               JoinIndex(GetTable("fact", cat), GetTable("dim", cat), JoinMode.INNER,
-                         ("k", "k"))]
+    refused = [Print(GetTable("fact", cat)), Delete("fact", GetTable("fact", cat), cat)]
     for plan in refused:
         with pytest.raises(PlanNotCompilable):
             DistributedCompiledQuery(plan, sc)
