@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cells [--kernels-from DIR]
-    python3 chip_smoke.py --kernels K2,K8,K9c,K5c [--kernels-from DIR]
+    python3 chip_smoke.py --kernels K2,K3,K8,K9c,K5c [--kernels-from DIR]
     python3 chip_smoke.py --compiled [--kernels-from DIR]
     python3 chip_smoke.py --compiled-streaming
     python3 chip_smoke.py --compiled-distribution
@@ -11,7 +11,7 @@
 
 The second form runs phases 1 and 2, then only K3's and K6's checks and
 timings (`cells_phase`); the third builds only the sources of the kernels
-named (any of K2, K8, K9c and K5c; KERNEL_SOURCES) and runs only their
+named (any of K2, K3, K8, K9c and K5c; KERNEL_SOURCES) and runs only their
 checks and timings (`kernels_phase`). With --kernels-from these import the
 package of the checkout in DIR instead (an older commit unpacked there), for
 its timings beside this one's in the same call; the checks of phase 3 are
@@ -40,11 +40,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              seeded data at n = 1, 1000, 65,543 and 6,006,330 rows: K1
              (q6_scan) within 1e-5 relative of q6_compute (the bound of
              tests/test_pallas.py); K2 (q6_encoded) equal to the host's
-             exact int64 total; K3 (segment_reduce_cells) as sum of float64,
-             float32, int64 and int32 values, count, min and max into 1, 4,
-             6, 25 and 64 cells (6 and 25 are Q1's and Q5's on the main
-             path), integers equal and float sums within 1e-12 relative,
-             and the same bits from two launches; K4
+             exact int64 total; K3 (segment_reduce_cells, the one-slot call
+             of segment_reduce_cells_many) as sum of float64, float32, int64
+             and int32 values, count, min and max into 1, 4, 6, 25 and 64
+             cells (6 and 25 are Q1's and Q5's on the main path), integers
+             equal and float sums within 1e-12 relative, and the same bits
+             from two launches; K4
              (lookup_last_eq_lut: a memset, a build and a probe of four rows
              a thread from one C call) equal and the same bits from two
              launches, at 65,543 and 6,006,330 rows also from views one
@@ -79,7 +80,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              8, 9, 63 and 64 cells, for the four types and folds, with NaN
              and +-inf in min and max, from columns one element into their
              buffers, and in 200 launches in a row at changing lengths (so
-             changing block counts: a ticket left standing shows there).
+             changing block counts: a ticket left standing shows there; K3
+             as three slots and the row count a call, at 6 and 40 cells).
+             K3 also as one call of 1, 2, 6 and 18 slots (counts with and
+             without a validity column; per type a sum, a sum over a
+             validity column, a min and a max) at those sizes and cell
+             counts, from aligned columns and from views, in as many
+             launches as plan_launches gives (one up to 8 cells), every
+             slot's bits the same alone, batched and split over two calls,
+             and a call that plan_launches splits (16 folds each over its
+             own validity column at 64 cells).
              K7 (segment_reduce_sorted, which works on tiles of 2,048
              positions of the group order): sum, min and max of the four
              types and the count, with and without the permutation and the
@@ -100,7 +110,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              row, each held against the plain version. Then the median
              device ms of each kernel, of its plain version and of the
              PyTorch call that computes the same function where there is one
-             (index_add_ for K3; for K7 index_add_ and torch.segment_reduce,
+             (index_add_ for K3's one sum, and for its calls of several
+             slots (K3_MANY_TIMED: Q1's and Q5's dense Aggregates, 64 cells
+             with three mixed folds over a validity column) the calls of one
+             slot each that they replace; for K7 index_add_ and torch.segment_reduce,
              without and with the index_select that gathers the values;
              torch.nonzero for K9), at the largest n and the shapes of the
              main path (K9 also on a 1,000-row mask, as a view of its
@@ -112,7 +125,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              at the size of Q20's call); and for K2-K9 the kernels' own device
              time from one torch.profiler run per shape, which for K4, K5
              and K8 must show at most two kernels and a memset a call and
-             for K2 and K6 one kernel. K9c and K5c, the capacity forms
+             for K2, K3 and K6 one kernel. K9c and K5c, the capacity forms
              (compact_indices_cap, expand_pairs_cap: every output byte
              written by the kernels, no memset of an output), equal to
              their plain versions at k9c_shapes and k5c_shapes (capacities
@@ -290,10 +303,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
              with_compiled_execution() equal phase 6's rows, each compiled.
              A replay makes no eager oracle read; lineitem replaced by its
              first half under Q6 is captured again and answered anew; four
-             threads run one cached compiled text three times each. K9c's
-             and K5c's nodes in one replay of each plan beside its busy ms
-             (cap_nodes), and their calls by (n, cap, count) size class
-             over the 22 plans (census_line). bench/micro.py runs its
+             threads run one cached compiled text three times each. K9c's,
+             K5c's and K3's nodes in one replay of each plan beside its busy
+             ms (cap_nodes; K3's summed over the traced plans as its share of
+             the replays), K9c's and K5c's calls by (n, cap, count) size
+             class over the 22 plans (census_line), K3's by (n, cells,
+             slots) (k3_census_line). bench/micro.py runs its
              micros as replayed graphs.
              Launches inside graphs count once per replay; K3, K4, K6, K7,
              K8, K9c and K5c must have launched; the phase's launches are
@@ -938,10 +953,11 @@ def special_values(rng, n: int, device):
 
 
 def check_cells_edges(device, group_reduce, fused_reduce) -> float:
-    """K3 and K6 against their plain versions at a tile's size -1 / +0 / +1
-    and over many tiles, at every cell bucket's edges, for the four types
-    and the four folds, with NaN and +-inf in min and max, from columns one
-    element into their buffers. Returns the largest float64 difference."""
+    """K3 and K6 (unless fused_reduce is None) against their plain versions
+    at a tile's size -1 / +0 / +1 and over many tiles, at every cell
+    bucket's edges, for the four types and the four folds, with NaN and
+    +-inf in min and max, from columns one element into their buffers.
+    Returns the largest float64 difference."""
     worst = 0.0
     for n in CELLS_EDGE_SIZES:
         for n_cells in CELLS_EDGE_COUNTS:
@@ -961,6 +977,8 @@ def check_cells_edges(device, group_reduce, fused_reduce) -> float:
                                                               sentinel)
                 worst = max(worst, same_reduction(
                     got, ref, f"K3 {kind} {None if v is None else v.dtype} {what}"))
+            if fused_reduce is None:
+                continue
             mask = torch.as_tensor(rng.random(n + 1) < 0.8, device=device)[1:]
             valid = torch.as_tensor(rng.random(n + 1) < 0.6, device=device)[1:]
             key = torch.as_tensor(rng.integers(0, n_cells, n + 1).astype(np.int32),
@@ -981,19 +999,32 @@ def check_cells_edges(device, group_reduce, fused_reduce) -> float:
 
 
 def check_cells_repeated(device, group_reduce, fused_reduce) -> None:
-    """CELLS_REPEATS launches of K3 and of K6 in a row over prefixes of
-    changing length, so changing block counts, each held against its plain
-    version: a ticket left standing would leave a launch without its combine."""
+    """CELLS_REPEATS launches of K3 (three slots and the row count in one
+    call, at 6 cells and at 40) and of K6 (unless fused_reduce is None) in a
+    row over prefixes of changing length, so changing block counts, each
+    held against its plain version: a ticket left standing would leave a
+    launch without its combine."""
     rng = np.random.default_rng(606)
     n_max = CELLS_REPEAT_ROWS
-    v = exact_values(rng, n_max, device)["float64"]
-    cell = torch.as_tensor(rng.integers(-1, 7, n_max).astype(np.int32), device=device)
+    exact = exact_values(rng, n_max, device)
+    valid = torch.as_tensor(rng.random(n_max) < 0.7, device=device)
+    cell = torch.as_tensor(rng.integers(-1, 41, n_max).astype(np.int32), device=device)
     mask, keys, sizes, slots = k6_inputs(n_max, "q1", device)
     for i in range(CELLS_REPEATS):
         n = 1 + (i * 104_729) % n_max
-        got = group_reduce.segment_reduce_cells(v[:n], cell[:n], 6, "sum")
-        same_reduction(got, group_reduce.segment_reduce_cells_plain(v[:n], cell[:n], 6, "sum"),
-                       f"K3 launch {i} of {CELLS_REPEATS} (n={n})")
+        n_cells = 6 if i % 2 else 40
+        k3_slots = [(exact["float64"][:n], valid[:n], "sum"), (exact["int32"][:n], None, "min"),
+                    (None, valid[:n], "count")]
+        counts, got = group_reduce.segment_reduce_cells_many(cell[:n], n_cells, k3_slots)
+        ref_counts, ref = group_reduce.segment_reduce_cells_many_plain(cell[:n], n_cells,
+                                                                      k3_slots)
+        what = f"K3 launch {i} of {CELLS_REPEATS} (n={n}, {n_cells} cells)"
+        same_reduction(counts, ref_counts, what)
+        for (r, c), (rr, rc) in zip(got, ref):
+            same_reduction(r, rr, what)
+            same_reduction(c, rc, what)
+        if fused_reduce is None:
+            continue
         part = (mask[:n], [k[:n] for k in keys], sizes,
                 [(None if x is None else x[:n], m, kind) for x, m, kind in slots])
         counts, results = fused_reduce.fused_cells_reduce(*part)
@@ -1001,6 +1032,182 @@ def check_cells_repeated(device, group_reduce, fused_reduce) -> None:
         same_reduction(counts, ref_counts, f"K6 launch {i} of {CELLS_REPEATS} (n={n})")
         for (r, _), (rr, _) in zip(results, ref):
             same_reduction(r, rr, f"K6 launch {i} of {CELLS_REPEATS} (n={n})")
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtypes, shapes and bits (a NaN equal to the same NaN)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        as_int = {torch.float64: torch.int64, torch.float32: torch.int32}[a.dtype]
+        a, b = a.contiguous().view(as_int), b.contiguous().view(as_int)
+    return torch.equal(a, b)
+
+
+def k3_many_slots(rng, n: int, device, offset: int):
+    """The slots of K3's many-slot checks: the count over every row and over
+    a validity column, and per type a sum, a sum over a validity column, a
+    min and a max, the mins and maxes over NaN and +-inf; 16 folds, two
+    validity columns, so one launch. Every column starts `offset` elements
+    into its buffer (the mins' and maxes' one)."""
+    exact = {k: v[offset:] for k, v in exact_values(rng, n + offset, device).items()}
+    special = special_values(rng, n, device)
+    va = torch.as_tensor(rng.random(n + offset) < 0.6, device=device)[offset:]
+    vb = torch.as_tensor(rng.random(n + offset) < 0.9, device=device)[offset:]
+    slots = [(None, None, "count"), (None, va, "count")]
+    for i, name in enumerate(sorted(exact)):
+        slots += [(exact[name], None, "sum"), (exact[name], va if i % 2 else vb, "sum"),
+                  (special[name], vb if i % 2 else None, "min"), (special[name], va, "max")]
+    return slots
+
+
+def k3_launches(group_reduce, n_cells: int, slots) -> int:
+    """The launches plan_launches gives a many-slot call: its items are the
+    distinct folds (values, kind, validity) and the validity columns only
+    counted, as segment_reduce_cells_many forms them."""
+    validities, folds = [], []
+    for values, validity, kind in slots:
+        v = next((i for i, m in enumerate(validities) if m is validity), -1)
+        if validity is not None and v < 0:
+            validities.append(validity)
+            v = len(validities) - 1
+        if kind != "count" and not any(f[0] is values and f[1:] == (kind, v) for f in folds):
+            folds.append((values, kind, v))
+    items = [(True, v) for _, _, v in folds]
+    items += [(False, v) for v in range(len(validities)) if v not in {f[2] for f in folds}]
+    return len(group_reduce.plan_launches(n_cells, items))
+
+
+def same_many(group_reduce, cell, n_cells: int, slots, what: str):
+    """K3's many-slot call against its plain version; it must launch the
+    kernel as often as plan_launches says (once unless its accumulators
+    leave no room for two blocks an SM). Returns (its results, the largest
+    float64 difference)."""
+    launches = k3_launches(group_reduce, n_cells, slots)
+    before = group_reduce.segment_reduce_cells.launches
+    counts, got = group_reduce.segment_reduce_cells_many(cell, n_cells, slots)
+    if group_reduce.segment_reduce_cells.launches - before != launches:
+        raise AssertionError(f"{what}: {group_reduce.segment_reduce_cells.launches - before} "
+                             f"launches, expected {launches}")
+    ref_counts, ref = group_reduce.segment_reduce_cells_many_plain(cell, n_cells, slots)
+    same_reduction(counts, ref_counts, f"{what}: row counts")
+    worst = 0.0
+    for i, ((r, c), (rr, rc)) in enumerate(zip(got, ref)):
+        worst = max(worst, same_reduction(r, rr, f"{what}: slot {i}"))
+        same_reduction(c, rc, f"{what}: slot {i} valid counts")
+    return got, worst
+
+
+def check_k3_many(device, group_reduce) -> float:
+    """K3 as one call for several reductions, against its plain version, at
+    CELLS_EDGE_SIZES x CELLS_EDGE_COUNTS, from aligned columns and from
+    views one element into their buffers: the first 1, 2, 6 and all 18
+    slots of k3_many_slots, in as many launches as plan_launches says (one
+    up to 8 cells); every slot's bits the same alone, batched
+    and with the slots split over two calls; and a call that plan_launches
+    splits (16 folds each over its own validity column, 64 cells) against
+    its plain version and its slots alone. Returns the largest float64
+    difference."""
+    worst = 0.0
+    many = group_reduce.segment_reduce_cells_many
+    for n in CELLS_EDGE_SIZES:
+        for n_cells in CELLS_EDGE_COUNTS:
+            for offset in (0, 1):
+                rng = np.random.default_rng(n * 151 + n_cells * 3 + offset)
+                slots = k3_many_slots(rng, n, device, offset)
+                cell = torch.as_tensor(rng.integers(-1, n_cells + 1, n + offset)
+                                       .astype(np.int32), device=device)[offset:]
+                what = f"K3 many n={n} cells={n_cells} offset={offset}"
+                for k in (1, 2, 6, len(slots)):
+                    got, err = same_many(group_reduce, cell, n_cells, slots[:k],
+                                         f"{what}, {k} slots")
+                    worst = max(worst, err)
+                half = len(slots) // 2
+                split = many(cell, n_cells, slots[:half])[1] + many(cell, n_cells,
+                                                                    slots[half:])[1]
+                for i, slot in enumerate(slots):
+                    (alone, _), = many(cell, n_cells, [slot])[1]
+                    if not (same_bits(alone, got[i][0]) and same_bits(split[i][0], got[i][0])):
+                        raise AssertionError(f"{what}: slot {i} differs in bits alone, "
+                                             "batched and split")
+    n, n_cells = CELLS_EDGE_SIZES[-1], 64
+    rng = np.random.default_rng(1864)
+    slots = [(torch.as_tensor(rng.integers(0, 10**7, n) / 128.0, device=device),
+              torch.as_tensor(rng.random(n) < 0.8, device=device), "sum") for _ in range(16)]
+    cell = torch.as_tensor(rng.integers(-1, n_cells + 1, n).astype(np.int32), device=device)
+    if k3_launches(group_reduce, n_cells, slots) < 2:
+        raise AssertionError("the split check's call is not split")
+    got, err = same_many(group_reduce, cell, n_cells, slots, "K3 many, split by plan_launches")
+    for i, slot in enumerate(slots):
+        (alone, _), = many(cell, n_cells, [slot])[1]
+        if not same_bits(alone, got[i][0]):
+            raise AssertionError(f"K3 many split by plan_launches: slot {i} differs in bits "
+                                 "from its call alone")
+    return max(worst, err)
+
+
+def check_k3_all(device, group_reduce) -> float:
+    """Every K3 check: check_k3 at KERNEL_SIZES, the edge shapes, the
+    many-slot calls and CELLS_REPEATS launches in a row."""
+    err = check_cells_edges(device, group_reduce, None)
+    check_cells_repeated(device, group_reduce, None)
+    err = max(err, check_k3_many(device, group_reduce))
+    for size in KERNEL_SIZES:
+        err = max(err, check_k3(size, device, group_reduce))
+    log(f"kernels: K3 equal to plain at {KERNEL_SIZES} rows, at {CELLS_EDGE_SIZES} rows x "
+        f"{CELLS_EDGE_COUNTS} cells alone and as 1, 2, 6 and 18 slots in one call from "
+        f"aligned columns and views, a slot's bits the same alone, batched and split, in "
+        f"{CELLS_REPEATS} launches in a row (largest float64 difference {err!r})")
+    return err
+
+
+# K3's timed calls of several slots: Q1's dense Aggregate (6 cells, COUNT(*),
+# SUM and AVG over 4 float32 columns: 7 slots, 4 folds), Q5's (25 cells,
+# COUNT(*), one float64 sum) and 64 cells with 3 slots of mixed folds over
+# one validity column
+K3_MANY_TIMED = ("q1", "q5", "mixed64")
+
+
+def k3_many_inputs(n: int, shape: str, device):
+    """(cell, n_cells, slots) of a K3_MANY_TIMED shape, every row inside the
+    cell space."""
+    rng = np.random.default_rng(n * 7 + len(shape))
+    up = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    if shape == "q1":
+        n_cells = 6
+        f = [up((rng.integers(0, 2**14, n) / 4.0).astype(np.float32)) for _ in range(4)]
+        slots = [(x, None, "sum") for x in f] + [(x, None, "sum") for x in f[:3]]
+    elif shape == "q5":
+        n_cells = 25
+        slots = [(up(rng.integers(0, 10**7, n) / 128.0), None, "sum")]
+    else:
+        n_cells = 64
+        v = exact_values(rng, n, device)
+        valid = up(rng.random(n) < 0.7)
+        slots = [(v["float64"], valid, "sum"), (v["int32"], None, "min"),
+                 (v["float32"], valid, "max")]
+    return up(rng.integers(0, n_cells, n).astype(np.int32)), n_cells, slots
+
+
+def k3_one_call_a_reduction(reduce, extreme, cell, n_cells: int, slots) -> list:
+    """The K3 calls of a dense Aggregate that reduces one slot a call
+    (`reduce`: segment_reduce_cells, or its plain version): the row count, a
+    `where` and a count for each validity column, then one call a slot that
+    is not a count (SUM and AVG of a column each their own). Returns their
+    results in that order."""
+    out = [reduce(None, cell, n_cells, "count")]
+    moved = {}
+    for values, validity, kind in slots:
+        c = cell
+        if validity is not None:
+            if id(validity) not in moved:
+                moved[id(validity)] = torch.where(validity, cell, n_cells)
+                out.append(reduce(None, moved[id(validity)], n_cells, "count"))
+            c = moved[id(validity)]
+        if kind != "count":
+            sentinel = None if kind == "sum" else extreme(values.dtype, kind == "min")
+            out.append(reduce(values, c, n_cells, kind, sentinel))
+    return out
 
 
 # K3's timed shapes: (label, values type, cells); f32 into 6 and 25 cells are
@@ -1011,13 +1218,17 @@ K3_TIMED = (("f32x6", "float32", 6), ("f32x25", "float32", 25), ("f64x1", "float
 
 def time_cells(n: int, device, card: str, time_ms, group_reduce, fused_reduce,
                one_kernel: bool):
-    """Median device ms of K3 at K3_TIMED and of K6 in Q1's and Q6's shapes,
-    beside the plain versions and the yardstick (index_add_ for K3; for K6
+    """Median device ms of K3 at K3_TIMED and K3_MANY_TIMED and of K6 in
+    Q1's and Q6's shapes (unless fused_reduce is None), beside the plain
+    versions and the yardsticks (index_add_ for K3's one sum; for K3's calls
+    of several slots the calls of one slot each that they replace; for K6
     the cell column by `where` and the K3 launches it replaces), each shape
     first held against its plain version; and each kernel's own device time
-    from torch.profiler, which for K6 with `one_kernel` must show one device
-    kernel and no memset a call (K3 keeps its two kernels). Returns ({label:
-    times}, largest difference)."""
+    from torch.profiler, which with `one_kernel` must show one device kernel
+    and no memset a call of K3 and of K6. A package without
+    segment_reduce_cells_many (an older checkout) times its calls of one
+    slot each in the K3_MANY_TIMED rows. Returns ({label: times}, largest
+    difference)."""
     out, worst = {}, 0.0
 
     def record(label, kernel, plain, library, nbytes, note, flops=0):
@@ -1026,7 +1237,7 @@ def time_cells(n: int, device, card: str, time_ms, group_reduce, fused_reduce,
         t["bytes"] = nbytes
         t["bound"] = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_PER_S) * 1e3
         t["kernel_only"], t["per_call"] = kernel_only_ms(kernel, device)
-        if one_kernel and label.startswith("K6") and t["per_call"] != 1:
+        if one_kernel and label.startswith(("K3", "K6")) and t["per_call"] != 1:
             raise AssertionError(f"{label}: {t['per_call']} device kernels and memsets a "
                                  "call, not one kernel")
         out[label] = t
@@ -1054,6 +1265,32 @@ def time_cells(n: int, device, card: str, time_ms, group_reduce, fused_reduce,
         record(f"K3 {label}", kernel, plain, library,
                n * (v.element_size() + 4) + n_cells * 8, "index_add_", flops=n)
 
+    many = getattr(group_reduce, "segment_reduce_cells_many", None)
+    for shape in K3_MANY_TIMED:
+        args = k3_many_inputs(n, shape, device)
+        cell, n_cells, slots = args
+        calls = lambda i, a=args: k3_one_call_a_reduction(  # noqa: E731
+            group_reduce.segment_reduce_cells, group_reduce.extreme, *a)
+        flat = lambda i, a=args: k3_one_call_a_reduction(  # noqa: E731
+            group_reduce.segment_reduce_cells_plain, group_reduce.extreme, *a)
+        for i, (got, ref) in enumerate(zip(calls(0), flat(0))):
+            worst = max(worst, same_reduction(got, ref, f"K3 {shape} call {i} of one slot"))
+        kernel, plain = calls, flat
+        if many is not None:
+            kernel = lambda i, a=args: many(*a)  # noqa: E731
+            plain = lambda i, a=args: group_reduce.segment_reduce_cells_many_plain(*a)  # noqa
+            _, err = same_many(group_reduce, *args, f"K3 {shape} timed")
+            worst = max(worst, err)
+        values = {id(v): v for v, _, _ in slots if v is not None}
+        validities = {id(m): m for _, m, _ in slots if m is not None}
+        folds = {(id(v), id(m), kind) for v, m, kind in slots if kind != "count"}
+        nbytes = n * 4 + sum(v.numel() * v.element_size() for v in values.values()) \
+            + n * len(validities) + 8 * n_cells * (1 + len(validities) + len(folds))
+        record(f"K3 {shape}", kernel, plain, calls, nbytes,
+               f"{len(calls(0))} calls of one slot each")
+
+    if fused_reduce is None:
+        return out, worst
     for shape in ("q1", "q6"):
         mask, keys, sizes, slots = k6_inputs(n, shape, device)
         n_cells = int(np.prod(sizes)) if sizes else 1
@@ -4717,25 +4954,34 @@ CAP_NODE = {"K9c": re.compile(r"\bselect(_cap)?_kernel\b"),
             "K5c": re.compile(r"\branges_scan_kernel\b")}
 EXPAND_NODE = re.compile(r"\bexpand_kernel\b")
 MEMSETS_BEFORE = {"K9c": 2, "K5c": 3}  # a form that clears its outputs: theirs, the scratch's
+# a K3 call: group_reduce_kernel, or the first of the earlier form's two
+# kernels, whose combine_kernel followed it
+K3_NODE = re.compile(r"\b(group_reduce_kernel|reduce_cells_kernel)\b")
+K3_COMBINE = re.compile(r"\bcombine_kernel\b")
 
 
 def cap_nodes(prof) -> dict:
-    """{"K9c": [calls, device ms], "K5c": [...]} among a profiled run's
-    device events in the order they ran: a K9c call is a select kernel
-    (select_cap_kernel, or select_kernel in the form before it) with the
-    memsets right before it (at most MEMSETS_BEFORE), a K5c call a
-    ranges_scan_kernel with the memsets right before it and the
-    expand_kernel after it. The form before ran two torch element-wise ops
-    after the expansion too, which are not counted here (they cannot be
-    told from the plan's own)."""
+    """{"K9c": [calls, device ms], "K5c": [...], "K3": [...]} among a
+    profiled run's device events in the order they ran: a K9c call is a
+    select kernel (select_cap_kernel, or select_kernel in the form before
+    it) with the memsets right before it (at most MEMSETS_BEFORE), a K5c
+    call a ranges_scan_kernel with the memsets right before it and the
+    expand_kernel after it, a K3 call a K3_NODE kernel (with the earlier
+    form's combine_kernel). The form before K9c's and K5c's ran two torch
+    element-wise ops after the expansion too, which are not counted here
+    (they cannot be told from the plan's own)."""
     cuda = torch.autograd.DeviceType.CUDA
     events = sorted((e for e in prof.events() if e.device_type == cuda),
                     key=lambda e: e.time_range.start)
-    out = {"K9c": [0, 0.0], "K5c": [0, 0.0]}
+    out = {"K9c": [0, 0.0], "K5c": [0, 0.0], "K3": [0, 0.0]}
     for i, e in enumerate(events):
         us = e.time_range.end - e.time_range.start
         if EXPAND_NODE.search(e.name):
             out["K5c"][1] += us / 1e3
+            continue
+        if K3_NODE.search(e.name) or K3_COMBINE.search(e.name):
+            out["K3"][0] += 1 if K3_NODE.search(e.name) else 0
+            out["K3"][1] += us / 1e3
             continue
         kind = next((k for k, pattern in CAP_NODE.items() if pattern.search(e.name)), None)
         if kind is None:
@@ -4789,17 +5035,35 @@ def graph_launches(before, wrappers, queries) -> dict:
     return out
 
 
-def recording_capacity_calls(calls: list):
+def recording_capacity_calls(calls: list, k3_calls: list):
     """A context in which every K9c and K5c call that a graph capture records
     appends (kind, n, cap, site) to `calls`: n the mask's rows or the
     ranges, site the index of its count among the plan's site counts
-    (CompiledQuery.last_counts). The calls are caught where the plan makes
-    them, compiler.oracle_compact and ops/join.py's expand_pairs_cap (the
-    wrappers themselves must stay, since they count their own launches)."""
+    (CompiledQuery.last_counts); and every K3 call of a dense Aggregate
+    appends (n, cells, slots) to `k3_calls` (the form that reduces one slot
+    a call: 0 slots for a count, else 1). The calls are caught where the
+    plan makes them, compiler.oracle_compact, ops/join.py's expand_pairs_cap
+    and ops/aggregate.py's K3 entry (the wrappers themselves must stay,
+    since they count their own launches)."""
     import contextlib
 
+    from hyrise_tpu_torch.ops import aggregate as aggregate_ops
     from hyrise_tpu_torch.ops import join as join_ops
     from hyrise_tpu_torch.plan import compiler
+
+    k3_name = ("segment_reduce_cells_many" if hasattr(aggregate_ops, "segment_reduce_cells_many")
+               else "segment_reduce_cells")
+    k3_saved = getattr(aggregate_ops, k3_name)
+
+    def k3_many(cell, n_cells, slots):
+        if capturing(cell):
+            k3_calls.append((cell.shape[0], n_cells, len(slots)))
+        return k3_saved(cell, n_cells, slots)
+
+    def k3_one(values, cell, n_cells, kind, sentinel=None):
+        if capturing(cell):
+            k3_calls.append((cell.shape[0], n_cells, 0 if kind == "count" else 1))
+        return k3_saved(values, cell, n_cells, kind, sentinel)
 
     def capturing(t) -> bool:
         return (compiler.active() is not None and t.is_cuda
@@ -4822,10 +5086,12 @@ def recording_capacity_calls(calls: list):
     @contextlib.contextmanager
     def recording():
         compiler.oracle_compact, join_ops.expand_pairs_cap = oracle_compact, expand_pairs_cap
+        setattr(aggregate_ops, k3_name, k3_many if k3_name.endswith("_many") else k3_one)
         try:
             yield
         finally:
             compiler.oracle_compact, join_ops.expand_pairs_cap = saved
+            setattr(aggregate_ops, k3_name, k3_saved)
     return recording()
 
 
@@ -4854,6 +5120,18 @@ def census_line(census) -> str:
     return "; ".join(parts)
 
 
+def k3_census_line(census) -> str:
+    """K3's calls in one replay of each plan by size class (n <= 2^a, the
+    cells, the slots), with the rows they read."""
+    classes = {}
+    for n, n_cells, slots in census:
+        key = (pow2_class(n), n_cells, slots)
+        classes[key] = classes.get(key, 0) + 1
+    order = sorted(classes.items(), key=lambda kv: (-kv[1], kv[0]))
+    return (f"K3 {len(census)} calls over {sum(n for n, _, _ in census)} rows; by (n <= 2^a, "
+            f"cells, slots): " + ", ".join(f"({a}, {c}, {k}) {m}" for (a, c, k), m in order))
+
+
 def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrappers,
                    table_eq, tpch_sql) -> tuple:
     """Phase 12 on copies of phase 4's SF1 tables: the 22 hand plans through
@@ -4878,10 +5156,11 @@ def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrapper
     queries = []
     lines, replay_sum, eager_sum = [], 0.0, 0.0
     calls, census, nodes = [], [], {}
+    k3_calls, k3_census = [], []
     for qid in sorted(TPCH_PLANS):
         t0 = time.perf_counter()
-        with recording_capacity_calls(calls):
-            start = len(calls)
+        with recording_capacity_calls(calls, k3_calls):
+            start, k3_start = len(calls), len(k3_calls)
             rows = run_query(qid, cat, via="compiled").rows()
         first = (time.perf_counter() - t0) * 1e3
         cq = compiled_query(qid, cat)
@@ -4890,6 +5169,8 @@ def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrapper
         captured = sum(cq.capture_launches.get(k, 0)
                        for k in ("compact_indices_cap", "expand_pairs_cap"))
         graph_calls = calls[start:][-captured:] if captured else []
+        k3_captured = cq.capture_launches.get("segment_reduce_cells", 0)
+        k3_census += k3_calls[k3_start:][-k3_captured:] if k3_captured else []
         retries, captures = cq.last_retries, cq.captures
         if not cq.sync_checked:
             raise AssertionError(f"compiled Q{qid}: the learning run was not sync-checked; "
@@ -4923,15 +5204,23 @@ def compiled_phase(device, card, tables, hand_rows, hand_wall, sql_rows, wrapper
         f"{COMPILED_REPS} replays vs phase 5's eager median {card}: " + "; ".join(lines))
     log(f"compiled: SF{SF} sums of medians: compiled {replay_sum:.3f} ms, eager "
         f"{eager_sum:.3f} ms {card}")
-    log(f"compiled: K9c and K5c nodes in one replay (cap_nodes: calls / device ms, "
+    log(f"compiled: K9c, K5c and K3 nodes in one replay (cap_nodes: calls / device ms, "
         f"torch.profiler) beside the replay's busy ms {card}: " + "; ".join(
             f"Q{q} " + ("not traced" if busy is None else
                         f"K9c {c['K9c'][0]} / {c['K9c'][1]:.4f}, K5c {c['K5c'][0]} / "
-                        f"{c['K5c'][1]:.4f} of busy {busy:.3f}")
+                        f"{c['K5c'][1]:.4f}, K3 {c['K3'][0]} / {c['K3'][1]:.4f} of busy "
+                        f"{busy:.3f}")
             for q, (busy, c) in sorted(nodes.items())))
+    traced = [(busy, c) for busy, c in nodes.values() if busy is not None]
+    k3_ms, busy_ms = sum(c["K3"][1] for _, c in traced), sum(b for b, _ in traced)
+    log(f"compiled: K3 in one replay of each of the {len(traced)} traced plans {card}: "
+        f"{sum(c['K3'][0] for _, c in traced)} calls, {k3_ms:.4f} device ms of "
+        f"{busy_ms:.3f} busy ({100 * k3_ms / max(busy_ms, 1e-9):.2f}%)")
     log("compiled: K9c and K5c calls in one replay of each of the 22 hand plans: "
         + (census_line(census) if census else "none counted (no graph captured, or a "
            "CompiledQuery without last_counts)"))
+    log("compiled: K3 calls in one replay of each of the 22 hand plans: "
+        + (k3_census_line(k3_census) if k3_census else "none counted (no graph captured)"))
 
     # the 22 SQL texts, compiled and cached
     lines, sql_sum = [], 0.0
@@ -5370,8 +5659,8 @@ def compiled_only_run(device, card, started: float) -> None:
     """`--compiled`: phase 4's SF1 tables, the eager rows and walls of phase
     5's hand plans and phase 6's SQL texts that phase 12 compares with, then
     phase 12 (with `--kernels-from DIR`, another checkout's package). Ends
-    with one JSON line: the busy ms and K9c's and K5c's nodes of one replay
-    of each of the CAP_NODE_QIDS."""
+    with one JSON line: the busy ms and K9c's, K5c's and K3's nodes of one
+    replay of each of the CAP_NODE_QIDS."""
     from hyrise_tpu_torch.kernels import (compact, fused_reduce, group_reduce, hash_lookup,
                                           join_probe, segment_reduce)
     from hyrise_tpu_torch.sql.pipeline import SQLPipelineBuilder
@@ -5406,7 +5695,8 @@ def compiled_only_run(device, card, started: float) -> None:
             raise AssertionError(f"kernel {name} was not launched in phase 12")
     log(f"elapsed: {time.perf_counter() - started:.1f} s, the build included")
     log(json.dumps({"compiled_replays": {
-        f"Q{q}": {"busy_ms": busy, "K9c": c and c["K9c"], "K5c": c and c["K5c"]}
+        f"Q{q}": {"busy_ms": busy, "K9c": c and c["K9c"], "K5c": c and c["K5c"],
+                  "K3": c and c["K3"]}
         for q, (busy, c) in nodes.items()}}))
 
 
@@ -5479,12 +5769,15 @@ def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None
     if checked:
         err = check_cells_edges(device, group_reduce, fused_reduce)
         check_cells_repeated(device, group_reduce, fused_reduce)
+        err = max(err, check_k3_many(device, group_reduce))
         for size in KERNEL_SIZES:
             err = max(err, check_k3(size, device, group_reduce),
                       check_k6(size, device, fused_reduce))
         log(f"cells: K3 and K6 equal to plain at {CELLS_EDGE_SIZES} rows x "
             f"{CELLS_EDGE_COUNTS} cells and at {KERNEL_SIZES}, in {CELLS_REPEATS} launches "
-            f"in a row, and bit-stable (largest float64 difference {err!r})")
+            f"in a row, and bit-stable; K3 also as 1, 2, 6 and 18 slots in one call, from "
+            f"aligned columns and views, a slot's bits the same alone, batched and split "
+            f"(largest float64 difference {err!r})")
     cells, _ = time_cells(n, device, card, time_ms_of(), group_reduce, fused_reduce,
                           one_kernel=checked)
     log(json.dumps({"cells": {label: {
@@ -5495,12 +5788,13 @@ def cells_phase(device, card, group_reduce, fused_reduce, checked: bool) -> None
 
 # the sources `--kernels` builds for each kernel it takes (K8's plain version
 # runs K9 on the card)
-KERNEL_SOURCES = {"K2": ("q6_scan",), "K8": ("hash_lookup", "compact"), "K9c": ("compact",),
-                  "K5c": ("join_probe",)}
+KERNEL_SOURCES = {"K2": ("q6_scan",), "K3": ("group_reduce",), "K8": ("hash_lookup", "compact"),
+                  "K9c": ("compact",), "K5c": ("join_probe",)}
 
 
 def kernels_phase(device, card, wanted, modules, time_ms, checked: bool) -> None:
-    """`--kernels K2,K8,K9c,K5c` (any of them): the named kernels alone. With
+    """`--kernels K2,K3,K8,K9c,K5c` (any of them): the named kernels alone
+    (K3: check_k3_all, then time_cells without K6's rows). With
     `checked` (this checkout's kernels) every check of phase 3 for them,
     then their timed shapes; without (the kernels of another checkout,
     `--kernels-from DIR`, for the same timings of an older form in the same
@@ -5511,6 +5805,12 @@ def kernels_phase(device, card, wanted, modules, time_ms, checked: bool) -> None
     if "K9c" in wanted or "K5c" in wanted:
         timed, _ = cap_phase(device, card, time_ms, modules["compact"], modules["join_probe"],
                              checked)
+    if "K3" in wanted:
+        if checked:
+            check_k3_all(device, modules["group_reduce"])
+        k3_timed, _ = time_cells(KERNEL_SIZES[-1], device, card, time_ms,
+                                 modules["group_reduce"], None, one_kernel=checked)
+        timed.update(k3_timed)
     wanted = [k for k in wanted if k in ("K2", "K8")]
     if checked and wanted:
         for n in KERNEL_SIZES:
@@ -5671,10 +5971,13 @@ def main() -> None:
     err = check_cells_edges(device, group_reduce, fused_reduce)
     k3_err, k6_err = max(k3_err, err), max(k6_err, err)
     check_cells_repeated(device, group_reduce, fused_reduce)
+    k3_err = max(k3_err, check_k3_many(device, group_reduce))
     log(f"kernels: K3 and K6 equal to plain at {CELLS_EDGE_SIZES} rows x "
         f"{CELLS_EDGE_COUNTS} cells (four types, four folds, NaN and +-inf in min and "
         f"max, columns one element into their buffers) and in {CELLS_REPEATS} launches "
-        f"in a row at changing lengths up to {CELLS_REPEAT_ROWS} rows")
+        f"in a row at changing lengths up to {CELLS_REPEAT_ROWS} rows; K3 also as 1, 2, 6 "
+        f"and 18 slots in one launch from aligned columns and views, split over launches "
+        f"by plan_launches, a slot's bits the same alone, batched and split")
     log("kernels: " + check_k2_edges(device, q6))
     log("kernels: " + check_k8_edges(device, hash_lookup))
     # timed at the largest n, in turns: plain, kernel, kernel, plain

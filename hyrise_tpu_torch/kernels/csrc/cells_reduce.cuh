@@ -50,9 +50,8 @@
 //   first: read through a pointer to the kernel parameter, per row and per
 //   fold, it cost more than the loads.
 //
-// K3 (group_reduce.cu) was built on this engine too, as a job of one code
-// column and one accumulator, and measured slower than its own grid-stride
-// kernel at every timed shape (PERF.md section 6), so K3 keeps that kernel.
+// K3 (group_reduce.cu) uses this file's fold helpers (fold, from_bits,
+// fold_bits) in a loop of its own.
 
 #pragma once
 

@@ -4,7 +4,8 @@ The port's counterparts of hyrise_tpu/kernels/tpu_prims.py: stream
 compaction, segmented reductions, ranks in a sorted array and the join
 lookups. Each hand-written CUDA kernel lives in a module of its own with
 its plain torch version beside it, and is re-exported here:
-`segment_reduce_cells` (kernels/group_reduce.py), `lookup_last_eq_lut` and
+`segment_reduce_cells` and `segment_reduce_cells_many`
+(kernels/group_reduce.py), `lookup_last_eq_lut` and
 `expand_pairs` (kernels/join_probe.py), `compact_indices`
 (kernels/compact.py), `segment_reduce_sorted` (kernels/segment_reduce.py)
 and `lookup_last_eq` (kernels/hash_lookup.py). The rest are plain torch.
@@ -21,7 +22,7 @@ import torch
 
 from hyrise_tpu_torch.kernels.compact import compact_indices  # noqa: F401
 from hyrise_tpu_torch.kernels.group_reduce import (  # noqa: F401
-    DENSE_CELL_MAX, segment_reduce_cells)
+    DENSE_CELL_MAX, segment_reduce_cells, segment_reduce_cells_many)
 from hyrise_tpu_torch.kernels.hash_lookup import lookup_last_eq  # noqa: F401
 from hyrise_tpu_torch.kernels.join_probe import (  # noqa: F401
     LUT_MAX_ENTRIES, expand_pairs, lookup_last_eq_lut)

@@ -5,11 +5,11 @@ src/lib/operators/aggregate.{hpp,cpp}). The input picks one of two forms:
 
 - dense cells: a global aggregate (one cell) or a group-by whose keys are
   all NULL-free dictionary columns spanning at most DENSE_CELL_MAX
-  combinations. Each row's cell id is computed from its codes and every
-  aggregate is one reduction into the cells (the K3 kernel,
-  kernels/group_reduce.py). A masked-layout input is read through its live
-  mask, never compacted. This is the JAX package's _fast_scalar and
-  _fast_dense.
+  combinations. Each row's cell id is computed from its codes and all
+  aggregates are reduced into the cells by one call of the K3 kernel
+  (kernels/group_reduce.py segment_reduce_cells_many). A masked-layout
+  input is read through its live mask, never compacted. This is the JAX
+  package's _fast_scalar and _fast_dense.
 - general: any other group-by. Cluster the live rows by the group key with
   one stable multi-key sort, mark boundaries, compact them into the groups'
   start positions; each aggregate is then one reduction over the sorted
@@ -31,8 +31,7 @@ import torch
 
 from hyrise_tpu_torch.expression.ast import AggregateExpr
 from hyrise_tpu_torch.expression.evaluator import compile_expression, make_env
-from hyrise_tpu_torch.kernels.group_reduce import extreme
-from hyrise_tpu_torch.kernels.prims import (DENSE_CELL_MAX, segment_reduce_cells,
+from hyrise_tpu_torch.kernels.prims import (DENSE_CELL_MAX, segment_reduce_cells_many,
                                             segment_reduce_sorted)
 from hyrise_tpu_torch.ops.base import AbstractOperator, capacity_mode
 from hyrise_tpu_torch.ops.materialize import ensure_prefix, gather_table, mask_to_indices
@@ -136,7 +135,22 @@ class Aggregate(AbstractOperator):
         if table.has_dead_rows:
             cell = torch.where(table.live_mask(), cell, cells)  # dead rows: outside
 
-        rows_per_cell = segment_reduce_cells(None, cell, cells, "count")
+        # one K3 launch for the row count, each validity's valid rows and
+        # every SUM, AVG, MIN and MAX (a NULL input leaves its aggregate's
+        # cells like a dead row)
+        compiled = self._compiled(table)
+        kinds = {AggregateFunction.COUNT: "count", AggregateFunction.SUM: "sum",
+                 AggregateFunction.AVG: "sum", AggregateFunction.MIN: "min",
+                 AggregateFunction.MAX: "max"}
+        slots = []
+        for _, fn, data, validity, _, _ in compiled:
+            if data is not None and fn in kinds:
+                kind = kinds[fn]
+                slots.append((None if kind == "count" else data.contiguous(),
+                              None if validity is None else validity.contiguous(), kind))
+        rows_per_cell, reduced = segment_reduce_cells_many(cell, cells, slots)
+        reduced = iter(reduced)
+
         if self.groupby:
             # ascending cell ids are key-sorted group order (codes preserve
             # order), as in the general form; reading them is the host sync
@@ -156,31 +170,28 @@ class Aggregate(AbstractOperator):
         def at_groups(per_cell: torch.Tensor) -> torch.Tensor:
             return per_cell.index_select(0, cell_ids)
 
-        # per validity tensor: (the tensor, cells with its NULLs moved outside
-        # the cell space like dead rows, valid rows per cell)
-        by_validity = {}
-
-        for out_name, fn, data, validity, in_dt, dictionary in self._compiled(table):
+        for out_name, fn, data, validity, in_dt, dictionary in compiled:
             if data is None:  # COUNT(*)
                 out_cols.append(Column(out_name, DataType.INT64,
                                        at_groups(rows_per_cell)))
                 continue
-            data = data.contiguous()
-            if validity is None:
-                cell_a, counts = cell, rows_per_cell
-            else:
-                if id(validity) not in by_validity:
-                    cell_a = torch.where(validity, cell, cells)
-                    by_validity[id(validity)] = (validity, cell_a, segment_reduce_cells(
-                        None, cell_a, cells, "count"))
-                _, cell_a, counts = by_validity[id(validity)]
+            if fn is AggregateFunction.COUNT_DISTINCT:
+                # global only (_dense_sizes): sort the valid values, count runs
+                cell_a = cell if validity is None else torch.where(validity, cell, cells)
+                distinct = _distinct_count(_distinct_key(data, in_dt), cell_a == 0)
+                out_cols.append(Column(out_name, DataType.INT64,
+                                       distinct.reshape(1).to(torch.int64)))
+                continue
+            if fn not in kinds:
+                raise NotImplementedError(fn)
+            result, counts = next(reduced)
             count_g = at_groups(counts)
             nonempty = count_g > 0
             if fn is AggregateFunction.COUNT:
                 out_cols.append(Column(out_name, DataType.INT64, count_g))
             elif fn in (AggregateFunction.SUM, AggregateFunction.AVG):
                 # float64 sums of float inputs, exact int64 sums of integers
-                sums = at_groups(segment_reduce_cells(data, cell_a, cells, "sum"))
+                sums = at_groups(result)
                 if fn is AggregateFunction.SUM:
                     out_dt = aggregate_result_type(fn, in_dt)
                     out_cols.append(Column(out_name, out_dt,
@@ -188,21 +199,10 @@ class Aggregate(AbstractOperator):
                 else:
                     avg = sums.to(torch.float64) / count_g.clamp(min=1).to(torch.float64)
                     out_cols.append(Column(out_name, DataType.FLOAT64, avg, nonempty))
-            elif fn in (AggregateFunction.MIN, AggregateFunction.MAX):
-                # string codes preserve order: min/max on codes
-                is_min = fn is AggregateFunction.MIN
-                red = at_groups(segment_reduce_cells(
-                    data, cell_a, cells, "min" if is_min else "max",
-                    sentinel=extreme(data.dtype, is_min)))
-                out_cols.append(Column(out_name, in_dt, red, nonempty, dictionary))
-            elif fn is AggregateFunction.COUNT_DISTINCT:
-                # global only (_dense_sizes): sort the valid values, count runs
-                key = _distinct_key(data, in_dt)
-                distinct = _distinct_count(key, cell_a == 0)
-                out_cols.append(Column(out_name, DataType.INT64,
-                                       distinct.reshape(1).to(torch.int64)))
             else:
-                raise NotImplementedError(fn)
+                # string codes preserve order: min/max on codes
+                out_cols.append(Column(out_name, in_dt, at_groups(result), nonempty,
+                                       dictionary))
         return Table(out_cols, n_groups, name=table.name)
 
     # -- general ----------------------------------------------------------------

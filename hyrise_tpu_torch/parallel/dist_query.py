@@ -5,8 +5,8 @@ kernels on its own rows and the collectives of parallel/exchange.py
 combine them:
 
 - `dist_q6`: K1 (`q6_scan`) on every shard, psum.
-- `dist_q1`: the returnflag x linestatus cells of every shard through K3
-  (`segment_reduce_cells`), psum over the cells.
+- `dist_q1`: the returnflag x linestatus cells of every shard through one
+  K3 launch (`segment_reduce_cells_many`), psum over the cells.
 - `dist_aggregate_sum_by_key`: two-phase SUM by a high-cardinality key;
   each phase sorts and runs K7's segment sums (`_local_sum_by_key`), with
   an all_to_all of the partials between them, so a hot key sends at most
@@ -24,7 +24,7 @@ from typing import List, Tuple
 
 import torch
 
-from hyrise_tpu_torch.kernels.group_reduce import segment_reduce_cells
+from hyrise_tpu_torch.kernels.group_reduce import segment_reduce_cells_many
 from hyrise_tpu_torch.kernels.prims import compact_indices
 from hyrise_tpu_torch.kernels.q6 import q6_scan
 from hyrise_tpu_torch.kernels.segment_reduce import segment_reduce_sorted
@@ -47,8 +47,8 @@ def dist_q6(mesh: Mesh, lineitem: ShardedTable, date_lo: int, date_hi: int) -> t
 
 def dist_q1(mesh: Mesh, lineitem: ShardedTable, date_hi_code: int):
     """Distributed TPC-H Q1: per shard, the rows with l_shipdate <=
-    date_hi_code reduced into returnflag x linestatus cells by K3, then
-    psum. Returns dense per-cell tensors (n_rf * n_ls): counts, sum_qty,
+    date_hi_code reduced into returnflag x linestatus cells by one K3
+    launch, then psum. Returns dense per-cell tensors (n_rf * n_ls): counts, sum_qty,
     sum_base, sum_disc_price, sum_charge, sum_disc."""
     n_ls = len(lineitem.shards[0].column("l_linestatus").dictionary)
     cells = len(lineitem.shards[0].column("l_returnflag").dictionary) * n_ls
@@ -61,11 +61,10 @@ def dist_q1(mesh: Mesh, lineitem: ShardedTable, date_hi_code: int):
                for name in ("l_quantity", "l_extendedprice", "l_discount", "l_tax")}
         disc_price = f64["l_extendedprice"] * (1.0 - f64["l_discount"])
         charge = disc_price * (1.0 + f64["l_tax"])
-        partials.append(tuple(
-            [segment_reduce_cells(None, cell, cells, "count")]
-            + [segment_reduce_cells(v, cell, cells, "sum")
-               for v in (f64["l_quantity"], f64["l_extendedprice"], disc_price, charge,
-                         f64["l_discount"])]))
+        counts, sums = segment_reduce_cells_many(cell, cells, [
+            (v, None, "sum") for v in (f64["l_quantity"], f64["l_extendedprice"],
+                                       disc_price, charge, f64["l_discount"])])
+        partials.append((counts, *(s for s, _ in sums)))
     return tuple(psum(mesh, [p[k] for p in partials])[0] for k in range(6))
 
 

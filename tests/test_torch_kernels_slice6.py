@@ -266,13 +266,14 @@ def test_launch_shape(column_bytes, n_acc, n_cells, rows, want):
 def test_the_engine_header_is_hashed_with_k6(tmp_path):
     assert [p.name for p in build._source_files("fused_reduce", build.CSRC_DIR)] == \
         ["fused_reduce.cu", "cells_reduce.cuh"]
+    # K3 uses the engine's fold helpers
     assert [p.name for p in build._source_files("group_reduce", build.CSRC_DIR)] == \
-        ["group_reduce.cu"]
+        ["group_reduce.cu", "cells_reduce.cuh"]
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, csrc)
     header = csrc / "cells_reduce.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    for name, rebuilt in (("fused_reduce", True), ("group_reduce", False),
+    for name, rebuilt in (("fused_reduce", True), ("group_reduce", True),
                           ("compact", False)):
         assert (build._library_path(name, csrc) != build._library_path(name)) is rebuilt
 

@@ -246,9 +246,9 @@ def test_dense_aggregate_matches_jax(name, jax_form, monkeypatch):
     groupby, scan, masked = DENSE[name]
     calls = []
     import hyrise_tpu_torch.ops.aggregate as port_aggregate
-    real = port_aggregate.segment_reduce_cells
-    monkeypatch.setattr(port_aggregate, "segment_reduce_cells",
-                        lambda *a, **k: calls.append(a[3]) or real(*a, **k))
+    real = port_aggregate.segment_reduce_cells_many
+    monkeypatch.setattr(port_aggregate, "segment_reduce_cells_many",
+                        lambda cell, n, slots: calls.append(slots) or real(cell, n, slots))
 
     def build(ops, A, S, src):
         if scan is not None:
@@ -256,9 +256,11 @@ def test_dense_aggregate_matches_jax(name, jax_form, monkeypatch):
         return ops.Aggregate(src, groupby, _aggs(A))
     got, want, out = _run_both(build, masked)
     _assert_rows_equal(got, want)
-    # one count for the rows and one per nullable column (f, k2, s), then a
-    # reduction for each of the 10 aggregates that are not a plain count
-    assert calls.count("count") == 1 + 3 and len(calls) == 4 + 10
+    # one K3 call: the row count, and a slot for each of the 11 aggregates
+    # that are not COUNT(*), over three nullable columns (f, k2, s)
+    assert len(calls) == 1 and len(calls[0]) == 11
+    assert sum(kind == "count" for _, _, kind in calls[0]) == 1
+    assert len({id(v) for _, v, _ in calls[0] if v is not None}) == 3
     assert out.column(groupby[0]).unique == (len(groupby) == 1)
 
 
@@ -267,18 +269,18 @@ def test_global_aggregate_takes_the_dense_form(masked, monkeypatch):
     monkeypatch.setenv("HYRISE_TPU_FASTPATH", "1")  # JAX's _fast_scalar reads the mask
     calls = []
     import hyrise_tpu_torch.ops.aggregate as port_aggregate
-    real = port_aggregate.segment_reduce_cells
-    monkeypatch.setattr(port_aggregate, "segment_reduce_cells",
-                        lambda *a, **k: calls.append(a[2]) or real(*a, **k))
+    real = port_aggregate.segment_reduce_cells_many
+    monkeypatch.setattr(port_aggregate, "segment_reduce_cells_many",
+                        lambda cell, n, slots: calls.append(n) or real(cell, n, slots))
     got, want, _ = _run_both(lambda ops, A, S, src: ops.Aggregate(src, [], _aggs(A)),
                              masked)
     _assert_rows_equal(got, want)
-    assert calls and set(calls) == {1}  # every reduction into one cell
+    assert calls == [1]  # one call, every reduction into one cell
 
 
 def test_more_than_64_cells_takes_the_general_form(monkeypatch):
     import hyrise_tpu_torch.ops.aggregate as port_aggregate
-    monkeypatch.setattr(port_aggregate, "segment_reduce_cells",
+    monkeypatch.setattr(port_aggregate, "segment_reduce_cells_many",
                         lambda *a, **k: pytest.fail("dense form over 72 cells"))
     got, want, _ = _run_both(
         lambda ops, A, S, src: ops.Aggregate(src, ["w9", "w8"], _aggs(A)))
