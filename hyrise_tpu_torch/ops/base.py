@@ -3,7 +3,9 @@
 Port of hyrise_tpu/ops/base.py (reference:
 src/lib/operators/abstract_operator.hpp:56-172): an operator has up to two
 input operators, executes once, caches one output Table, and records its
-wall-clock time. `execute_plan` runs a plan recursively on one thread.
+wall-clock time: the host's part, or, while spans are recorded
+(utils/spans.py: one span an operator), its device work too.
+`execute_plan` runs a plan recursively on one thread.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import List, Optional
 import torch
 
 from hyrise_tpu_torch.storage.table import Table
+from hyrise_tpu_torch.utils import spans
 
 
 def capacity_mode() -> bool:
@@ -63,14 +66,17 @@ class AbstractOperator:
         if self._output is not None:
             return self._output
         t0 = time.perf_counter()
-        self._output = self._on_execute(context)
-        device = self._output.device
-        if device.type == "cuda" and not capacity_mode():
-            # Wait for the device so walltime measures the operator's device
-            # work, like the reference's per-operator timing. Lazy (not yet
-            # materialized) columns are not forced: their cost lands on the
-            # operator that first reads them.
-            torch.cuda.synchronize(device)
+        with spans.span(self.name) as span:
+            self._output = self._on_execute(context)
+            device = self._output.device
+            if span and device.type == "cuda" and not capacity_mode():
+                # While spans are recorded, wait for the device so that the
+                # span and walltime measure the operator's device work, like
+                # the reference's per-operator timing; otherwise walltime is
+                # the host's part. Lazy (not yet materialized) columns are
+                # not forced: their cost lands on the operator that first
+                # reads them.
+                torch.cuda.synchronize(device)
         self.performance_data.walltime_s = time.perf_counter() - t0
         return self._output
 

@@ -54,6 +54,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hyrise_tpu_torch.utils import spans
+
 _MIN_CAPACITY = 1024
 
 _STATE = threading.local()
@@ -444,27 +446,40 @@ class CompiledQuery:
         before a capture, or for the next run on the CPU."""
         from hyrise_tpu_torch.storage.table import Table
 
-        with self.lock:
+        # the steps' spans (utils/spans.py): compiled.wait for the lock (a
+        # caller of the same text), .learn, .capture, .replay (the host's
+        # launch), .read (the host waits on the device), .columns
+        with spans.span("compiled.wait"):
+            self.lock.acquire()
+        try:
             self.refresh_sources()
             self.last_retries = 0
             self.host_reads = 0
             for _ in range(self.MAX_RETRIES):
                 if self._graph is None:
-                    learned = self.learn(tighten)
+                    with spans.span("compiled.learn"):
+                        learned = self.learn(tighten)
                     if learned is None:
                         continue
                     if not self.on_cuda:
-                        return Table(self._make_columns(learned, self.last_counts[-1]),
-                                     self.last_counts[-1])
-                    self.capture()
-                outputs = self.replay()
-                counts = self.read_counts(outputs[2])
+                        n = self.last_counts[-1]
+                        with spans.span("compiled.columns"):
+                            return Table(self._make_columns(learned, n), n)
+                    with spans.span("compiled.capture"):
+                        self.capture()
+                with spans.span("compiled.replay", cpu=True):
+                    outputs = self.replay()
+                with spans.span("compiled.read"):
+                    counts = self.read_counts(outputs[2])
                 if self.grow(counts):
                     self.drop_graph()
                     continue
-                return Table(self._make_columns(outputs, counts[-1]), counts[-1])
+                with spans.span("compiled.columns"):
+                    return Table(self._make_columns(outputs, counts[-1]), counts[-1])
             raise RuntimeError("capacity retry limit exceeded: "
                                + str(list(zip(self._labels, self.caps))))
+        finally:
+            self.lock.release()
 
     # -- the hooks of the streamed forms (plan/blocked.py) -----------------------
 

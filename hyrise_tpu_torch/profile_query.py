@@ -8,7 +8,9 @@ host), the wall ms under the profiler (which slows the host side), the
 device-busy ms (sum of the kernels' device time), the idle share
 (1 - busy / wall without the profiler), the operators' wall times as the
 profiled plan reports them, the hand-written kernels' launch counts and
-every device kernel with its total time, the longest first.
+every device kernel with its total time, the longest first. The profiled
+run records spans (utils/spans.py), so each operator's wall time covers its
+device work.
 
 Run:  python -m hyrise_tpu_torch.profile_query 9 18 21
 It fails when no CUDA device is present.
@@ -32,6 +34,7 @@ from hyrise_tpu_torch.ops.base import AbstractOperator, execute_plan
 from hyrise_tpu_torch.storage.catalog import Catalog
 from hyrise_tpu_torch.tpch import dbgen
 from hyrise_tpu_torch.tpch.queries import TPCH_PLANS
+from hyrise_tpu_torch.utils import spans
 
 SF = 1.0
 SEED = 19940607
@@ -68,13 +71,14 @@ def profile(qid: int, catalog: Catalog) -> dict:
         w.launches = 0
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof, spans.recording():
         t0 = time.perf_counter()
         # building a plan already runs its scalar subqueries (Q11, Q22)
         plan = TPCH_PLANS[qid](catalog)
         rows = execute_plan(plan).rows()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
+    spans.drain()
     kernels = {}
     for avg in prof.key_averages():
         if avg.device_type == torch.autograd.DeviceType.CUDA:

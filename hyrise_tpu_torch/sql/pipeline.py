@@ -36,7 +36,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-import time
 import weakref
 from collections import OrderedDict
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -55,11 +54,17 @@ from hyrise_tpu_torch.sql.translator import (ScalarSubquery, SQLToLQPTranslator,
 from hyrise_tpu_torch.storage.catalog import Catalog
 from hyrise_tpu_torch.storage.table import Table, TableColumnDefinition
 from hyrise_tpu_torch.types import DataType
+from hyrise_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass
 class StatementMetrics:
-    """Reference: SQLPipelineStatementMetrics (sql_pipeline.hpp:17-25)."""
+    """Reference: SQLPipelineStatementMetrics (sql_pipeline.hpp:17-25). Each
+    duration is its stage's span (utils/spans.py: `parse`, `translate`,
+    `optimize`, `plan`, `execute`), timed whether or not the recorder is on;
+    `span_id` is the id of the statement's span while the recorder is on,
+    which every span of the statement and of its result's decode carries as
+    `statement`."""
 
     parse_s: float = 0.0
     translate_s: float = 0.0
@@ -67,6 +72,7 @@ class StatementMetrics:
     compile_s: float = 0.0
     execute_s: float = 0.0  # taken after the device has finished
     cache_hit: bool = False
+    span_id: Optional[int] = None
 
 
 class SQLQueryCache:
@@ -231,16 +237,19 @@ class SQLPipelineStatement:
         self.last_compiled = False
         self.last_compiled_query = None
         self.metrics = StatementMetrics()
+        # the pipeline's parse, recorded as this statement's first span (the
+        # first statement of its text)
+        self.parse_span: Optional[spans.Span] = None
 
     # -- stages --------------------------------------------------------------
 
     def get_lqp(self) -> L.LQPNode:
-        t0 = time.perf_counter()
-        tr = SQLToLQPTranslator(self.catalog, params=self.params)
-        lqp = tr.translate(self.stmt)
-        if self.use_mvcc:
-            lqp = self._insert_validates(lqp)
-        self.metrics.translate_s = time.perf_counter() - t0
+        with spans.stage("translate") as stage:
+            tr = SQLToLQPTranslator(self.catalog, params=self.params)
+            lqp = tr.translate(self.stmt)
+            if self.use_mvcc:
+                lqp = self._insert_validates(lqp)
+        self.metrics.translate_s = stage.seconds
         return lqp
 
     def _insert_validates(self, root: L.LQPNode) -> L.LQPNode:
@@ -269,11 +278,11 @@ class SQLPipelineStatement:
 
     def get_optimized_lqp(self) -> L.LQPNode:
         lqp = self.get_lqp()
-        t0 = time.perf_counter()
-        if not self.optimizer.stats:
-            self.optimizer.stats = self.catalog.all_statistics()
-        out = self.optimizer.optimize(lqp, self.catalog)
-        self.metrics.optimize_s = time.perf_counter() - t0
+        with spans.stage("optimize") as stage:
+            if not self.optimizer.stats:
+                self.optimizer.stats = self.catalog.all_statistics()
+            out = self.optimizer.optimize(lqp, self.catalog)
+        self.metrics.optimize_s = stage.seconds
         return out
 
     def _resolve_scalar_subqueries(self, lqp: L.LQPNode, context) -> bool:
@@ -350,12 +359,22 @@ class SQLPipelineStatement:
             if cacheable:
                 _plan_cache.put(cache_key, (weakref.ref(self.catalog), lqp,
                                             read_at if resolved else None))
-        t0 = time.perf_counter()
-        plan = translate_lqp(lqp, self.catalog)
-        self.metrics.compile_s = time.perf_counter() - t0
+        with spans.stage("plan") as stage:
+            plan = translate_lqp(lqp, self.catalog)
+        self.metrics.compile_s = stage.seconds
         return plan
 
     def execute(self) -> Table:
+        """Run the statement: its result (which carries the statement's span
+        id while the recorder is on)."""
+        with spans.statement(self.position, self.parse_span) as span:
+            self.metrics.span_id = span.id
+            result = self._execute()
+        if span:
+            result.statement = self.metrics.span_id
+        return result
+
+    def _execute(self) -> Table:
         if isinstance(self.stmt, P.ExplainStmt):
             inner = SQLPipelineStatement(
                 self.stmt.stmt, self.sql_text, self.catalog, self.optimizer,
@@ -407,15 +426,16 @@ class SQLPipelineStatement:
             compiled = self._cached_compiled(needs_tx)
             plan = compiled.root if compiled is not None else self.get_physical_plan(context)
             self.last_plan = plan  # retained for profiling / visualization
-            t0 = time.perf_counter()
-            result = self._execute_plan(plan, context, needs_tx, compiled)
-            if result.device.type == "cuda":
-                torch.cuda.synchronize(result.device)
+            with spans.stage("execute", cpu=False) as stage:
+                result = self._execute_plan(plan, context, needs_tx, compiled)
+                if result.device.type == "cuda":
+                    with spans.span("execute.sync"):
+                        torch.cuda.synchronize(result.device)
         except BaseException:
             if auto_commit:
                 context.rollback()
             raise
-        self.metrics.execute_s = time.perf_counter() - t0
+        self.metrics.execute_s = stage.seconds
         if auto_commit:
             context.commit()
         return result
@@ -514,9 +534,10 @@ class SQLPipeline:
                  transaction_manager=None, context=None,
                  prepared: Optional[Dict[str, object]] = None, dist_catalog=None,
                  use_compiled: bool = False):
-        t0 = time.perf_counter()
-        self.statements = P.parse_sql(sql)
-        self.parse_s = time.perf_counter() - t0
+        self._parse = spans.stage("parse", keep=False)
+        with self._parse:
+            self.statements = P.parse_sql(sql)
+        self.parse_s = self._parse.seconds
         self._sql = sql
         self._args = (catalog, optimizer, use_cache, params)
         self._transactions = dict(use_mvcc=use_mvcc,
@@ -534,6 +555,8 @@ class SQLPipeline:
                                       use_cache, params=params, position=position,
                                       **self._transactions)
             ps.metrics.parse_s = self.parse_s / max(len(self.statements), 1)
+            if position == 0:
+                ps.parse_span = self._parse
             self.pipeline_statements.append(ps)
             yield ps, ps.execute()
 

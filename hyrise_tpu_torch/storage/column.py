@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from hyrise_tpu_torch.types import DataType
+from hyrise_tpu_torch.utils import spans
 
 
 def encode_strings(values: np.ndarray, dictionary: Optional[np.ndarray] = None):
@@ -172,22 +173,33 @@ class Column:
 
     def decode(self, num_rows: int) -> np.ndarray:
         """Copy the first num_rows to the host, decoding dictionary codes
-        and turning NULLs into None (object array)."""
-        data = self.data[:num_rows].cpu().numpy()
-        valid = (self.validity[:num_rows].cpu().numpy()
-                 if self.validity is not None else np.ones(num_rows, dtype=bool))
+        and turning NULLs into None (object array). Spans: `decode.copy`
+        (the copies, `bytes`), `decode.strings` (the dictionary's values
+        and the NULLs filled in, `rows`)."""
+        with spans.span("decode.copy") as span:
+            data = self.data[:num_rows].cpu().numpy()
+            validity = self.validity
+            valid = validity[:num_rows].cpu().numpy() if validity is not None else None
+            if span:
+                span.set("bytes", data.nbytes + (0 if valid is None else valid.nbytes))
+        if valid is None:
+            valid = np.ones(num_rows, dtype=bool)
         if self.dtype is DataType.STRING:
-            out = np.empty(num_rows, dtype=object)
-            decoded = self.dictionary[np.clip(data, 0, len(self.dictionary) - 1)] \
-                if len(self.dictionary) else np.array([""] * num_rows, dtype=object)
-            out[:] = decoded
-            out[~valid] = None
-            return out
+            with spans.span("decode.strings", cpu=True) as span:
+                span.set("rows", num_rows)
+                out = np.empty(num_rows, dtype=object)
+                decoded = self.dictionary[np.clip(data, 0, len(self.dictionary) - 1)] \
+                    if len(self.dictionary) else np.array([""] * num_rows, dtype=object)
+                out[:] = decoded
+                out[~valid] = None
+                return out
         if not valid.all():
-            out = np.empty(num_rows, dtype=object)
-            out[:] = data
-            out[~valid] = None
-            return out
+            with spans.span("decode.strings", cpu=True) as span:
+                span.set("rows", num_rows)
+                out = np.empty(num_rows, dtype=object)
+                out[:] = data
+                out[~valid] = None
+                return out
         return data
 
     def with_name(self, name: str) -> "Column":

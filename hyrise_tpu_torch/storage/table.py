@@ -26,6 +26,7 @@ import torch
 
 from hyrise_tpu_torch.storage.column import Column
 from hyrise_tpu_torch.types import DataType
+from hyrise_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass
@@ -62,6 +63,10 @@ class Table:
         self.encoding_spec = None
         self.block_stats = None
         self.indexes: Dict[object, object] = {}
+        # the span id of the statement that returned this table as its
+        # result while spans were recorded (utils/spans.py), which the
+        # spans of its decode carry
+        self.statement: Optional[int] = None
         # Duplicate names can occur after joins (both sides kept, like the
         # reference); lookup resolves to the FIRST occurrence.
         self._by_name: Dict[str, int] = {}
@@ -154,30 +159,40 @@ class Table:
         """Every column's live rows on the host (the live mask or the row
         count is read once)."""
         if self.live is None:
-            n = int(self.num_rows)  # one read of a device count
+            n = self.num_rows
+            if isinstance(n, torch.Tensor):
+                with spans.span("decode.copy"):
+                    n = int(n)  # one read of a device count
             return [c.decode(n) for c in self.columns]
-        m = self.live.cpu().numpy()
+        with spans.span("decode.copy") as span:
+            m = self.live.cpu().numpy()
+            span.set("bytes", m.nbytes)
         return [c.decode(self.capacity)[m] for c in self.columns]
 
     def to_pandas(self):
+        """The live rows as a DataFrame. Spans: `decode`, with the copies,
+        the strings and `decode.frame` (the DataFrame's build) in it."""
         import pandas as pd
 
-        data = {}
-        for c, values in zip(self.columns, self._decoded()):
-            # Keep duplicate output names distinct for pandas.
-            k = c.name
-            suffix = 1
-            while k in data:
-                k = f"{c.name}.{suffix}"
-                suffix += 1
-            data[k] = values
-        return pd.DataFrame(data)
+        with spans.span("decode", self.statement):
+            data = {}
+            for c, values in zip(self.columns, self._decoded()):
+                # Keep duplicate output names distinct for pandas.
+                k = c.name
+                suffix = 1
+                while k in data:
+                    k = f"{c.name}.{suffix}"
+                    suffix += 1
+                data[k] = values
+            with spans.span("decode.frame", cpu=True):
+                return pd.DataFrame(data)
 
     def rows(self) -> List[tuple]:
         """All live rows as python tuples (tests / printing)."""
-        decoded = self._decoded()
-        n = len(decoded[0])
-        return [tuple(col[i] for col in decoded) for i in range(n)]
+        with spans.span("decode", self.statement):
+            decoded = self._decoded()
+            n = len(decoded[0])
+            return [tuple(col[i] for col in decoded) for i in range(n)]
 
     def __repr__(self) -> str:
         cols = ", ".join(f"{c.name}:{c.dtype.value}" for c in self.columns)

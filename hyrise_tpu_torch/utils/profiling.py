@@ -6,8 +6,9 @@ the PQP visualizer's walltime annotations and SQLPipelineMetrics): a table
 over an executed physical plan with each operator's walltime, output rows,
 bytes produced and an effective-bandwidth roofline column. An operator's
 walltime (`performance_data.walltime_s`) ends after a
-`torch.cuda.synchronize()` on CUDA (ops/base.py), so it covers its device
-work.
+`torch.cuda.synchronize()` on CUDA while spans are recorded (ops/base.py),
+so it covers its device work where the plan ran inside
+`utils.spans.recording()`; otherwise it is the host's part.
 """
 
 from __future__ import annotations
