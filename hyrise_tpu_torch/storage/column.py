@@ -12,6 +12,10 @@ Port of hyrise_tpu/storage/column.py:
   pay only for the columns they read).
 - At-rest encodings (storage/encoding.py): an encoded column keeps its
   payload in `encoded` and its `data` is a thunk that decodes it.
+- A result's string column reaches a DataFrame by one `take` of its codes
+  from the array pandas makes of its dictionary's values, made once per
+  dictionary object and kept while the dictionary lives
+  (`Column.decode_frame_column`).
 
 There is no capacity padding: a base column holds exactly its rows. Tables
 with a live mask (storage/table.py) may still carry dead rows.
@@ -19,7 +23,9 @@ with a live mask (storage/table.py) may still carry dead rows.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import threading
+import weakref
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +63,115 @@ def merge_dictionaries(dict_a: np.ndarray, dict_b: np.ndarray):
     remap_a = np.searchsorted(merged, dict_a).astype(np.int32)
     remap_b = np.searchsorted(merged, dict_b).astype(np.int32)
     return merged, remap_a, remap_b
+
+
+# -- a dictionary's values as pandas holds them -------------------------------
+#
+# Table.to_pandas takes each string column from an array that pandas itself
+# made of the column's dictionary (`pd.Series(values).array`: Arrow-backed
+# `str` under pandas' string inference, object otherwise), so a request makes
+# no Python string and the DataFrame infers nothing. An entry is kept per
+# dictionary object, keyed by its id and dropped by a weak reference's
+# callback when the dictionary dies. A dictionary made afresh for one request
+# must not pay its whole length each time, so the array is built on the first
+# decode that reads at least as many rows as the dictionary has entries, or
+# on the second decode of the same object; before that the column is decoded
+# directly, as Column.decode does. Two threads may build one entry at once:
+# each array is whole before it is stored, and either serves.
+
+
+class _FrameEntry:
+    """One dictionary's arrays by pandas setting; none while the dictionary
+    has been decoded only once."""
+
+    __slots__ = ("ref", "arrays")
+
+    def __init__(self, dictionary: np.ndarray, key: int):
+        self.ref = weakref.ref(dictionary, lambda ref: _frame_forget(key, ref))
+        self.arrays: Dict[tuple, object] = {}
+
+
+_frame_entries: Dict[int, _FrameEntry] = {}
+_frame_counts = {"hit": 0, "build": 0, "direct": 0}
+_frame_counts_lock = threading.Lock()
+
+
+def _frame_forget(key: int, ref) -> None:
+    entry = _frame_entries.get(key)
+    if entry is not None and entry.ref is ref:
+        _frame_entries.pop(key, None)
+
+
+def _count(word: str) -> str:
+    with _frame_counts_lock:
+        _frame_counts[word] += 1
+    return word
+
+
+def frame_decode_counts() -> Dict[str, int]:
+    """How Table.to_pandas decoded its string columns since the process
+    began: `hit` (taken from a kept array), `build` (the array made, then
+    taken), `direct` (a fresh object array); and `entries`, the dictionaries
+    tracked now."""
+    with _frame_counts_lock:
+        out = dict(_frame_counts)
+    out["entries"] = len(_frame_entries)
+    return out
+
+
+def _direct_strings(dictionary: np.ndarray, codes: np.ndarray,
+                    valid: Optional[np.ndarray]) -> np.ndarray:
+    """Codes as a fresh object array of Python strings, NULLs None."""
+    out = np.empty(len(codes), dtype=object)
+    out[:] = dictionary[np.clip(codes, 0, len(dictionary) - 1)] \
+        if len(dictionary) else np.array([""] * len(codes), dtype=object)
+    if valid is not None:
+        out[~valid] = None
+    return out
+
+
+def _frame_strings(dictionary: np.ndarray, codes: np.ndarray,
+                  valid: Optional[np.ndarray]) -> Tuple[object, str]:
+    """(the rows of `codes` as the DataFrame takes them, how: `hit`, `build`
+    or `direct`). The DataFrame built from the result holds what it would
+    hold from Column.decode's object array: `str` values with NaN for NULL
+    under pandas' string inference, else objects with None."""
+    import pandas as pd
+
+    n, size = len(codes), len(dictionary)
+    if (not n or not size or dictionary.dtype.kind != "U"
+            or (valid is not None and not valid.any())):
+        # nothing to take from, or no string for pandas to infer `str` from
+        return _direct_strings(dictionary, codes, valid), _count("direct")
+    key = id(dictionary)
+    entry = _frame_entries.get(key)
+    if entry is None or entry.ref() is not dictionary:
+        entry = _frame_entries[key] = _FrameEntry(dictionary, key)
+        seen = False
+    else:
+        seen = True
+    setting = (pd.get_option("future.infer_string"), pd.get_option("mode.string_storage"))
+    array = entry.arrays.get(setting)
+    if array is not None:
+        how = "hit"
+    elif n >= size or seen:
+        array = pd.Series(dictionary.astype(object), copy=False).array
+        if isinstance(array, pd.arrays.NumpyExtensionArray):
+            array = array.to_numpy()  # object values: numpy takes them, None fills
+        entry.arrays[setting] = array
+        how = "build"
+    else:
+        return _direct_strings(dictionary, codes, valid), _count("direct")
+    index = np.clip(codes, 0, size - 1)
+    if isinstance(array, np.ndarray):
+        out = array.take(index)
+        if valid is not None:
+            out[~valid] = None
+    elif valid is None or valid.all():
+        out = array.take(index)
+    else:
+        out = array.take(np.where(valid, index, -1), allow_fill=True)
+    return out, _count(how)
 
 
 class Column:
@@ -171,28 +286,29 @@ class Column:
     def capacity(self) -> int:
         return self._capacity
 
-    def decode(self, num_rows: int) -> np.ndarray:
-        """Copy the first num_rows to the host, decoding dictionary codes
-        and turning NULLs into None (object array). Spans: `decode.copy`
-        (the copies, `bytes`), `decode.strings` (the dictionary's values
-        and the NULLs filled in, `rows`)."""
+    def _to_host(self, num_rows: int):
+        """(data, validity or None) of the first num_rows, copied to the
+        host in the span `decode.copy` (`bytes`)."""
         with spans.span("decode.copy") as span:
             data = self.data[:num_rows].cpu().numpy()
             validity = self.validity
             valid = validity[:num_rows].cpu().numpy() if validity is not None else None
             if span:
                 span.set("bytes", data.nbytes + (0 if valid is None else valid.nbytes))
+        return data, valid
+
+    def decode(self, num_rows: int) -> np.ndarray:
+        """Copy the first num_rows to the host, decoding dictionary codes
+        and turning NULLs into None (object array). Spans: `decode.copy`
+        (the copies, `bytes`), `decode.strings` (the dictionary's values
+        and the NULLs filled in, `rows`)."""
+        data, valid = self._to_host(num_rows)
         if valid is None:
             valid = np.ones(num_rows, dtype=bool)
         if self.dtype is DataType.STRING:
             with spans.span("decode.strings", cpu=True) as span:
                 span.set("rows", num_rows)
-                out = np.empty(num_rows, dtype=object)
-                decoded = self.dictionary[np.clip(data, 0, len(self.dictionary) - 1)] \
-                    if len(self.dictionary) else np.array([""] * num_rows, dtype=object)
-                out[:] = decoded
-                out[~valid] = None
-                return out
+                return _direct_strings(self.dictionary, data, valid)
         if not valid.all():
             with spans.span("decode.strings", cpu=True) as span:
                 span.set("rows", num_rows)
@@ -201,6 +317,27 @@ class Column:
                 out[~valid] = None
                 return out
         return data
+
+    def decode_frame_column(self, num_rows: int, mask: Optional[np.ndarray] = None):
+        """The first num_rows, or those of them that `mask` keeps, as
+        Table.to_pandas puts them into its DataFrame: what decode gives,
+        except that a string column's codes are picked by the mask first
+        and then taken from its dictionary's kept array (_frame_strings).
+        The span `decode.strings` (`rows`, and `cache`: `hit`, `build` or
+        `direct`) covers the take."""
+        if self.dtype is not DataType.STRING:
+            values = self.decode(num_rows)
+            return values if mask is None else values[mask]
+        data, valid = self._to_host(num_rows)
+        if mask is not None:
+            data = data[mask]
+            valid = None if valid is None else valid[mask]
+        with spans.span("decode.strings", cpu=True) as span:
+            values, how = _frame_strings(self.dictionary, data, valid)
+            if span:
+                span.set("rows", len(data))
+                span.set("cache", how)
+            return values
 
     def with_name(self, name: str) -> "Column":
         # shares the (possibly still-unmaterialized) payload; a rename never

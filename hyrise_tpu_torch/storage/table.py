@@ -155,35 +155,45 @@ class Table:
         m = self.live.cpu().numpy()
         return c.decode(self.capacity)[m]
 
-    def _decoded(self) -> List[np.ndarray]:
-        """Every column's live rows on the host (the live mask or the row
-        count is read once)."""
+    def _live_rows(self):
+        """(rows to copy, the live mask over them or None), with the row
+        count or the live mask read once from the device."""
         if self.live is None:
             n = self.num_rows
             if isinstance(n, torch.Tensor):
                 with spans.span("decode.copy"):
                     n = int(n)  # one read of a device count
-            return [c.decode(n) for c in self.columns]
+            return n, None
         with spans.span("decode.copy") as span:
             m = self.live.cpu().numpy()
             span.set("bytes", m.nbytes)
-        return [c.decode(self.capacity)[m] for c in self.columns]
+        return self.capacity, m
+
+    def _decoded(self) -> List[np.ndarray]:
+        """Every column's live rows on the host (Column.decode)."""
+        n, m = self._live_rows()
+        if m is None:
+            return [c.decode(n) for c in self.columns]
+        return [c.decode(n)[m] for c in self.columns]
 
     def to_pandas(self):
-        """The live rows as a DataFrame. Spans: `decode`, with the copies,
-        the strings and `decode.frame` (the DataFrame's build) in it."""
+        """The live rows as a DataFrame, each column as
+        Column.decode_frame_column gives it. Spans: `decode`, with the
+        copies, the strings and `decode.frame` (the DataFrame's build) in
+        it."""
         import pandas as pd
 
         with spans.span("decode", self.statement):
+            n, m = self._live_rows()
             data = {}
-            for c, values in zip(self.columns, self._decoded()):
+            for c in self.columns:
                 # Keep duplicate output names distinct for pandas.
                 k = c.name
                 suffix = 1
                 while k in data:
                     k = f"{c.name}.{suffix}"
                     suffix += 1
-                data[k] = values
+                data[k] = c.decode_frame_column(n, m)
             with spans.span("decode.frame", cpu=True):
                 return pd.DataFrame(data)
 

@@ -4,7 +4,8 @@ boundaries.
 A span is one stretch of work on one thread: its name, its own id, the id
 of the span that was open around it on that thread (its parent), the id of
 the statement it serves, its start and end on `time.perf_counter_ns()`
-(`t0`, `t1`), and a few integer attributes (`rows`, `bytes`, `position`).
+(`t0`, `t1`), and a few attributes: integers (`rows`, `bytes`, `position`)
+or a word (`cache` of a string decode: `hit`, `build` or `direct`).
 A span of host-only work (`cpu=True`: the front end's stages, a graph's
 launch, the strings and the frame of a decode) also holds the thread's CPU
 time `time.thread_time_ns()` at both ends (`c0`, `c1`; else None): wall
@@ -92,7 +93,7 @@ class Span:
         self.statement = statement
         self.id = self.parent = self.thread = None
         self.t0 = self.t1 = self.c0 = self.c1 = None
-        self.attrs: Optional[Dict[str, int]] = None
+        self.attrs: Optional[Dict[str, object]] = None
         self._recorded = _on
         self._kept = _on and keep
         self._cpu = _on and cpu
@@ -153,11 +154,12 @@ class Span:
                 self.statement = top.statement
         t.stack.append(self)
 
-    def set(self, key: str, value: int) -> None:
-        """An integer attribute: `rows`, `bytes` or `position`."""
+    def set(self, key: str, value) -> None:
+        """An attribute: an integer (`rows`, `bytes`, `position`) or a word
+        (`cache`)."""
         if self.attrs is None:
             self.attrs = {}
-        self.attrs[key] = int(value)
+        self.attrs[key] = value if isinstance(value, str) else int(value)
 
     @property
     def seconds(self) -> float:
@@ -184,7 +186,7 @@ class _Off:
     def __exit__(self, *exc) -> bool:
         return False
 
-    def set(self, key: str, value: int) -> None:
+    def set(self, key: str, value) -> None:
         pass
 
 
