@@ -90,6 +90,13 @@ class Literal(Expr):
     def __repr__(self): return f"lit({self.value!r})"
 
 
+class ComputedValue(Literal):
+    """A value the plan computed before it runs (an uncorrelated scalar
+    subquery's result), standing where a literal stands. A column compares
+    with it in their common type, as with the same subquery correlated,
+    where a literal written in the text takes the column's type."""
+
+
 @dataclasses.dataclass(eq=False)
 class Arithmetic(Expr):
     op: str  # + - * / %

@@ -245,18 +245,23 @@ class _Compiler:
         # Column vs literal: an integral column compares with the literal
         # exactly (integral_comparison); any other column casts the literal
         # to its own type (the reference casts the scan value to the column
-        # type; float32 columns rely on it, as Q6's l_discount does).
+        # type; float32 columns rely on it, as Q6's l_discount does), but not
+        # a computed value: a float32 column against a float64 average is
+        # compared in float64 (Q22).
+        cmp_dt = None
         if isinstance(e.left, ast.ColumnRef) and isinstance(e.right, ast.Literal):
-            cmp_dt = lc.dtype
-            if cmp_dt.is_integral:
+            if lc.dtype.is_integral:
                 return self._rule_comparison(
-                    lc, integral_comparison(cond, e.right.value, cmp_dt))
+                    lc, integral_comparison(cond, e.right.value, lc.dtype))
+            if not isinstance(e.right, ast.ComputedValue):
+                cmp_dt = lc.dtype
         elif isinstance(e.right, ast.ColumnRef) and isinstance(e.left, ast.Literal):
-            cmp_dt = rc.dtype
-            if cmp_dt.is_integral:
+            if rc.dtype.is_integral:
                 return self._rule_comparison(
-                    rc, integral_comparison(cond.flipped(), e.left.value, cmp_dt))
-        else:
+                    rc, integral_comparison(cond.flipped(), e.left.value, rc.dtype))
+            if not isinstance(e.left, ast.ComputedValue):
+                cmp_dt = rc.dtype
+        if cmp_dt is None:
             cmp_dt = common_numeric_type(lc.dtype, rc.dtype)
 
         def fn(env: Env) -> Value:
@@ -688,16 +693,20 @@ def code_comparison(cond: PredicateCondition, value: str, dictionary: np.ndarray
             P.GREATER_THAN_EQUALS: (P.GREATER_THAN_EQUALS, lo)}[cond]
 
 
-def comparison_rule(column: Column, cond: PredicateCondition, value) -> Rule:
+def comparison_rule(column: Column, cond: PredicateCondition, value,
+                    computed: bool = False) -> Rule:
     """`column cond value` as TableScan evaluates it, for IndexScan and
     block pruning: strings in code space, integral columns exactly, and a
-    float column against the literal cast to its type (NaN matches only
-    !=)."""
+    float column against the literal cast to its type, or against a
+    `computed` value (ast.ComputedValue) in their common type (NaN matches
+    only !=)."""
     if column.dtype is DataType.STRING:
         return code_comparison(cond, value, column.dictionary)
     if column.dtype.is_integral:
         return integral_comparison(cond, value, column.dtype)
-    v = column.dtype.numpy_dtype.type(value)
+    dt = common_numeric_type(column.dtype, _literal_dtype(value)) if computed \
+        else column.dtype
+    v = dt.numpy_dtype.type(value)
     return cond is PredicateCondition.NOT_EQUALS if np.isnan(v) else (cond, v)
 
 

@@ -49,6 +49,7 @@ import dataclasses
 import gc
 import hashlib
 import threading
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,6 +62,43 @@ _MIN_CAPACITY = 1024
 _STATE = threading.local()
 _EAGER_READS_LOCK = threading.Lock()
 _eager_reads = 0
+
+
+_COUNTS_LOCK = threading.Lock()
+_counts = {"learning_runs": 0, "retries": 0, "captures": 0,
+           "pool_bytes_live": 0, "pool_bytes_peak": 0}
+
+
+def compiled_counts() -> Dict[str, int]:
+    """What compiled execution did since the process began, over every
+    CompiledQuery: `learning_runs` (uncaptured capacity-mode runs, each
+    with one host read), `retries` (overflows that `grow` raised, each
+    forcing a new learning run and capture), `captures`, and the device
+    memory the captured graphs' private pools reserved: `pool_bytes_live`
+    for the graphs alive now (a dropped or collected graph gives its bytes
+    back) and `pool_bytes_peak`, the most held at once."""
+    with _COUNTS_LOCK:
+        return dict(_counts)
+
+
+def _count(key: str) -> None:
+    with _COUNTS_LOCK:
+        _counts[key] += 1
+
+
+def _hold_pool(graph, nbytes: int) -> None:
+    """Count one capture whose pool reserved `nbytes`, held until `graph`
+    is collected."""
+    with _COUNTS_LOCK:
+        _counts["captures"] += 1
+        _counts["pool_bytes_live"] += nbytes
+        _counts["pool_bytes_peak"] = max(_counts["pool_bytes_peak"], _counts["pool_bytes_live"])
+    weakref.finalize(graph, _release_pool, nbytes)
+
+
+def _release_pool(nbytes: int) -> None:
+    with _COUNTS_LOCK:
+        _counts["pool_bytes_live"] -= nbytes
 
 
 def bucket_capacity(n: int) -> int:
@@ -288,7 +326,9 @@ class CompiledQuery:
     replay) counted, as the host read it: the sites' counts in site order
     (`labels`), the checks' flags, and the result's rows; `last_retries` the
     overflow retries of the last run, `captures` and `replays` count graph
-    captures and replays, `pool_mb` is the device memory the last capture reserved, and
+    captures and replays, `pool_mb` is the device memory the last capture
+    reserved (`compiled_counts()` sums both counts and the pools over every
+    CompiledQuery), and
     `capture_launches` the launches of each kernel wrapper during it (a
     replay launches them again without the wrappers seeing it;
     `launches_captured` and `launches_replayed` sum them over every capture
@@ -435,9 +475,11 @@ class CompiledQuery:
                                  if after[k] != before.get(k, 0)}
         for k, v in self.capture_launches.items():
             self.launches_captured[k] = self.launches_captured.get(k, 0) + v
-        self.pool_mb = (torch.cuda.memory_reserved(self.device) - reserved) / 2**20
+        nbytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.pool_mb = nbytes / 2**20
         self._graph, self._graph_outputs = graph, outputs
         self.captures += 1
+        _hold_pool(graph, nbytes)
 
     def run(self, tighten: bool = True):
         """The plan's result. A capacity overflow raises that site's
@@ -448,7 +490,9 @@ class CompiledQuery:
 
         # the steps' spans (utils/spans.py): compiled.wait for the lock (a
         # caller of the same text), .learn, .capture, .replay (the host's
-        # launch), .read (the host waits on the device), .columns
+        # launch), .read (the host waits on the device), .columns; .learn
+        # carries `retry` (the overflows of this run before it), .capture
+        # `bytes` (its pool)
         with spans.span("compiled.wait"):
             self.lock.acquire()
         try:
@@ -457,7 +501,8 @@ class CompiledQuery:
             self.host_reads = 0
             for _ in range(self.MAX_RETRIES):
                 if self._graph is None:
-                    with spans.span("compiled.learn"):
+                    with spans.span("compiled.learn") as s:
+                        s.set("retry", self.last_retries)
                         learned = self.learn(tighten)
                     if learned is None:
                         continue
@@ -465,8 +510,9 @@ class CompiledQuery:
                         n = self.last_counts[-1]
                         with spans.span("compiled.columns"):
                             return Table(self._make_columns(learned, n), n)
-                    with spans.span("compiled.capture"):
+                    with spans.span("compiled.capture") as s:
                         self.capture()
+                        s.set("bytes", int(self.pool_mb * 2**20))  # exact
                 with spans.span("compiled.replay", cpu=True):
                     outputs = self.replay()
                 with spans.span("compiled.read"):
@@ -489,6 +535,7 @@ class CompiledQuery:
         its counts: the outputs, or None after an overflow, which raised
         the sites' capacities. With `tighten`, capacities then shrink to
         the counts."""
+        _count("learning_runs")
         outputs = self._execute(learning=True)
         counts = self.read_counts(outputs[2])
         if self.grow(counts):
@@ -540,6 +587,7 @@ class CompiledQuery:
             self.caps[i] = bucket_capacity(max(int(counts[i]), 1))
         if overflow:
             self.last_retries += 1
+            _count("retries")
         return bool(overflow)
 
     def shrink(self, counts: List[int]) -> None:

@@ -286,8 +286,9 @@ class SQLPipelineStatement:
         return out
 
     def _resolve_scalar_subqueries(self, lqp: L.LQPNode, context) -> bool:
-        """Execute ScalarSubquery placeholders, substitute literals
-        (the reference's uncorrelated PQPSelectExpression evaluation).
+        """Execute ScalarSubquery placeholders, substitute their values as
+        literals (ast.ComputedValue; the reference's uncorrelated
+        PQPSelectExpression evaluation).
         Under MVCC a subquery validates its tables too. Returns whether
         there was one."""
         found = [False]
@@ -300,7 +301,7 @@ class SQLPipelineStatement:
                     sub = self._insert_validates(sub)
                 sub_plan = translate_lqp(
                     self.optimizer.optimize(sub, self.catalog), self.catalog)
-                return ast.lit(self._scalar_value(execute_plan(sub_plan, context)))
+                return ast.ComputedValue(self._scalar_value(execute_plan(sub_plan, context)))
             for attr in ("left", "right", "value", "lower", "upper"):
                 if hasattr(e, attr) and isinstance(getattr(e, attr), ast.Expr):
                     setattr(e, attr, fix_expr(getattr(e, attr)))

@@ -19,8 +19,8 @@ once. They are exact:
 - NULL rows, dead rows and NaN values take no part in the bounds; a block
   with no other value is `empty`. A NaN matches no comparison, so a block
   is never kept or pruned for one;
-- a literal is compared as the scan compares it (expression/evaluator.py
-  comparison_rule).
+- a literal, or a computed value (ast.ComputedValue), is compared as the
+  scan compares it (expression/evaluator.py comparison_rule).
 """
 
 from __future__ import annotations
@@ -130,27 +130,32 @@ class BlockStatistics:
         if not isinstance(pred, ast.Comparison) or pred.cond not in _PRUNABLE:
             return None
         if isinstance(pred.left, ast.ColumnRef) and isinstance(pred.right, ast.Literal):
-            name, value, cond = pred.left.name, pred.right.value, pred.cond
+            name, lit, cond = pred.left.name, pred.right, pred.cond
         elif isinstance(pred.right, ast.ColumnRef) and isinstance(pred.left, ast.Literal):
-            name, value, cond = pred.right.name, pred.left.value, pred.cond.flipped()
+            name, lit, cond = pred.right.name, pred.left, pred.cond.flipped()
         else:
             return None
+        value = lit.value
         if name not in self.columns or value is None:
             return None
         st = self.columns[name]
         col = table.column(name)
         if (col.dtype is DataType.STRING) != isinstance(value, str):
             return None
-        rule = comparison_rule(col, cond, value)
+        rule = comparison_rule(col, cond, value, isinstance(lit, ast.ComputedValue))
         if isinstance(rule, bool):
             return ~st.empty if rule else np.zeros(self.n_blocks, dtype=bool)
         cond, v = rule
+        # the bounds in the value's type where it is wider (a float32 column
+        # against a computed float64 value), whatever numpy's scalar rules
+        dt = np.promote_types(st.mins.dtype, np.asarray(v).dtype)
+        mins, maxs = st.mins.astype(dt, copy=False), st.maxs.astype(dt, copy=False)
         P = PredicateCondition
-        keep = {P.EQUALS: lambda: (st.mins <= v) & (st.maxs >= v),
-                P.LESS_THAN: lambda: st.mins < v,
-                P.LESS_THAN_EQUALS: lambda: st.mins <= v,
-                P.GREATER_THAN: lambda: st.maxs > v,
-                P.GREATER_THAN_EQUALS: lambda: st.maxs >= v}[cond]()
+        keep = {P.EQUALS: lambda: (mins <= v) & (maxs >= v),
+                P.LESS_THAN: lambda: mins < v,
+                P.LESS_THAN_EQUALS: lambda: mins <= v,
+                P.GREATER_THAN: lambda: maxs > v,
+                P.GREATER_THAN_EQUALS: lambda: maxs >= v}[cond]()
         return keep & ~st.empty
 
 

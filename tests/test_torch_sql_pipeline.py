@@ -3,9 +3,12 @@ plan cache and its five eviction policies (held against the JAX package's
 cache on the same access sequence), PREPARE/EXECUTE, `?` parameters, EXPLAIN,
 views, SHOW, set operations, statement metrics, DML, CREATE TABLE and the
 MVCC switch against the JAX package, the lowering of an index-marked
-predicate, and the error raised by a missing catalog."""
+predicate, the error raised by a missing catalog, and a scalar subquery's
+value compared with a float32 column in their common type, under each
+physical design (against sqlite)."""
 
 import random
+import sqlite3
 
 import numpy as np
 import pytest
@@ -21,7 +24,9 @@ from hyrise_tpu_torch.sql import pipeline
 from hyrise_tpu_torch.sql.pipeline import (SQLPipelineBuilder, SQLQueryCache,
                                            StatementMetrics, run_sql)
 from hyrise_tpu_torch.sql.translator import SQLTranslationError
+from hyrise_tpu_torch.storage.block_statistics import attach_block_statistics
 from hyrise_tpu_torch.storage.catalog import Catalog
+from hyrise_tpu_torch.storage.index import create_index
 from hyrise_tpu_torch.storage.table import Table, TableColumnDefinition
 from hyrise_tpu_torch.types import DataType
 
@@ -427,7 +432,6 @@ def test_index_marked_predicate_raises_in_the_physical_translator():
     from hyrise_tpu_torch.expression import ast
     from hyrise_tpu_torch.ops.base import execute_plan
     from hyrise_tpu_torch.ops.index_scan import IndexScan
-    from hyrise_tpu_torch.storage.index import create_index
     from hyrise_tpu_torch.types import PredicateCondition
     cat = _catalog()
     for indexed in (False, True):
@@ -452,3 +456,43 @@ def test_catalog_device_is_where_its_tables_live():
     assert Catalog(device="cpu").device == torch.device("cpu")
     assert Catalog().device == torch.device("cuda")  # the card, if nothing says else
     assert _catalog().device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("compiled", [False, True])
+@pytest.mark.parametrize("design", [None, "block statistics", "index"])
+def test_a_scalar_subquery_compares_in_the_common_type(compiled, design):
+    """A float32 column against an uncorrelated AVG compares in float64, as
+    its correlated form and sqlite do; the average rounded to float32 would
+    drop the rows that sit on the rounded value (TPC-H Q22 on some data).
+    Here the float64 average lies a third of a float32 step below v, the
+    blocks' maximum. A physical design changes no answer: block statistics
+    prune in the same type, and an index serves no subquery's value (the
+    index rule runs before the subqueries are resolved)."""
+    v = np.float32(5004.58)
+    u = np.nextafter(v, np.float32(-np.inf))
+    x = np.array([v, v, u], dtype=np.float32)
+    avg = x.astype(np.float64).mean()
+    assert np.float32(avg) == v and float(v) > avg
+    t = Table.from_arrays("t", [TableColumnDefinition("x", DataType.FLOAT32)], [x],
+                          device="cpu")
+    if design == "block statistics":
+        attach_block_statistics(t, block_rows=2)
+        assert t.block_stats.columns["x"].maxs.tolist() == [v, u]
+    elif design == "index":
+        create_index(t, "x")
+    cat = Catalog()
+    cat.add_table("t", t)
+    db = sqlite3.connect(":memory:")
+    db.execute("CREATE TABLE t (x REAL)")
+    db.executemany("INSERT INTO t VALUES (?)", [(float(a),) for a in x])
+    where = ["x > (SELECT AVG(x) FROM t)", "(SELECT AVG(x) FROM t) < x",
+             "x >= (SELECT AVG(x) FROM t)"]
+    # the rows go through TableScan, which prunes blocks; COUNT(*) through
+    # the fused filter-aggregate, which does not
+    for text in [f"SELECT x FROM t WHERE {w}" for w in where] + \
+            [f"SELECT COUNT(*) AS n FROM t WHERE {w}" for w in where]:
+        frame = SQLPipelineBuilder(text).with_catalog(cat) \
+            .with_compiled_execution(compiled).create_pipeline().get_result_table().to_pandas()
+        want = [r[0] for r in db.execute(text)]
+        assert want in ([float(v)] * 2, [2])
+        assert frame.iloc[:, 0].tolist() == want, text
